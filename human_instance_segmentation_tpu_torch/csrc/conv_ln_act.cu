@@ -1,0 +1,429 @@
+// Fused SAME conv (k in {1,3}) + bias -> LayerNorm2d over the whole ROI
+// -> per-channel affine -> optional residual -> ReLU, NHWC, for Hopper.
+//
+// Replaces the JAX package's Pallas kernel
+// human_instance_segmentation_tpu/ops/pallas_head.py::conv_ln_act
+// (_conv_ln_act :195, kernel body _kernel :90-151). The TPU kernel keeps one
+// ROI in VMEM and normalises it in one grid step. Here a block cannot own a
+// whole ROI's conv (192 pixels x 384 channels x 3456-deep contraction at the
+// served shape), and LayerNorm2d's statistics span all of H*W*C of the ROI,
+// so the work is split in two launches:
+//
+//  (a) conv: an implicit GEMM. One block per (64-pixel tile, 64-channel
+//      tile, ROI); the contraction runs over the k*k taps and input channel
+//      slices staged in shared memory. bf16 inputs multiply on the tensor
+//      cores through WMMA 16x16x16 fragments with float32 accumulation.
+//      When both channel counts divide by 8 the slices are 64 channels,
+//      staged with 16-byte cp.async copies (zero-filled for padding taps)
+//      into two shared-memory stages, so the next slice loads while the
+//      tensor cores work on the current one; otherwise a scalar-staged
+//      kernel takes 32-channel slices. float32 inputs use FMAs (no TF32, so
+//      f32 stays f32). The block writes conv + bias as float32 into a
+//      scratch buffer (N, P, Co) that the wrapper allocates.
+//  (b) norm: one block per ROI. Mean in one pass, then the biased variance
+//      in a second pass over the float32 scratch (as pallas_head.py:143-144
+//      does; not E[x^2] - E[x]^2, which loses digits over 73,728 values),
+//      then affine, residual, ReLU and the cast to the output dtype.
+//
+// Bound: at the served shape (32 ROIs x 16x12 pixels x 384 -> 384, k=3) the
+// conv costs 2*192*384*384*9 = 0.51 GFLOP per ROI, 16.3 GFLOP per call and
+// five calls per forward: compute-bound. WMMA (mma.sync) with a two-stage
+// cp.async pipeline is far from Hopper's wgmma/TMA rate; those are later
+// work. The norm pass reads 0.3 MB per ROI three times, mostly
+// from L2.
+//
+// Every launcher returns cudaGetLastError(); the Python wrapper raises on a
+// non-zero value.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int BM = 64;  // pixels per block tile
+constexpr int BN = 64;  // output channels per block tile
+constexpr int BK = 32;  // input channels per contraction step
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Pixel coordinates of the block's BM rows (-1e6 marks a row past P, so
+// every tap of it falls outside the image and loads zero).
+__device__ __forceinline__ void tile_rows(int* rowy, int* rowx, int p0, int P, int W) {
+  for (int m = threadIdx.x; m < BM; m += blockDim.x) {
+    const int p = p0 + m;
+    rowy[m] = p < P ? p / W : -1000000;
+    rowx[m] = p < P ? p % W : 0;
+  }
+}
+
+// ---- (a) bf16, any channel counts: scalar staging, 4 warps of 32x32 ----
+
+__global__ void __launch_bounds__(128)
+conv_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ bias, float* __restrict__ out,
+                 int H, int W, int Ci, int Co, int k) {
+  const int P = H * W;
+  const int p0 = blockIdx.x * BM, co0 = blockIdx.y * BN, n = blockIdx.z;
+  __shared__ __align__(32) __nv_bfloat16 As[BM][BK + 8];
+  __shared__ __align__(32) __nv_bfloat16 Bs[BK][BN + 8];
+  __shared__ __align__(32) float Cs[BM][BN + 4];
+  __shared__ int rowy[BM], rowx[BM];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
+  tile_rows(rowy, rowx, p0, P, W);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  const __nv_bfloat16* xn = x + (size_t)n * P * Ci;
+  const int half = k / 2;
+  __syncthreads();
+
+  for (int tap = 0; tap < k * k; ++tap) {
+    const int dy = tap / k - half, dx = tap % k - half;
+    const __nv_bfloat16* wt = w + (size_t)tap * Ci * Co;
+    for (int c0 = 0; c0 < Ci; c0 += BK) {
+      for (int e = tid; e < BM * BK; e += 128) {
+        const int m = e / BK, kk = e % BK, c = c0 + kk;
+        const int py = rowy[m] + dy, px = rowx[m] + dx;
+        __nv_bfloat16 v = zero;
+        if (c < Ci && py >= 0 && py < H && px >= 0 && px < W)
+          v = xn[((size_t)py * W + px) * Ci + c];
+        As[m][kk] = v;
+      }
+      for (int e = tid; e < BK * BN; e += 128) {
+        const int kk = e / BN, nn = e % BN, c = c0 + kk, co = co0 + nn;
+        Bs[kk][nn] = (c < Ci && co < Co) ? wt[(size_t)c * Co + co] : zero;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], BK + 8);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[kk][wn * 32 + j * 16], BN + 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16], acc[i][j], BN + 4,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int e = tid; e < BM * BN; e += 128) {
+    const int m = e / BN, nn = e % BN, p = p0 + m, co = co0 + nn;
+    if (p < P && co < Co) out[((size_t)n * P + p) * Co + co] = Cs[m][nn] + bias[co];
+  }
+}
+
+// ---- (a) bf16, Ci % 8 == 0 and Co % 8 == 0: cp.async double buffering ---
+
+constexpr int VBK = 64;      // input channels per contraction step
+constexpr int LDS = 64 + 8;  // padded row of a staged tile (bf16), 144 B
+
+struct VecSmem {
+  union {
+    struct {
+      __nv_bfloat16 a[2][BM][LDS];   // [stage][pixel][channel]
+      __nv_bfloat16 b[2][VBK][LDS];  // [stage][channel][out channel]
+    } stage;
+    float c[BM][BN + 4];             // epilogue, after the last stage is read
+  };
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__global__ void __launch_bounds__(128)
+conv_bf16_vec_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int H, int W, int Ci, int Co, int k) {
+  const int P = H * W;
+  const int p0 = blockIdx.x * BM, co0 = blockIdx.y * BN, n = blockIdx.z;
+  __shared__ __align__(128) VecSmem sm;
+  __shared__ int rowy[BM], rowx[BM];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
+  tile_rows(rowy, rowx, p0, P, W);
+  __syncthreads();
+
+  const __nv_bfloat16* xn = x + (size_t)n * P * Ci;
+  const int half = k / 2;
+  const int csteps = (Ci + VBK - 1) / VBK;
+  const int steps = k * k * csteps;
+
+  // Stage one (tap, 64-channel slice): 64 x 8 sixteen-byte vectors of
+  // pixels and as many of weights, four of each per thread. A vector past
+  // the image or the channel count copies 0 bytes and reads as zeros.
+  auto load = [&](int step, int s) {
+    const int tap = step / csteps, c0 = (step % csteps) * VBK;
+    const int dy = tap / k - half, dx = tap % k - half;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + i * 128, m = v >> 3, c = c0 + (v & 7) * 8;
+      const int py = rowy[m] + dy, px = rowx[m] + dx;
+      const bool ok = c < Ci && py >= 0 && py < H && px >= 0 && px < W;
+      cp_async16(&sm.stage.a[s][m][(v & 7) * 8],
+                 ok ? xn + ((size_t)py * W + px) * Ci + c : xn, ok ? 16 : 0);
+    }
+    const __nv_bfloat16* wt = w + (size_t)tap * Ci * Co;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = tid + i * 128, kk = v >> 3, c = c0 + kk, co = co0 + (v & 7) * 8;
+      const bool ok = c < Ci && co < Co;
+      cp_async16(&sm.stage.b[s][kk][(v & 7) * 8], ok ? wt + (size_t)c * Co + co : w,
+                 ok ? 16 : 0);
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  load(0, 0);
+  cp_async_commit();
+  for (int step = 0; step < steps; ++step) {
+    const int s = step & 1;
+    if (step + 1 < steps) load(step + 1, s ^ 1);  // the buffer read one step ago
+    cp_async_commit();
+    cp_async_wait<1>();  // every group but the newest has landed: stage s
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < VBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &sm.stage.a[s][wm * 32 + i * 16][kk], LDS);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], &sm.stage.b[s][kk][wn * 32 + j * 16], LDS);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();  // stage s is refilled by the next iteration's load
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&sm.c[wm * 32 + i * 16][wn * 32 + j * 16], acc[i][j], BN + 4,
+                              wmma::mem_row_major);
+  __syncthreads();
+  for (int e = tid; e < BM * BN; e += 128) {
+    const int m = e / BN, nn = e % BN, p = p0 + m, co = co0 + nn;
+    if (p < P && co < Co) out[((size_t)n * P + p) * Co + co] = sm.c[m][nn] + bias[co];
+  }
+}
+
+// ---- (a) f32: FMA implicit GEMM, 16x16 threads of 4x4 outputs ----------
+
+__global__ void __launch_bounds__(256)
+conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ out,
+                int H, int W, int Ci, int Co, int k) {
+  const int P = H * W;
+  const int p0 = blockIdx.x * BM, co0 = blockIdx.y * BN, n = blockIdx.z;
+  __shared__ float As[BK][BM + 4];  // [channel][pixel]
+  __shared__ float Bs[BK][BN + 4];  // [channel][out channel]
+  __shared__ int rowy[BM], rowx[BM];
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  tile_rows(rowy, rowx, p0, P, W);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  const float* xn = x + (size_t)n * P * Ci;
+  const int half = k / 2;
+  __syncthreads();
+
+  for (int tap = 0; tap < k * k; ++tap) {
+    const int dy = tap / k - half, dx = tap % k - half;
+    const float* wt = w + (size_t)tap * Ci * Co;
+    for (int c0 = 0; c0 < Ci; c0 += BK) {
+      for (int e = tid; e < BM * BK; e += 256) {
+        const int m = e / BK, kk = e % BK, c = c0 + kk;
+        const int py = rowy[m] + dy, px = rowx[m] + dx;
+        float v = 0.0f;
+        if (c < Ci && py >= 0 && py < H && px >= 0 && px < W)
+          v = xn[((size_t)py * W + px) * Ci + c];
+        As[kk][m] = v;
+      }
+      for (int e = tid; e < BK * BN; e += 256) {
+        const int kk = e / BN, nn = e % BN, c = c0 + kk, co = co0 + nn;
+        Bs[kk][nn] = (c < Ci && co < Co) ? wt[(size_t)c * Co + co] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = p0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = co0 + tx * 4 + j;
+      if (p < P && co < Co) out[((size_t)n * P + p) * Co + co] = acc[i][j] + bias[co];
+    }
+  }
+}
+
+// ---- (b) LayerNorm2d over one ROI + affine + residual + ReLU -----------
+
+constexpr int LN_THREADS = 1024;
+
+// Sum over the block; every thread gets the total.
+__device__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x / 32) ? red[lane] : 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[32] = v;
+  }
+  __syncthreads();
+  const float total = red[32];
+  __syncthreads();  // red is reused by the next call
+  return total;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(LN_THREADS)
+ln_act_kernel(const float* __restrict__ acc, const float* __restrict__ gamma,
+              const float* __restrict__ beta, const T* __restrict__ res, T* __restrict__ out,
+              int P, int Co, float eps, int relu) {
+  __shared__ float red[33];
+  const size_t L = (size_t)P * Co;
+  const size_t base = (size_t)blockIdx.x * L;
+  const float* a = acc + base;
+
+  float s = 0.0f;
+  for (size_t i = threadIdx.x; i < L; i += blockDim.x) s += a[i];
+  const float mean = block_sum(s, red) / (float)L;
+
+  float q = 0.0f;
+  for (size_t i = threadIdx.x; i < L; i += blockDim.x) {
+    const float d = a[i] - mean;
+    q += d * d;
+  }
+  const float var = block_sum(q, red) / (float)L;
+  const float rstd = 1.0f / sqrtf(var + eps);
+
+  for (size_t i = threadIdx.x; i < L; i += blockDim.x) {
+    const int co = (int)(i % Co);
+    float y = (a[i] - mean) * rstd;
+    y = y * gamma[co] + beta[co];
+    if (res != nullptr) y += to_f(res[base + i]);
+    if (relu) y = fmaxf(y, 0.0f);
+    out[base + i] = from_f<T>(y);
+  }
+}
+
+}  // namespace
+
+extern "C" int conv_ln_act_launch(const void* x, const void* w, const void* b, const void* gamma,
+                                  const void* beta, const void* residual, void* out, void* scratch,
+                                  int N, int H, int W, int Ci, int Co, int k, float eps, int relu,
+                                  int dtype, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (N == 0) return 0;
+  const int P = H * W;
+  const dim3 grid((P + BM - 1) / BM, (Co + BN - 1) / BN, N);
+  float* acc = static_cast<float*>(scratch);
+  const float* bias = static_cast<const float*>(b);
+  const bool vec = Ci % 8 == 0 && Co % 8 == 0 &&
+                   (reinterpret_cast<std::uintptr_t>(x) | reinterpret_cast<std::uintptr_t>(w)) % 16 == 0;
+  if (dtype == 1 && vec) {
+    conv_bf16_vec_kernel<<<grid, 128, 0, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                                   static_cast<const __nv_bfloat16*>(w), bias,
+                                                   acc, H, W, Ci, Co, k);
+  } else if (dtype == 1) {
+    conv_bf16_kernel<<<grid, 128, 0, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                               static_cast<const __nv_bfloat16*>(w), bias, acc,
+                                               H, W, Ci, Co, k);
+  } else {
+    conv_f32_kernel<<<grid, 256, 0, stream>>>(static_cast<const float*>(x),
+                                              static_cast<const float*>(w), bias, acc, H, W, Ci,
+                                              Co, k);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* g = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  if (dtype == 1) {
+    ln_act_kernel<__nv_bfloat16><<<N, LN_THREADS, 0, stream>>>(
+        acc, g, be, static_cast<const __nv_bfloat16*>(residual), static_cast<__nv_bfloat16*>(out),
+        P, Co, eps, relu);
+  } else {
+    ln_act_kernel<float><<<N, LN_THREADS, 0, stream>>>(acc, g, be,
+                                                       static_cast<const float*>(residual),
+                                                       static_cast<float*>(out), P, Co, eps, relu);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

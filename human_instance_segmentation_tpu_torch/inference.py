@@ -1,0 +1,174 @@
+"""Inference runtime: ROI bucketing and the deployed output contract.
+
+Counterpart of the JAX package's ``inference.py`` for one device, without
+int8 and without a mesh. ROI counts are padded to power-of-two buckets with
+sentinel rois (batch_idx = -1), whose instance masks are zeroed, so a
+server sees few distinct shapes, as in the JAX engine.
+
+Deployed outputs (the reference ONNX graph's contract, NHWC):
+  instance_masks: (N, mh, mw, 1)  1.0 where argmax(class) == 1
+  binary_masks:   (B, H, W, 1)    P(person) from the stage-1 UNet
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.assembly import HierarchicalInstanceSegmenter
+from .models.blocks import set_head_fusion
+from .models.postprocess import mask_dilation_logit_boost
+from .models.unet import PeopleSegUNetWrapper
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve_device(device: DeviceLike) -> torch.device:
+    """``torch.device(device)``, refusing CUDA where there is none (no
+    silent fallback to the CPU)."""
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    return d
+
+
+def roi_bucket(n: int, min_bucket: int = 1, max_bucket: int = 64) -> int:
+    """Round a ROI count up to the next power-of-two bucket."""
+    b = min_bucket
+    while b < n:
+        b *= 2
+    return min(b, max_bucket) if n <= max_bucket else ((n + max_bucket - 1) // max_bucket) * max_bucket
+
+
+def pad_rois(rois: np.ndarray, bucket: int) -> np.ndarray:
+    """Pad (N, 5) rois to (bucket, 5) with sentinel batch_idx = -1."""
+    n = rois.shape[0]
+    if n == bucket:
+        return rois
+    pad = np.zeros((bucket - n, 5), dtype=rois.dtype)
+    pad[:, 0] = -1.0
+    return np.concatenate([rois, pad], axis=0)
+
+
+def deployed_outputs(
+    logits: torch.Tensor,
+    full_image_logits: Union[torch.Tensor, Dict[str, torch.Tensor]],
+    rois: torch.Tensor,
+    dilation_pixels: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits (N, mh, mw, 3), stage-1 logits (B, H, W, 2) or the aux dict,
+    rois) -> (instance_masks, binary_masks)."""
+    if dilation_pixels > 0:
+        logits = mask_dilation_logit_boost(logits, dilation_pixels)
+    instance = (logits.argmax(dim=-1) == 1).to(logits.dtype)[..., None]
+    valid = (rois[:, 0] >= 0).to(logits.dtype)[:, None, None, None]
+    instance = instance * valid
+    if isinstance(full_image_logits, dict):
+        full_image_logits = full_image_logits["full_image_logits"]
+    binary = torch.softmax(full_image_logits, dim=-1)[..., 0:1]
+    return instance, binary
+
+
+class InferenceEngine:
+    """Bucketed inference for the flagship model on one device.
+
+    ``dtype`` is float32 or bfloat16: the model's weights and the images are
+    cast to it (LayerNorm2d statistics stay float32). ``fused_head=True``
+    routes the stage-2 conv + LayerNorm2d + ReLU units that pass the JAX
+    package's gate through the fused CUDA kernel; the flag is set on the
+    model at every call, as JAX's ``head_fusion()`` context is entered at
+    every trace.
+    """
+
+    def __init__(
+        self,
+        model: HierarchicalInstanceSegmenter,
+        dilation_pixels: int = 0,
+        max_bucket: int = 64,
+        dtype: torch.dtype = torch.float32,
+        fused_head: bool = False,
+        device: Optional[DeviceLike] = None,
+    ):
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        dev = (resolve_device(device) if device is not None
+               else next(model.parameters()).device)
+        self.model = model.to(device=dev, dtype=dtype).eval()
+        self.device = dev
+        self.dtype = dtype
+        self.dilation_pixels = dilation_pixels
+        self.max_bucket = max_bucket
+        self.fused_head = fused_head
+
+    def forward(self, images: torch.Tensor, rois: torch.Tensor):
+        """Device tensors in, device tensors out: images (B, H, W, 3) in
+        [0, 1], rois (bucket, 5) float32 already padded ->
+        (instance_masks, binary_masks, logits)."""
+        set_head_fusion(self.model, self.fused_head)
+        with torch.inference_mode():
+            logits, aux = self.model(images.to(self.dtype), rois.to(torch.float32))
+            inst, binary = deployed_outputs(logits, aux, rois, self.dilation_pixels)
+        return inst, binary, logits
+
+    def __call__(self, images: np.ndarray, rois: np.ndarray):
+        """images (B, H, W, 3) in [0, 1]; rois (N, 5) normalised boxes ->
+        numpy (instance_masks (N, mh, mw, 1), binary_masks (B, H, W, 1))."""
+        n = rois.shape[0]
+        bucket = roi_bucket(max(n, 1), max_bucket=self.max_bucket)
+        rois_p = pad_rois(np.asarray(rois, np.float32), bucket)
+        images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
+        inst, binary, _ = self.forward(images_t, torch.as_tensor(rois_p).to(self.device))
+        return inst[:n].float().cpu().numpy(), binary.float().cpu().numpy()
+
+    def predict_nchw(self, images: np.ndarray, rois: np.ndarray):
+        """Reference-compatible entry point: images (B, 3, H, W) in [0, 1],
+        rois (N, 5) -> instance_masks (N, 1, mh, mw), binary_masks
+        (B, 1, H, W)."""
+        inst, binary = self(np.transpose(np.asarray(images), (0, 2, 3, 1)), rois)
+        return np.transpose(inst, (0, 3, 1, 2)), np.transpose(binary, (0, 3, 1, 2))
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> None:
+    """Seeded initialisation from one ``torch.Generator``: convolution
+    kernels LeCun-normal (std 1/sqrt(fan_in), as the JAX package's
+    ``lecun_normal``), conv biases 0, norm scales 1 and shifts 0, running
+    statistics 0/1, the stage-1 wrapper at [+1, -1], the distance
+    threshold at 0.3. Parameters are drawn in ``named_modules`` order."""
+    gen = torch.Generator().manual_seed(seed)
+    fixed = {id(m.output_conv) for m in model.modules() if isinstance(m, PeopleSegUNetWrapper)}
+    with torch.no_grad():
+        for m in model.modules():
+            if id(m) in fixed:
+                continue
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
+            elif isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+            else:
+                continue
+            w = torch.randn(m.weight.shape, generator=gen) / float(np.sqrt(fan_in))
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+
+
+def create_flagship(
+    variant: str = "b0",
+    roi_size: Tuple[int, int] = (64, 48),
+    mask_size: Tuple[int, int] = (128, 96),
+    image_size: Tuple[int, int] = (480, 640),
+    seed: int = 0,
+    device: DeviceLike = "cpu",
+    **kwargs,
+) -> HierarchicalInstanceSegmenter:
+    """Build the flagship (B0 by default) with seeded random weights, in
+    eval mode on ``device``."""
+    dev = resolve_device(device)
+    model = HierarchicalInstanceSegmenter(
+        encoder_variant=variant, roi_size=roi_size, mask_size=mask_size,
+        image_size=image_size, **kwargs)
+    init_weights(model, seed)
+    return model.to(dev).eval()

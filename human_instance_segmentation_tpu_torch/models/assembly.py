@@ -1,0 +1,111 @@
+"""The flagship two-stage model: full-image UNet, RoI crops, RGB feature
+stack and the hierarchical head.
+
+Counterpart of the JAX package's ``models/assembly.py`` in its plain branch
+(assembly.py:260-264): the stage-1 logit map is materialised at full
+resolution, and both RoI crops (the RGB image and the 2-channel logit map)
+are taken by ``ops.cuda_roi_align`` when ``pallas_roi_align`` is on (the
+JAX flag name; here it is on by default and covers both crops). With it
+off, the crops call the plain ``ops.sampling.roi_align``.
+
+Public I/O is NHWC as in the JAX package; the modules run NCHW inside.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from ..ops import cuda_roi_align, sampling
+from .blocks import ConvNormAct, ResidualBlock
+from .heads import RefinedHierarchicalHead
+from .unet import PeopleSegmentationUNet, PeopleSegUNetWrapper
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class RGBPatchFeatureExtractor(nn.Module):
+    """Stride-1 conv stack over ROI RGB patches: 3 -> 64 -> 128 -> 256 with
+    a residual block after each conv, then a 1x1 projection."""
+
+    def __init__(self, feature_dim: int = 256, norm: str = "layernorm2d",
+                 activation: str = "relu"):
+        super().__init__()
+        kw = dict(norm=norm, activation=activation)
+        ch = 3
+        for i, out in enumerate((64, 128, 256)):
+            self.add_module(f"conv{i}", ConvNormAct(ch, out, **kw))
+            self.add_module(f"res{i}", ResidualBlock(out, **kw))
+            ch = out
+        self.proj = ConvNormAct(256, feature_dim, kernel=1, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            x = getattr(self, f"res{i}")(getattr(self, f"conv{i}")(x))
+        return self.proj(x)
+
+
+class HierarchicalInstanceSegmenter(nn.Module):
+    """``forward(images (B, H, W, 3) in [0, 1], rois (N, 5)) ->
+    (logits (N, mh, mw, 3), aux)``; rois rows are ``[batch_idx, x1, y1, x2,
+    y2]`` normalised to [0, 1]. Every aux tensor is NHWC, with the JAX
+    package's keys."""
+
+    def __init__(self, encoder_variant: str = "b0", roi_size: Tuple[int, int] = (64, 48),
+                 mask_size: Tuple[int, int] = (128, 96),
+                 image_size: Tuple[int, int] = (480, 640), feature_dim: int = 256,
+                 mid_channels: int = 256, use_contour_detection: bool = True,
+                 use_distance_transform: bool = True, norm: str = "layernorm2d",
+                 activation: str = "relu", base_channels: int = 96, depth: int = 3,
+                 unet_decoder_channels: Tuple[int, ...] = (256, 128, 64, 32, 16),
+                 stage1_upsample_mode: str = "bilinear", pallas_roi_align: bool = True):
+        super().__init__()
+        if not (use_contour_detection or use_distance_transform):
+            # the JAX model then takes PretrainedUNetGuidedHead instead
+            raise NotImplementedError("PretrainedUNetGuidedHead is not ported yet")
+        self.roi_size = tuple(roi_size)
+        self.mask_size = tuple(mask_size)
+        self.image_size = tuple(image_size)
+        self.pallas_roi_align = pallas_roi_align
+        self.pretrained_unet = PeopleSegmentationUNet(
+            encoder_variant, unet_decoder_channels, upsample_mode=stage1_upsample_mode)
+        self.unet_wrapper = PeopleSegUNetWrapper()
+        self.rgb_extractor = RGBPatchFeatureExtractor(feature_dim, norm, activation)
+        self.feature_combiner = nn.Conv2d(feature_dim + 2, feature_dim, 1)
+        self.head = RefinedHierarchicalHead(
+            feature_dim, mid_channels, mask_size, use_contour_detection,
+            use_distance_transform, norm, activation, base_channels, depth)
+
+    def _crop(self, x: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
+        rh, rw = self.roi_size
+        scale = (float(self.image_size[0]), float(self.image_size[1]))
+        fn = (cuda_roi_align.roi_align if self.pallas_roi_align and not self.training
+              else sampling.roi_align)
+        return fn(x.contiguous(), rois, rh, rw, spatial_scale=scale, aligned=True)
+
+    def forward(self, images: torch.Tensor,
+                rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if tuple(images.shape[1:3]) != self.image_size:
+            raise ValueError(f"model built for {self.image_size}, got {tuple(images.shape[1:3])}")
+        x1 = self.pretrained_unet(_nchw(images))
+        full_image_logits = _nhwc(self.unet_wrapper(x1))
+        roi_bg_fg = self._crop(full_image_logits, rois)
+        roi_rgb = self._crop(images, rois)
+
+        rgb_features = self.rgb_extractor(_nchw(roi_rgb))
+        combined = self.feature_combiner(torch.cat([rgb_features, _nchw(roi_bg_fg)], dim=1))
+        logits, aux = self.head(combined)
+
+        aux = {k: _nhwc(v) for k, v in aux.items()}
+        aux["full_image_logits"] = full_image_logits
+        aux["roi_bg_fg"] = roi_bg_fg
+        aux["roi_patches"] = roi_rgb
+        return _nhwc(logits), aux

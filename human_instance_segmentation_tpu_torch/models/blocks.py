@@ -1,0 +1,132 @@
+"""Shared conv blocks of the stage-2 heads and the RGB extractor (NCHW).
+
+Counterpart of the JAX package's ``models/blocks.py``. Parameter names
+follow the JAX tree (``conv``/``norm``, ``conv1``/``norm1``/``conv2``/
+``norm2``, ``deconv``), so ``weights.from_jax_params`` maps it leaf by
+leaf.
+
+``ConvNormAct`` and ``ResidualBlock`` take the fused CUDA kernel
+(``ops/cuda_head.py``) under the JAX package's gate: eval mode, the
+``fused_head`` flag on (set by the inference engine through
+:func:`set_head_fusion`; JAX's thread-local ``head_fusion()`` context),
+LayerNorm2d + ReLU, and a tiny-spatial high-channel shape.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import cuda_head
+from ..ops.activations import get_activation
+from ..ops.norms import get_normalization
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _hwio(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    return conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
+
+
+class _Fusable(nn.Module):
+    """Holds the ``fused_head`` flag and the fused-kernel gate."""
+
+    norm_type: str
+    activation: str
+    features: int
+
+    def __init__(self):
+        super().__init__()
+        self.fused_head = False
+
+    def _fusable(self, x: torch.Tensor) -> bool:
+        if self.training or not self.fused_head:
+            return False
+        if self.norm_type != "layernorm2d" or self.activation != "relu":
+            return False
+        _, ci, h, w = x.shape
+        return cuda_head.fusable_shape(h, w, ci, self.features)
+
+
+class ConvNormAct(_Fusable):
+    """k x k conv (stride 1 or 2, padding k//2) -> norm -> activation."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
+                 norm: str = "layernorm2d", activation: str = "relu", use_bias: bool = True):
+        super().__init__()
+        self.features, self.kernel, self.stride = features, kernel, stride
+        self.norm_type, self.activation = norm, activation
+        self.conv = nn.Conv2d(in_channels, features, kernel, stride=stride,
+                              padding=kernel // 2, bias=use_bias)
+        self.norm = get_normalization(norm, features)
+        self.act = get_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel
+        if (self.stride == 1 and k in (1, 3) and self.conv.bias is not None
+                and self._fusable(x)):
+            _, _, h, w = x.shape
+            y = cuda_head.conv_ln_act(
+                _nhwc(x), _hwio(self.conv, x.dtype), self.conv.bias,
+                self.norm.weight, self.norm.bias,
+                height=h, width=w, kernel=k)
+            return y.permute(0, 3, 1, 2)
+        return self.act(self.norm(self.conv(x)))
+
+
+class ResidualBlock(_Fusable):
+    """conv3-norm-act-conv3-norm + skip -> act."""
+
+    def __init__(self, features: int, norm: str = "layernorm2d", activation: str = "relu"):
+        super().__init__()
+        self.features, self.norm_type, self.activation = features, norm, activation
+        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.norm1 = get_normalization(norm, features)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.norm2 = get_normalization(norm, features)
+        self.act = get_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] == self.features and self._fusable(x):
+            _, _, h, w = x.shape
+            xh = _nhwc(x)
+            y = cuda_head.conv_ln_act(
+                xh, _hwio(self.conv1, x.dtype), self.conv1.bias, self.norm1.weight,
+                self.norm1.bias, height=h, width=w)
+            y = cuda_head.conv_ln_act(
+                y, _hwio(self.conv2, x.dtype), self.conv2.bias, self.norm2.weight,
+                self.norm2.bias, residual=xh, height=h, width=w)
+            return y.permute(0, 3, 1, 2)
+        h = self.act(self.norm1(self.conv1(x)))
+        h = self.norm2(self.conv2(h))
+        return self.act(h + x)
+
+
+class ConvTranspose2x(nn.Module):
+    """2x upsampling transposed conv (k=2, s=2), held as ``deconv``.
+
+    The JAX ``_TConv2x`` kernel's spatial taps are flipped relative to
+    torch's ConvTranspose2d; ``weights.from_jax_params`` flips them.
+    """
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.deconv = nn.ConvTranspose2d(in_channels, features, 2, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.deconv(x)
+
+
+def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x, 2, 2)
+
+
+def set_head_fusion(module: nn.Module, enabled: bool) -> None:
+    """Route every ConvNormAct/ResidualBlock under ``module`` through the
+    fused kernel (where its gate allows) or through the unfused chain."""
+    for m in module.modules():
+        if isinstance(m, _Fusable):
+            m.fused_head = enabled

@@ -1,0 +1,97 @@
+"""Load the JAX package's parameters into the port.
+
+:func:`from_jax_params` takes the JAX model's variables as a nested dict of
+numpy arrays (``jax.tree.map(np.asarray, variables)``: ``params`` and
+``batch_stats``) and returns a ``state_dict`` for the port's module of the
+same architecture. It does not import jax. The port's module names follow
+the JAX tree, so a leaf's path maps to a key one to one; the leaves change
+as follows:
+
+- conv ``kernel`` (kh, kw, Ci, Co), HWIO -> ``weight`` (Co, Ci, kh, kw), OIHW
+  (depthwise (k, k, 1, C) -> (C, 1, k, k));
+- ``_TConv2x`` ``deconv/kernel`` (2, 2, Ci, Co) -> ConvTranspose2d
+  ``weight`` (Ci, Co, 2, 2) with the spatial taps flipped: lax.conv_transpose
+  cross-correlates the zero-stuffed input where torch's transposed conv
+  convolves (as ``convert_weights._deconv_p`` does the other way);
+- norm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
+- BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``;
+- the distance branch's scalar ``threshold`` stays ``threshold``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_RENAME = {
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("params", "threshold"): "threshold",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), np.asarray(v)
+
+
+def _convert(collection: str, path: Tuple[str, ...], leaf: str, value: np.ndarray):
+    """-> (state_dict key, torch tensor) for one JAX leaf."""
+    if collection == "params" and leaf == "kernel":
+        if value.ndim != 4:
+            raise ValueError(f"{'/'.join(path)}/kernel: expected a 4-D kernel, got {value.shape}")
+        if path and path[-1] == "deconv":
+            w = value[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            w = value.transpose(3, 2, 0, 1)
+        return ".".join(path + ("weight",)), torch.tensor(np.ascontiguousarray(w))
+    name = _RENAME.get((collection, leaf))
+    if name is None:
+        raise KeyError(f"no mapping for JAX leaf {collection}/{'/'.join(path + (leaf,))}")
+    return ".".join(path + (name,)), torch.tensor(value)
+
+
+def from_jax_params(variables: Mapping[str, Any],
+                    model: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """JAX variables (``{"params": ..., "batch_stats": ...}``) -> state_dict.
+
+    With ``model``, every leaf must land on one of the model's parameters or
+    buffers with the same shape, and every one of them must be filled;
+    otherwise it raises, naming the keys.
+    """
+    state: Dict[str, torch.Tensor] = {}
+    for collection, tree in variables.items():
+        if collection not in ("params", "batch_stats"):
+            raise KeyError(f"unknown variable collection {collection!r}")
+        for path, value in _leaves(tree):
+            key, t = _convert(collection, path[:-1], path[-1], value)
+            if key in state:
+                raise KeyError(f"two JAX leaves map to {key}")
+            state[key] = t
+    if model is not None:
+        expected = model.state_dict()
+        unconsumed = sorted(set(state) - set(expected))
+        unfilled = sorted(set(expected) - set(state))
+        if unconsumed or unfilled:
+            raise KeyError(f"JAX leaves with no port parameter: {unconsumed}; "
+                           f"port parameters no leaf fills: {unfilled}")
+        bad = [f"{k}: {tuple(state[k].shape)} vs {tuple(v.shape)}"
+               for k, v in expected.items() if tuple(state[k].shape) != tuple(v.shape)]
+        if bad:
+            raise ValueError("shape mismatch: " + "; ".join(bad))
+    return state
+
+
+def load_jax_params(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
+    """Fill ``model`` from JAX variables in place (strict) and return it."""
+    state = from_jax_params(variables, model)
+    model.load_state_dict(state, strict=True)
+    return model

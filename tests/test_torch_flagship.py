@@ -1,0 +1,146 @@
+"""The port's whole served slice vs the JAX package's fused-head serving
+graph at a small size, on the same weights and inputs (CPU, float32).
+
+Tiny config: variant "tiny", image 64x96, roi 16x12, mask 32x24,
+mid_channels 32, base_channels 64. The EnhancedUNet bottleneck is then
+4x3x256, so the fused conv+LayerNorm2d gate fires in both packages without
+patching: in the bottleneck (five k=3 calls) and in ``rgb_extractor``
+(``res2``, k=3, two calls; ``proj``, k=1). JAX runs its Pallas kernel
+interpreted; the port runs the kernel's plain version on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from helpers import fast_init
+from human_instance_segmentation_tpu.inference import InferenceEngine as JaxEngine
+from human_instance_segmentation_tpu.inference import pad_rois as jax_pad_rois
+from human_instance_segmentation_tpu.inference import roi_bucket as jax_roi_bucket
+from human_instance_segmentation_tpu.models.assembly import (
+    HierarchicalInstanceSegmenter as JaxSegmenter)
+from human_instance_segmentation_tpu.ops.pallas_head import head_fusion
+from human_instance_segmentation_tpu_torch.inference import (InferenceEngine, create_flagship,
+                                                             pad_rois, roi_bucket)
+from human_instance_segmentation_tpu_torch.ops import cuda_head
+from human_instance_segmentation_tpu_torch.weights import load_jax_params
+
+REPO = Path(__file__).resolve().parents[1]
+TINY = dict(roi_size=(16, 12), mask_size=(32, 24), image_size=(64, 96), mid_channels=32,
+            base_channels=64)
+ROIS = np.asarray([[0.0, 0.1, 0.2, 0.7, 0.9],
+                   [1.0, 0.0, 0.0, 1.0, 1.0],
+                   [0.0, 0.4, 0.3, 0.6, 0.8]], np.float32)
+
+
+def _variables(model, seed):
+    """fast_init plus non-trivial norm affines, so a mis-mapped scale or
+    shift shows up."""
+    v = fast_init(model, jnp.zeros((1, 64, 96, 3)), jnp.zeros((1, 5)), train=False, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def perturb(path, leaf):
+        leaf = np.asarray(leaf)
+        name = str(getattr(path[-1], "key", path[-1]))
+        owner = str(getattr(path[-2], "key", path[-2]))
+        if path[0].key == "params" and name in ("scale", "bias") and owner != "output_conv":
+            return leaf + (0.1 * rng.standard_normal(leaf.shape)).astype(leaf.dtype)
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(perturb, v)
+
+
+@pytest.fixture(scope="module", params=["bilinear", "nearest"])
+def pair(request):
+    mode = request.param
+    jmodel = JaxSegmenter(encoder_variant="tiny", stage1_upsample_mode=mode, **TINY)
+    variables = _variables(jmodel, seed=3)
+    port = create_flagship(variant="tiny", stage1_upsample_mode=mode, seed=0, **TINY)
+    load_jax_params(port, variables)
+    images = np.random.default_rng(7).random((2, 64, 96, 3), dtype=np.float32)
+    return jmodel, variables, port, images
+
+
+def test_slice_matches_jax_fused_head(pair, monkeypatch):
+    jmodel, variables, port, images = pair
+    bucket = roi_bucket(len(ROIS))
+    rois_p = pad_rois(ROIS, bucket)  # one sentinel roi
+    with jax.default_matmul_precision("highest"):
+        with head_fusion():
+            jlogits, jaux = jmodel.apply(variables, jnp.asarray(images), jnp.asarray(rois_p),
+                                         train=False)
+        jinst, jbinary = JaxEngine(jmodel, variables, dilation_pixels=1, fused_head=True)(
+            images, ROIS)
+
+    calls = []
+    real = cuda_head.conv_ln_act
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("kernel", 3))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_head, "conv_ln_act", spy)
+    engine = InferenceEngine(port, dilation_pixels=1, fused_head=True)
+    inst, binary = engine(images, ROIS)
+    assert sorted(calls) == [1] + [3] * 7  # res2 x2 + proj + bottleneck x5
+    calls.clear()
+    with torch.no_grad():
+        logits, aux = port(torch.from_numpy(images), torch.from_numpy(rois_p))
+
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=1e-4, rtol=1e-4)
+    assert set(aux) == set(jaux)
+    for key in jaux:
+        np.testing.assert_allclose(aux[key].numpy(), np.asarray(jaux[key]), atol=1e-4, rtol=1e-4,
+                                   err_msg=key)
+    assert inst.shape == (3, 32, 24, 1) and binary.shape == (2, 64, 96, 1)
+    np.testing.assert_allclose(binary, np.asarray(jbinary), atol=1e-5)
+    assert float((inst == np.asarray(jinst)).mean()) >= 0.999
+
+
+def test_predict_nchw_and_buckets(pair):
+    _, _, port, images = pair
+    engine = InferenceEngine(port, dilation_pixels=1)
+    inst, binary = engine(images, ROIS)
+    inst_c, binary_c = engine.predict_nchw(np.transpose(images, (0, 3, 1, 2)), ROIS)
+    np.testing.assert_array_equal(inst_c, np.transpose(inst, (0, 3, 1, 2)))
+    np.testing.assert_array_equal(binary_c, np.transpose(binary, (0, 3, 1, 2)))
+    # the padded (sentinel) roi's mask is zeroed, the real ones pass through
+    inst_p, _, logits_p = engine.forward(torch.from_numpy(images),
+                                         torch.from_numpy(pad_rois(ROIS, 4)))
+    assert inst_p[3].abs().max() == 0 and (logits_p[3].argmax(-1) == 1).any()
+    np.testing.assert_array_equal(inst_p[:3].numpy(), inst)
+    for n in (0, 1, 3, 5, 64, 65, 130):
+        assert roi_bucket(max(n, 1)) == jax_roi_bucket(max(n, 1))
+    np.testing.assert_array_equal(pad_rois(ROIS, 8), jax_pad_rois(ROIS, 8))
+
+
+def test_import_does_not_load_jax():
+    code = ("import sys\n"
+            "import human_instance_segmentation_tpu_torch\n"
+            "import human_instance_segmentation_tpu_torch.weights\n"
+            "import human_instance_segmentation_tpu_torch.models\n"
+            "import human_instance_segmentation_tpu_torch.ops\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'human_instance_segmentation_tpu')]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cuda_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the check is for CPU-only hosts")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_flagship(variant="tiny", device="cuda", **TINY)
+    port = create_flagship(variant="tiny", **TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(port, device="cuda")
