@@ -21,9 +21,17 @@
 //      f32 stays f32). The block writes conv + bias as float32 into a
 //      scratch buffer (N, P, Co) that the wrapper allocates.
 //  (b) norm: one block per ROI. Mean in one pass, then the biased variance
-//      in a second pass over the float32 scratch (as pallas_head.py:143-144
-//      does; not E[x^2] - E[x]^2, which loses digits over 73,728 values),
-//      then affine, residual, ReLU and the cast to the output dtype.
+//      of the float32 differences in a second pass over the float32 scratch
+//      (as pallas_head.py:143-144 does; not E[x^2] - E[x]^2, which loses
+//      digits over 73,728 values), then affine, residual, ReLU and the cast
+//      to the output dtype. The two sums run in float64 and round to
+//      float32 once, so their value does not depend on the summation order:
+//      the plain version (ops/cuda_head.py) sums in float64 too, and every
+//      float32 step after them is one correctly rounded op (__fsub_rn,
+//      __fmul_rn, __fadd_rn; rstd = 1 / sqrt(var + eps) in float64), so the
+//      kernel and its plain version agree bit for bit whenever the conv
+//      stage does (the int8 form's integer conv does). In int8 serving a
+//      one-ulp difference here would move later quantizers by whole codes.
 //
 // Bound: at the served shape (32 ROIs x 16x12 pixels x 384 -> 384, k=3) the
 // conv costs 2*192*384*384*9 = 0.51 GFLOP per ROI, 16.3 GFLOP per call and
@@ -31,6 +39,18 @@
 // cp.async pipeline is far from Hopper's wgmma/TMA rate; those are later
 // work. The norm pass reads 0.3 MB per ROI three times, mostly
 // from L2.
+//
+// The int8 form (conv_ln_act(xscale=...), pallas_head.py:178-187 and the
+// quantized branch of _kernel :103-106, :140-141) swaps stage (a) for the
+// s8 implicit-GEMM conv of s8_igemm.cuh: x is quantized once, into the
+// staging buffer xq_ws, as round(x * inv) with inv = float32(1 / xscale)
+// (__fmul_rn, rintf, clip +-127), the weights arrive quantized per output
+// channel from the wrapper,
+// the tensor cores accumulate s8 x s8 in int32, and the epilogue writes
+// float(acc) * qscale[co] + b[co] (qscale = xscale * sw, each step rounded
+// once, as JAX's acc.astype(f32) * qscale + b) into the same float32
+// scratch. Stage (b) is unchanged. At the served shape the s8 conv does the
+// same 16.3 GFLOP-equivalent of work per call on the int8 tensor-core path.
 //
 // Every launcher returns cudaGetLastError(); the Python wrapper raises on a
 // non-zero value.
@@ -40,6 +60,8 @@
 #include <mma.h>
 
 #include <cstdint>
+
+#include "s8_igemm.cuh"
 
 using namespace nvcuda;
 
@@ -335,20 +357,20 @@ conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 constexpr int LN_THREADS = 1024;
 
 // Sum over the block; every thread gets the total.
-__device__ float block_sum(float v, float* red) {
+__device__ double block_sum(double v, double* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < (int)(blockDim.x / 32) ? red[lane] : 0.0f;
+    v = lane < (int)(blockDim.x / 32) ? red[lane] : 0.0;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
     if (lane == 0) red[32] = v;
   }
   __syncthreads();
-  const float total = red[32];
+  const double total = red[32];
   __syncthreads();  // red is reused by the next call
   return total;
 }
@@ -357,39 +379,56 @@ template <typename T>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_act_kernel(const float* __restrict__ acc, const float* __restrict__ gamma,
               const float* __restrict__ beta, const T* __restrict__ res, T* __restrict__ out,
-              int P, int Co, float eps, int relu) {
-  __shared__ float red[33];
+              int P, int Co, double eps, int relu) {
+  __shared__ double red[33];
   const size_t L = (size_t)P * Co;
   const size_t base = (size_t)blockIdx.x * L;
   const float* a = acc + base;
 
-  float s = 0.0f;
+  double s = 0.0;
   for (size_t i = threadIdx.x; i < L; i += blockDim.x) s += a[i];
-  const float mean = block_sum(s, red) / (float)L;
+  const float mean = __double2float_rn(__ddiv_rn(block_sum(s, red), (double)L));
 
-  float q = 0.0f;
+  double q = 0.0;  // d * d is exact in float64
   for (size_t i = threadIdx.x; i < L; i += blockDim.x) {
-    const float d = a[i] - mean;
+    const double d = __fsub_rn(a[i], mean);
     q += d * d;
   }
-  const float var = block_sum(q, red) / (float)L;
-  const float rstd = 1.0f / sqrtf(var + eps);
+  const double var = __ddiv_rn(block_sum(q, red), (double)L);
+  const float rstd = __double2float_rn(__drcp_rn(__dsqrt_rn(__dadd_rn(var, eps))));
 
   for (size_t i = threadIdx.x; i < L; i += blockDim.x) {
     const int co = (int)(i % Co);
-    float y = (a[i] - mean) * rstd;
-    y = y * gamma[co] + beta[co];
-    if (res != nullptr) y += to_f(res[base + i]);
+    float y = __fmul_rn(__fsub_rn(a[i], mean), rstd);
+    y = __fadd_rn(__fmul_rn(y, gamma[co]), beta[co]);
+    if (res != nullptr) y = __fadd_rn(y, to_f(res[base + i]));
     if (relu) y = fmaxf(y, 0.0f);
     out[base + i] = from_f<T>(y);
   }
+}
+
+int launch_ln_act(const float* acc, const void* gamma, const void* beta, const void* residual,
+                  void* out, int N, int P, int Co, double eps, int relu, int dtype,
+                  cudaStream_t stream) {
+  const float* g = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  if (dtype == 1) {
+    ln_act_kernel<__nv_bfloat16><<<N, LN_THREADS, 0, stream>>>(
+        acc, g, be, static_cast<const __nv_bfloat16*>(residual), static_cast<__nv_bfloat16*>(out),
+        P, Co, eps, relu);
+  } else {
+    ln_act_kernel<float><<<N, LN_THREADS, 0, stream>>>(acc, g, be,
+                                                       static_cast<const float*>(residual),
+                                                       static_cast<float*>(out), P, Co, eps, relu);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int conv_ln_act_launch(const void* x, const void* w, const void* b, const void* gamma,
                                   const void* beta, const void* residual, void* out, void* scratch,
-                                  int N, int H, int W, int Ci, int Co, int k, float eps, int relu,
+                                  int N, int H, int W, int Ci, int Co, int k, double eps, int relu,
                                   int dtype, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (N == 0) return 0;
@@ -414,16 +453,22 @@ extern "C" int conv_ln_act_launch(const void* x, const void* w, const void* b, c
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float* g = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  if (dtype == 1) {
-    ln_act_kernel<__nv_bfloat16><<<N, LN_THREADS, 0, stream>>>(
-        acc, g, be, static_cast<const __nv_bfloat16*>(residual), static_cast<__nv_bfloat16*>(out),
-        P, Co, eps, relu);
-  } else {
-    ln_act_kernel<float><<<N, LN_THREADS, 0, stream>>>(acc, g, be,
-                                                       static_cast<const float*>(residual),
-                                                       static_cast<float*>(out), P, Co, eps, relu);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_ln_act(acc, gamma, beta, residual, out, N, P, Co, eps, relu, dtype, stream);
+}
+
+extern "C" int conv_ln_act_s8_launch(const void* x, const void* wq, const void* inv,
+                                     const void* qscale, const void* b, const void* gamma,
+                                     const void* beta, const void* residual, void* out,
+                                     void* scratch, void* xq_ws, int N, int H, int W, int Ci,
+                                     int Co, int k, double eps, int relu, int dtype,
+                                     void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (N == 0) return 0;
+  float* acc = static_cast<float*>(scratch);
+  cudaError_t err = s8igemm::launch<1>(
+      x, wq, static_cast<const float*>(inv), s8igemm::Q_MUL, static_cast<const float*>(qscale),
+      static_cast<const float*>(b), acc, xq_ws, N, H, W, Ci, Co, k, k / 2,
+      dtype == 1 ? s8igemm::IN_BF16 : s8igemm::IN_F32, s8igemm::OUT_F32, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_ln_act(acc, gamma, beta, residual, out, N, H * W, Co, eps, relu, dtype, stream);
 }

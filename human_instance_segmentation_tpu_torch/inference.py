@@ -1,7 +1,7 @@
 """Inference runtime: ROI bucketing and the deployed output contract.
 
 Counterpart of the JAX package's ``inference.py`` for one device, without
-int8 and without a mesh. ROI counts are padded to power-of-two buckets with
+a mesh. ROI counts are padded to power-of-two buckets with
 sentinel rois (batch_idx = -1), whose instance masks are zeroed, so a
 server sees few distinct shapes, as in the JAX engine.
 
@@ -12,7 +12,7 @@ Deployed outputs (the reference ONNX graph's contract, NHWC):
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,8 +22,13 @@ from .models.assembly import HierarchicalInstanceSegmenter
 from .models.blocks import set_head_fusion
 from .models.postprocess import mask_dilation_logit_boost
 from .models.unet import PeopleSegUNetWrapper
+from .ops.quant import calibration, collect_scales, merge_scales, set_int8_serving
 
 DeviceLike = Union[str, torch.device]
+
+# Default int8 denylist (inference.py:39): the whole stage-1 encoder stays
+# in the engine's float dtype under int8 serving.
+ENCODER_INT8_DENY = ("encoder/",)
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
@@ -81,6 +86,15 @@ class InferenceEngine:
     package's gate through the fused CUDA kernel; the flag is set on the
     model at every call, as JAX's ``head_fusion()`` context is entered at
     every trace.
+
+    ``quantize="int8"`` runs every eligible, not denied :class:`QConv` in
+    s8 x s8 -> s32 (``int8_deny`` path substrings stay in ``dtype``; the
+    default denies the stage-1 encoder) and the fused units in their int8
+    form. Activation scales are calibrated from the first batch served, or
+    by :meth:`calibrate`; until then :meth:`forward` uses dynamic scales.
+    ``kernels=False`` computes the fused unit and the int8 convs with their
+    plain PyTorch versions on any device: the plain path of the same graph
+    that a GPU run holds the kernels against.
     """
 
     def __init__(
@@ -91,9 +105,14 @@ class InferenceEngine:
         dtype: torch.dtype = torch.float32,
         fused_head: bool = False,
         device: Optional[DeviceLike] = None,
+        quantize: Optional[str] = None,
+        int8_deny: Sequence[str] = ENCODER_INT8_DENY,
+        kernels: bool = True,
     ):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         dev = (resolve_device(device) if device is not None
                else next(model.parameters()).device)
         self.model = model.to(device=dev, dtype=dtype).eval()
@@ -102,12 +121,32 @@ class InferenceEngine:
         self.dilation_pixels = dilation_pixels
         self.max_bucket = max_bucket
         self.fused_head = fused_head
+        self.quantize = quantize
+        self.int8_deny = tuple(int8_deny)
+        self.kernels = kernels
+        self.scales: Optional[Dict[str, float]] = None
+
+    def calibrate(self, images: np.ndarray, rois: np.ndarray) -> None:
+        """Record every eligible QConv's input abs-max on (images, rois),
+        served unfused and un-quantized in the engine's dtype, and fold the
+        scales into int8 serving (pointwise max over calls)."""
+        bucket = roi_bucket(max(rois.shape[0], 1), max_bucket=self.max_bucket)
+        rois_p = torch.as_tensor(pad_rois(np.asarray(rois, np.float32), bucket)).to(self.device)
+        images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
+        set_head_fusion(self.model, False)
+        set_int8_serving(self.model, False)
+        with torch.inference_mode(), calibration(self.model) as calib:
+            self.model(images_t, rois_p)
+        scales = collect_scales(calib)
+        self.scales = merge_scales(self.scales, scales) if self.scales else scales
 
     def forward(self, images: torch.Tensor, rois: torch.Tensor):
         """Device tensors in, device tensors out: images (B, H, W, 3) in
         [0, 1], rois (bucket, 5) float32 already padded ->
         (instance_masks, binary_masks, logits)."""
-        set_head_fusion(self.model, self.fused_head)
+        set_head_fusion(self.model, self.fused_head, self.kernels)
+        set_int8_serving(self.model, self.quantize == "int8", self.scales, self.int8_deny,
+                         self.kernels)
         with torch.inference_mode():
             logits, aux = self.model(images.to(self.dtype), rois.to(torch.float32))
             inst, binary = deployed_outputs(logits, aux, rois, self.dilation_pixels)
@@ -117,6 +156,8 @@ class InferenceEngine:
         """images (B, H, W, 3) in [0, 1]; rois (N, 5) normalised boxes ->
         numpy (instance_masks (N, mh, mw, 1), binary_masks (B, H, W, 1))."""
         n = rois.shape[0]
+        if self.quantize == "int8" and self.scales is None:
+            self.calibrate(images, rois)
         bucket = roi_bucket(max(n, 1), max_bucket=self.max_bucket)
         rois_p = pad_rois(np.asarray(rois, np.float32), bucket)
         images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)

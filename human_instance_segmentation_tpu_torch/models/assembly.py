@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from ..ops import cuda_roi_align, sampling
-from .blocks import ConvNormAct, ResidualBlock
+from ..ops.quant import QConv
+from .blocks import ConvNormAct, ResidualBlock, prequantize_for
 from .heads import RefinedHierarchicalHead
 from .unet import PeopleSegmentationUNet, PeopleSegUNetWrapper
 
@@ -49,8 +50,11 @@ class RGBPatchFeatureExtractor(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(3):
-            x = getattr(self, f"res{i}")(getattr(self, f"conv{i}")(x))
-        return self.proj(x)
+            cna = getattr(self, f"conv{i}")
+            if i > 0:  # res{i-1}'s output is single-use: int8 flows (serving)
+                x = prequantize_for(cna.conv, x)
+            x = getattr(self, f"res{i}")(cna(x))
+        return self.proj(prequantize_for(self.proj.conv, x, k=1))
 
 
 class HierarchicalInstanceSegmenter(nn.Module):
@@ -79,7 +83,7 @@ class HierarchicalInstanceSegmenter(nn.Module):
             encoder_variant, unet_decoder_channels, upsample_mode=stage1_upsample_mode)
         self.unet_wrapper = PeopleSegUNetWrapper()
         self.rgb_extractor = RGBPatchFeatureExtractor(feature_dim, norm, activation)
-        self.feature_combiner = nn.Conv2d(feature_dim + 2, feature_dim, 1)
+        self.feature_combiner = QConv(feature_dim + 2, feature_dim, 1)
         self.head = RefinedHierarchicalHead(
             feature_dim, mid_channels, mask_size, use_contour_detection,
             use_distance_transform, norm, activation, base_channels, depth)
@@ -89,7 +93,20 @@ class HierarchicalInstanceSegmenter(nn.Module):
         scale = (float(self.image_size[0]), float(self.image_size[1]))
         fn = (cuda_roi_align.roi_align if self.pallas_roi_align and not self.training
               else sampling.roi_align)
-        return fn(x.contiguous(), rois, rh, rw, spatial_scale=scale, aligned=True)
+        # contiguous NHWC from either path, so the convs that follow see one
+        # layout (cuDNN's float32 result depends on it, and int8 serving
+        # turns a one-ulp difference into whole codes)
+        return fn(x.contiguous(), rois, rh, rw, spatial_scale=scale, aligned=True).contiguous()
+
+    def stage2(self, roi_rgb: torch.Tensor,
+               roi_bg_fg: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The per-ROI stage: RGB crops (N, rh, rw, 3) and stage-1 logit
+        crops (N, rh, rw, 2) -> (logits (N, mh, mw, 3), the head's aux),
+        NHWC."""
+        rgb_features = self.rgb_extractor(_nchw(roi_rgb))
+        combined = self.feature_combiner(torch.cat([rgb_features, _nchw(roi_bg_fg)], dim=1))
+        logits, aux = self.head(combined)
+        return _nhwc(logits), {k: _nhwc(v) for k, v in aux.items()}
 
     def forward(self, images: torch.Tensor,
                 rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -100,12 +117,8 @@ class HierarchicalInstanceSegmenter(nn.Module):
         roi_bg_fg = self._crop(full_image_logits, rois)
         roi_rgb = self._crop(images, rois)
 
-        rgb_features = self.rgb_extractor(_nchw(roi_rgb))
-        combined = self.feature_combiner(torch.cat([rgb_features, _nchw(roi_bg_fg)], dim=1))
-        logits, aux = self.head(combined)
-
-        aux = {k: _nhwc(v) for k, v in aux.items()}
+        logits, aux = self.stage2(roi_rgb, roi_bg_fg)
         aux["full_image_logits"] = full_image_logits
         aux["roi_bg_fg"] = roi_bg_fg
         aux["roi_patches"] = roi_rgb
-        return _nhwc(logits), aux
+        return logits, aux

@@ -10,6 +10,12 @@ leaf.
 ``fused_head`` flag on (set by the inference engine through
 :func:`set_head_fusion`; JAX's thread-local ``head_fusion()`` context),
 LayerNorm2d + ReLU, and a tiny-spatial high-channel shape.
+
+Their convs are :class:`..ops.quant.QConv`. Under int8 serving (set by
+:func:`..ops.quant.set_int8_serving`) the JAX package's two rules hold: an
+int8 input is never fused, and a fused unit whose conv has a calibrated
+scale takes it as ``xscale`` (blocks.py:70-85). :func:`prequantize_for` is
+the producer-side quantization point (blocks.py:40).
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from torch import nn
 from ..ops import cuda_head
 from ..ops.activations import get_activation
 from ..ops.norms import get_normalization
+from ..ops.quant import MIN_INT8_CONTRACTION, QConv
+from ..ops.s2d import quantize_static
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -29,6 +37,35 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def _hwio(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
+
+
+_NO_FUSE = object()
+
+
+def prequantize_for(conv: QConv, x: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """Quantize x to int8 for its single consumer ``conv`` with that conv's
+    calibrated scale (the producer-side quantize of blocks.py:40). Returns x
+    unchanged whenever the consumer would not run int8: serving off, x
+    already int8, denied, a contraction below 48 or no calibrated scale."""
+    if not conv.serving or x.dtype == torch.int8:
+        return x
+    if conv.denied or k * k * x.shape[1] < MIN_INT8_CONTRACTION:
+        return x
+    if conv.static_scale is None:
+        return x
+    return quantize_static(x, conv.static_scale)
+
+
+def _fused_xscale(conv: QConv, x: torch.Tensor, k: int):
+    """The fused kernel's activation scale (blocks.py:70): None outside int8
+    serving or for a denied conv (the kernel runs in x's dtype), the
+    calibrated scale, or ``_NO_FUSE`` when int8 serving is on but the conv
+    has no calibrated scale (then the unfused QConv path runs)."""
+    if not conv.serving or conv.denied:
+        return None
+    if conv.static_scale is None or k * k * x.shape[1] < MIN_INT8_CONTRACTION:
+        return _NO_FUSE
+    return conv.static_scale
 
 
 class _Fusable(nn.Module):
@@ -41,9 +78,16 @@ class _Fusable(nn.Module):
     def __init__(self):
         super().__init__()
         self.fused_head = False
+        self.use_kernel = True  # False: the fused unit's plain version
+
+    def _conv_ln_act(self, *args, **kwargs) -> torch.Tensor:
+        if self.use_kernel:
+            return cuda_head.conv_ln_act(*args, **kwargs)
+        kwargs.pop("height"), kwargs.pop("width")
+        return cuda_head.conv_ln_act_plain(*args, **kwargs)
 
     def _fusable(self, x: torch.Tensor) -> bool:
-        if self.training or not self.fused_head:
+        if self.training or not self.fused_head or x.dtype == torch.int8:
             return False
         if self.norm_type != "layernorm2d" or self.activation != "relu":
             return False
@@ -59,8 +103,8 @@ class ConvNormAct(_Fusable):
         super().__init__()
         self.features, self.kernel, self.stride = features, kernel, stride
         self.norm_type, self.activation = norm, activation
-        self.conv = nn.Conv2d(in_channels, features, kernel, stride=stride,
-                              padding=kernel // 2, bias=use_bias)
+        self.conv = QConv(in_channels, features, kernel, stride=stride, padding=kernel // 2,
+                          bias=use_bias)
         self.norm = get_normalization(norm, features)
         self.act = get_activation(activation)
 
@@ -68,12 +112,14 @@ class ConvNormAct(_Fusable):
         k = self.kernel
         if (self.stride == 1 and k in (1, 3) and self.conv.bias is not None
                 and self._fusable(x)):
-            _, _, h, w = x.shape
-            y = cuda_head.conv_ln_act(
-                _nhwc(x), _hwio(self.conv, x.dtype), self.conv.bias,
-                self.norm.weight, self.norm.bias,
-                height=h, width=w, kernel=k)
-            return y.permute(0, 3, 1, 2)
+            xs = _fused_xscale(self.conv, x, k)
+            if xs is not _NO_FUSE:
+                _, _, h, w = x.shape
+                y = self._conv_ln_act(
+                    _nhwc(x), _hwio(self.conv, x.dtype), self.conv.bias,
+                    self.norm.weight, self.norm.bias,
+                    height=h, width=w, kernel=k, xscale=xs)
+                return y.permute(0, 3, 1, 2)
         return self.act(self.norm(self.conv(x)))
 
 
@@ -83,25 +129,29 @@ class ResidualBlock(_Fusable):
     def __init__(self, features: int, norm: str = "layernorm2d", activation: str = "relu"):
         super().__init__()
         self.features, self.norm_type, self.activation = features, norm, activation
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv1 = QConv(features, features, 3, padding=1)
         self.norm1 = get_normalization(norm, features)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv2 = QConv(features, features, 3, padding=1)
         self.norm2 = get_normalization(norm, features)
         self.act = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] == self.features and self._fusable(x):
-            _, _, h, w = x.shape
-            xh = _nhwc(x)
-            y = cuda_head.conv_ln_act(
-                xh, _hwio(self.conv1, x.dtype), self.conv1.bias, self.norm1.weight,
-                self.norm1.bias, height=h, width=w)
-            y = cuda_head.conv_ln_act(
-                y, _hwio(self.conv2, x.dtype), self.conv2.bias, self.norm2.weight,
-                self.norm2.bias, residual=xh, height=h, width=w)
-            return y.permute(0, 3, 1, 2)
+            xs1 = _fused_xscale(self.conv1, x, 3)
+            xs2 = _fused_xscale(self.conv2, x, 3)
+            if xs1 is not _NO_FUSE and xs2 is not _NO_FUSE:
+                _, _, h, w = x.shape
+                xh = _nhwc(x)
+                y = self._conv_ln_act(
+                    xh, _hwio(self.conv1, x.dtype), self.conv1.bias, self.norm1.weight,
+                    self.norm1.bias, height=h, width=w, xscale=xs1)
+                y = self._conv_ln_act(
+                    y, _hwio(self.conv2, x.dtype), self.conv2.bias, self.norm2.weight,
+                    self.norm2.bias, residual=xh, height=h, width=w, xscale=xs2)
+                return y.permute(0, 3, 1, 2)
         h = self.act(self.norm1(self.conv1(x)))
-        h = self.norm2(self.conv2(h))
+        # single-use internal boundary: int8 flows into conv2 (serving)
+        h = self.norm2(self.conv2(prequantize_for(self.conv2, h)))
         return self.act(h + x)
 
 
@@ -124,9 +174,12 @@ def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2)
 
 
-def set_head_fusion(module: nn.Module, enabled: bool) -> None:
+def set_head_fusion(module: nn.Module, enabled: bool, kernel: bool = True) -> None:
     """Route every ConvNormAct/ResidualBlock under ``module`` through the
-    fused kernel (where its gate allows) or through the unfused chain."""
+    fused unit (where its gate allows) or through the unfused chain; with
+    ``kernel`` False the fused unit computes its plain version on any
+    device."""
     for m in module.modules():
         if isinstance(m, _Fusable):
             m.fused_head = enabled
+            m.use_kernel = kernel

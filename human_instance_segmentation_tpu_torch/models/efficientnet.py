@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norms import BatchNorm2d
+from ..ops.quant import QConv
 
 # (expand_ratio, kernel, stride, out_channels, num_repeat) for B0
 _B0_STAGES = (
@@ -102,7 +103,7 @@ class MBConv(nn.Module):
         mid = in_channels * expand_ratio
         self.residual = stride == 1 and in_channels == out_channels
         if expand_ratio != 1:
-            self.expand_conv = nn.Conv2d(in_channels, mid, 1, bias=False)
+            self.expand_conv = QConv(in_channels, mid, 1, bias=False)
             self.bn0 = BatchNorm2d(mid, _BN_EPS)
         else:
             self.expand_conv = None
@@ -110,7 +111,7 @@ class MBConv(nn.Module):
         self.bn1 = BatchNorm2d(mid, _BN_EPS)
         self.se = (SqueezeExcite(mid, max(1, int(in_channels * se_ratio)))
                    if se_ratio > 0 else None)
-        self.project_conv = nn.Conv2d(mid, out_channels, 1, bias=False)
+        self.project_conv = QConv(mid, out_channels, 1, bias=False)
         self.bn2 = BatchNorm2d(out_channels, _BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

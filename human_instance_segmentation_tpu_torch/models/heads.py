@@ -6,6 +6,11 @@ Counterpart of the JAX package's ``models/heads.py``: ``EnhancedUNet``,
 contour and distance branches. Heads return ``(final_logits, aux)`` with
 NCHW tensors; the assembly turns them into the JAX package's NHWC. Dropout
 is the identity in eval mode and holds no parameters, so it is left out.
+
+The 1x1/3x3 convs the JAX package builds as ``QConv`` are
+:class:`..ops.quant.QConv` here too, and the producer-side int8
+quantization points (``prequantize_for``) sit where the JAX heads put them
+(heads.py:96, :107, :117, :123, :230-233).
 """
 
 from __future__ import annotations
@@ -17,8 +22,9 @@ from torch import nn
 
 from ..ops.activations import get_activation
 from ..ops.norms import get_normalization
+from ..ops.quant import QConv
 from ..ops.sampling import resize_bilinear
-from .blocks import ConvNormAct, ConvTranspose2x, ResidualBlock, max_pool_2x
+from .blocks import ConvNormAct, ConvTranspose2x, ResidualBlock, max_pool_2x, prequantize_for
 
 _NCHW = (2, 3)
 
@@ -51,15 +57,15 @@ class EnhancedUNet(nn.Module):
         self.bott_res0 = ResidualBlock(chans[-1], **kw)
         self.bott_res1 = ResidualBlock(chans[-1], **kw)
         self.bott_cna = ConvNormAct(chans[-1], chans[-1], **kw)
-        self.bott_att = nn.Conv2d(chans[-1], chans[-1], 1)
-        self.bott_conv = nn.Conv2d(chans[-1], chans[-1], 3, padding=1)
+        self.bott_att = QConv(chans[-1], chans[-1], 1)
+        self.bott_conv = QConv(chans[-1], chans[-1], 3, padding=1)
         for d, i in enumerate(range(depth - 1, 0, -1)):
             self.add_module(f"up{d}", ConvTranspose2x(chans[i], chans[i - 1]))
             self.add_module(f"dec{d}_in", ConvNormAct(2 * chans[i - 1], chans[i - 1], **kw))
             self.add_module(f"dec{d}_res0", ResidualBlock(chans[i - 1], **kw))
             self.add_module(f"dec{d}_res1", ResidualBlock(chans[i - 1], **kw))
         self.final_cna = ConvNormAct(chans[0], chans[0] // 2, **kw)
-        self.final_out = nn.Conv2d(chans[0] // 2, 2, 1)
+        self.final_out = QConv(chans[0] // 2, 2, 1)
 
     def _run(self, x: torch.Tensor, *names: str) -> torch.Tensor:
         for name in names:
@@ -72,19 +78,23 @@ class EnhancedUNet(nn.Module):
             if i == 0:
                 x = self._run(x, "enc0_in", "enc0_res0", "enc0_res1")
             else:
-                x = self._run(x, f"enc{i}_res0", f"enc{i}_res1", f"enc{i}_out")
+                x = self._run(x, f"enc{i}_res0", f"enc{i}_res1")
+                cna = getattr(self, f"enc{i}_out")
+                x = cna(prequantize_for(cna.conv, x))
             skips.append(x)
             if i < self.depth - 1:
                 x = max_pool_2x(x)
         a = self._run(x, "bott_res0", "bott_res1", "bott_cna")
-        a = torch.sigmoid(self.bott_att(a))
+        a = torch.sigmoid(self.bott_att(prequantize_for(self.bott_att, a, k=1)))
         x = self.bott_conv(x) * a
         for d, i in enumerate(range(self.depth - 1, 0, -1)):
             skip = skips[i - 1]
             x = _resize_to(getattr(self, f"up{d}")(x), skip.shape[2], skip.shape[3])
             x = torch.cat([x, skip], dim=1)
-            x = self._run(x, f"dec{d}_in", f"dec{d}_res0", f"dec{d}_res1")
-        return self.final_out(self.final_cna(x))
+            cna = getattr(self, f"dec{d}_in")
+            x = self._run(cna(prequantize_for(cna.conv, x)), f"dec{d}_res0", f"dec{d}_res1")
+        x = self.final_cna(x)
+        return self.final_out(prequantize_for(self.final_out, x, k=1))
 
 
 class HierarchicalHeadV2(nn.Module):
@@ -110,15 +120,15 @@ class HierarchicalHeadV2(nn.Module):
         self.bg_vs_fg_unet = EnhancedUNet(mc, base_channels, depth, **kw)
         self.upsample_deconv = ConvTranspose2x(2, 32)
         self.upsample_norm = get_normalization(norm, 32)
-        self.upsample_out = nn.Conv2d(32, 2, 1)
-        self.gate0 = nn.Conv2d(2, mc // 4, 1)
-        self.gate1 = nn.Conv2d(mc // 4, mc // 2, 1)
-        self.gate2 = nn.Conv2d(mc // 2, mc, 1)
+        self.upsample_out = QConv(32, 2, 1)
+        self.gate0 = QConv(2, mc // 4, 1)
+        self.gate1 = QConv(mc // 4, mc // 2, 1)
+        self.gate2 = QConv(mc // 2, mc, 1)
         self.tnt_res0 = ResidualBlock(mc, **kw)
         self.tnt_deconv = ConvTranspose2x(mc, mc // 2)
         self.tnt_norm = get_normalization(norm, mc // 2)
         self.tnt_res1 = ResidualBlock(mc // 2, **kw)
-        self.tnt_out = nn.Conv2d(mc // 2, 2, 1)
+        self.tnt_out = QConv(mc // 2, 2, 1)
 
     def forward(self, features: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         act = self.act
@@ -131,8 +141,8 @@ class HierarchicalHeadV2(nn.Module):
         bg_fg_probs = torch.softmax(bg_fg_logits, dim=1)
 
         g = act(self.gate0(bg_fg_low))
-        g = act(self.gate1(g))
-        fg_attention = torch.sigmoid(self.gate2(g))
+        g = act(self.gate1(prequantize_for(self.gate1, g, k=1)))
+        fg_attention = torch.sigmoid(self.gate2(prequantize_for(self.gate2, g, k=1)))
 
         t = self.tnt_res0(shared * fg_attention)
         t = act(self.tnt_norm(self.tnt_deconv(t)))
@@ -164,7 +174,7 @@ class ContourBranch(nn.Module):
         kw = dict(norm=norm, activation=activation)
         self.c0 = ConvNormAct(in_channels, contour_channels, **kw)
         self.c1 = ConvNormAct(contour_channels, contour_channels, **kw)
-        self.out = nn.Conv2d(contour_channels, 1, 1)
+        self.out = QConv(contour_channels, 1, 1)
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self.out(self.c1(self.c0(features))))
@@ -179,7 +189,7 @@ class DistanceTransformDecoder(nn.Module):
         kw = dict(norm=norm, activation=activation)
         self.d0 = ConvNormAct(in_channels, distance_channels, **kw)
         self.d_res = ResidualBlock(distance_channels, **kw)
-        self.out = nn.Conv2d(distance_channels, 1, 1)
+        self.out = QConv(distance_channels, 1, 1)
         self.threshold = nn.Parameter(torch.tensor(0.3))
 
     def forward(self, features: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.norms import BatchNorm2d
+from ..ops.quant import QConv
 from ..ops.s2d import upsample_2x_nearest
 from ..ops.sampling import resize_bilinear
 from .efficientnet import EfficientNetEncoder, encoder_feature_channels
@@ -32,9 +33,9 @@ class DecoderBlock(nn.Module):
         if upsample_mode not in ("bilinear", "nearest"):
             raise ValueError(f"unknown upsample_mode {upsample_mode!r}")
         self.upsample_mode = upsample_mode
-        self.conv0 = nn.Conv2d(in_channels + skip_channels, features, 3, padding=1, bias=False)
+        self.conv0 = QConv(in_channels + skip_channels, features, 3, padding=1, bias=False)
         self.bn0 = BatchNorm2d(features)
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.conv1 = QConv(features, features, 3, padding=1, bias=False)
         self.bn1 = BatchNorm2d(features)
 
     def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor]) -> torch.Tensor:

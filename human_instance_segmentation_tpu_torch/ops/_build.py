@@ -1,11 +1,13 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
 Every ``csrc/*.cu`` file of this package is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface,
-under ``build/kernels/`` at the repository root (listed in .gitignore).
-The library's name carries a hash of the sources and flags, so a changed
-source builds anew and an unchanged one loads what is there. A missing
-``nvcc`` or a failed build raises: there is no fallback.
+Hopper (``sm_90a``), one ``nvcc`` process per source, all started
+together, and the objects are linked into one shared library with a plain
+C interface, under ``build/kernels/`` at the repository root (listed in
+.gitignore). The library's name carries a hash of the sources, the
+headers (``csrc/*.cuh``) and the flags, so a changed source builds anew and
+an unchanged one loads what is there. A missing ``nvcc`` or a failed build
+raises: there is no fallback.
 
 Nothing is built at import time; the first wrapper that launches a kernel
 calls :func:`library`.
@@ -26,21 +28,32 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signatures of the exported launchers; each returns cudaGetLastError().
 SIGNATURES = {
     # x, w, b, gamma, beta, residual, out, scratch, N, H, W, Ci, Co, k,
     # eps, relu, dtype (0 f32, 1 bf16), stream
     "conv_ln_act_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _F, _I, _I, _P],
+                           _I, _D, _I, _I, _P],
     # features, rois, out, B, H, W, C, N, oh, ow, ssh, ssw, aligned,
     # dtype (0 f32, 1 bf16), stream
     "roi_align_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                          _I, _P],
+    # x, wq, inv (1,), qscale (Co,), b, gamma, beta, residual, out, scratch,
+    # int8 staging buffer, N, H, W, Ci, Co, k, eps, relu,
+    # dtype (0 f32, 1 bf16), stream
+    "conv_ln_act_s8_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _D, _I, _I, _P],
+    # x, wq, qparam (1,), qmode (0 divide, 1 multiply), scale (Co,), bias,
+    # out, int8 staging buffer, N, H, W, Ci, Co, k, pad,
+    # in dtype (0 f32, 1 bf16, 2 s8), out dtype (0 f32, 1 bf16, 2 s32), stream
+    "s8_conv_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -50,6 +63,10 @@ build_log: str = ""
 
 def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _headers():
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -66,7 +83,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -83,15 +100,29 @@ def build() -> Path:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(src, proc.returncode) for src, proc in zip(sources, procs) if proc.returncode]
+    link = None
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed or link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
+        what = failed or [("link", link.returncode)]
+        raise RuntimeError(f"nvcc failed {what}:\n{build_log}")
     os.replace(tmp, out)
     return out
 

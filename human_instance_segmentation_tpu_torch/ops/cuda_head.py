@@ -7,6 +7,12 @@ note says why it takes two launches). :func:`conv_ln_act_plain` is the
 same function in plain PyTorch: the path for CPU tensors and the oracle
 the kernel is held against.
 
+With ``xscale`` (a calibrated activation scale) the unit runs its int8
+form (pallas_head.py:178-187): weights quantized per output channel in the
+wrapper, activations quantized once by the kernel as ``round(x * float32(1
+/ xscale))``, s8 x s8 -> s32 on the tensor cores, ``float(acc) * (xscale *
+sw) + b`` into the float32 scratch, then the same LayerNorm epilogue.
+
 The gate constants are the JAX package's (pallas_head.py:39-58): the
 fused unit serves only tiny-spatial, high-channel maps (the EnhancedUNet
 bottleneck, 16x12 at 384 channels in the flagship). Do not widen them.
@@ -14,12 +20,14 @@ bottleneck, 16x12 at 384 channels in the flagship). Do not widen them.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .quant import quantize_weight, s8_conv_plain, staging_buffer
 
 _MIN_FUSED_CH = 256
 _MAX_FUSED_PIXELS = 512
@@ -33,6 +41,15 @@ def fusable_shape(h: int, w: int, ci: int, co: int) -> bool:
     return h * w <= _MAX_FUSED_PIXELS
 
 
+def _s8_operands(w: torch.Tensor, xscale: float):
+    """(int8 weights, float32 qscale = xscale * sw, float32 1 / xscale) as
+    the JAX wrapper makes them (pallas_head.py:179-184)."""
+    wq, sw = quantize_weight(w)
+    qscale = torch.full((1,), xscale, dtype=torch.float32, device=w.device) * sw
+    inv = torch.full((1,), 1.0 / xscale, dtype=torch.float32, device=w.device)
+    return wq, qscale, inv
+
+
 def conv_ln_act_plain(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -44,21 +61,39 @@ def conv_ln_act_plain(
     kernel: int = 3,
     eps: float = 1e-5,
     act: str = "relu",
+    xscale: Optional[float] = None,
 ) -> torch.Tensor:
     """SAME conv + bias, LayerNorm2d over all of (H, W, C) per sample,
     affine, residual, activation; every step in float32, cast to x's dtype
-    at the end (the Pallas kernel's arithmetic).
+    at the end (the Pallas kernel's arithmetic). With ``xscale`` the conv is
+    the int8 form: ``round(x * (1 / xscale))`` clipped to +-127, per-channel
+    int8 weights, an exact integer conv, ``float(acc) * qscale + b``.
+
+    The LayerNorm statistics are the kernel's: float64 sums rounded to
+    float32 once (order-independent), ``rstd = 1 / sqrt(var + eps)`` in
+    float64, divisions by a device tensor. So the int8 form of the kernel
+    equals this bit for bit.
 
     x (N, H, W, Ci); w (k, k, Ci, Co); b/gamma/beta (Co,);
-    residual (N, H, W, Co). Returns (N, H, W, Co).
+    residual (N, H, W, Co). Returns (N, H, W, Co), contiguous like the
+    kernel's output.
     """
-    f32 = torch.float32
-    xc = x.to(f32).permute(0, 3, 1, 2)
-    wc = w.to(f32).permute(3, 2, 0, 1)
-    y = F.conv2d(xc, wc, b.to(f32), padding=kernel // 2).permute(0, 2, 3, 1)
-    m = y.mean(dim=(1, 2, 3), keepdim=True)
-    v = (y - m).square().mean(dim=(1, 2, 3), keepdim=True)
-    y = (y - m) * torch.rsqrt(v + eps) * gamma.to(f32) + beta.to(f32)
+    f32, f64 = torch.float32, torch.float64
+    if xscale is not None:
+        wq, qscale, inv = _s8_operands(w, xscale)
+        xq = torch.round(x.to(f32) * inv).clamp(-127.0, 127.0).to(torch.int8)
+        acc = s8_conv_plain(xq, wq, padding=kernel // 2)
+        y = acc.to(f32) * qscale + b.to(f32)
+    else:
+        xc = x.to(f32).permute(0, 3, 1, 2)
+        wc = w.to(f32).permute(3, 2, 0, 1)
+        y = F.conv2d(xc, wc, b.to(f32), padding=kernel // 2).permute(0, 2, 3, 1).contiguous()
+    size = torch.full((1,), y[0].numel(), dtype=f64, device=y.device)
+    m = (y.to(f64).sum(dim=(1, 2, 3), keepdim=True) / size).to(f32)
+    d = y - m
+    v = d.to(f64).square().sum(dim=(1, 2, 3), keepdim=True) / size
+    rstd = torch.sqrt(v + eps).reciprocal().to(f32)
+    y = d * rstd * gamma.to(f32) + beta.to(f32)
     if residual is not None:
         y = y + residual.to(f32)
     if act == "relu":
@@ -83,16 +118,16 @@ def conv_ln_act(
 ) -> torch.Tensor:
     """Fused SAME conv (k in {1, 3}) + LayerNorm2d + optional residual + act.
 
-    Same contract as the JAX wrapper (bf16/f32 form): x (N, H, W, Ci);
-    w (k, k, Ci, Co) in x's dtype; b/gamma/beta (Co,); residual
-    (N, H, W, Co) added after the norm, before the activation. Returns
-    (N, H, W, Co) in x's dtype.
+    Same contract as the JAX wrapper: x (N, H, W, Ci); w (k, k, Ci, Co) in
+    x's dtype; b/gamma/beta (Co,); residual (N, H, W, Co) added after the
+    norm, before the activation; ``xscale`` switches to the int8 form.
+    Returns (N, H, W, Co) in x's dtype.
 
     A CPU tensor takes :func:`conv_ln_act_plain`. A CUDA tensor launches
-    the kernel or raises.
+    the kernel (:func:`conv_ln_act_s8` for the int8 form) or raises.
     """
-    if xscale is not None:
-        raise NotImplementedError("the int8 (xscale) form of conv_ln_act is not ported yet")
+    if xscale is not None and not (math.isfinite(xscale) and xscale > 0):
+        raise ValueError(f"xscale must be a positive finite scale, got {xscale}")
     if kernel not in (1, 3):
         raise ValueError(f"kernel must be 1 or 3, got {kernel}")
     if act not in ("relu", "identity"):
@@ -110,7 +145,8 @@ def conv_ln_act(
         raise ValueError(f"residual must be {(n, h, wd, co)}, got {tuple(residual.shape)}")
 
     if x.device.type == "cpu":
-        return conv_ln_act_plain(x, w, b, gamma, beta, residual, kernel=kernel, eps=eps, act=act)
+        return conv_ln_act_plain(x, w, b, gamma, beta, residual, kernel=kernel, eps=eps, act=act,
+                                 xscale=xscale)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv_ln_act: no kernel for device {x.device}")
 
@@ -125,6 +161,11 @@ def conv_ln_act(
     params = [p.to(device=x.device, dtype=torch.float32).contiguous() for p in (b, gamma, beta)]
     out = torch.empty((n, h, wd, co), device=x.device, dtype=x.dtype)
     scratch = torch.empty((n, h * wd, co), device=x.device, dtype=torch.float32)
+    if xscale is not None:
+        wq, qscale, inv = _s8_operands(w, xscale)
+        conv_ln_act_s8(x, wq, qscale, inv, params, residual, out, scratch, kernel=kernel, eps=eps,
+                       act=act)
+        return out
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.conv_ln_act_launch(
@@ -138,3 +179,23 @@ def conv_ln_act(
 
 
 conv_ln_act.launches = 0
+
+
+def conv_ln_act_s8(x, wq, qscale, inv, params, residual, out, scratch, *, kernel, eps, act):
+    """Launch the int8 form (``conv_ln_act_s8_launch``) on checked CUDA
+    operands: wq (k, k, Ci, Co) int8, qscale (Co,) and inv (1,) float32,
+    params [b, gamma, beta] float32; writes ``out``."""
+    n, h, wd, ci = x.shape
+    co = wq.shape[-1]
+    ws = staging_buffer(x)
+    err = _build.library().conv_ln_act_s8_launch(
+        x.data_ptr(), wq.data_ptr(), inv.data_ptr(), qscale.data_ptr(), params[0].data_ptr(),
+        params[1].data_ptr(), params[2].data_ptr(),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(),
+        scratch.data_ptr(), ws.data_ptr(), n, h, wd, ci, co, kernel, float(eps),
+        int(act == "relu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    conv_ln_act_s8.launches += 1
+    _build.check(err, "conv_ln_act_s8")
+
+
+conv_ln_act_s8.launches = 0

@@ -6,6 +6,9 @@ The CUDA kernel itself runs only on a GPU; ``chip_smoke.py`` holds it
 against :func:`conv_ln_act_plain` there.
 """
 
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +17,10 @@ import torch
 
 from human_instance_segmentation_tpu.models import blocks as jblocks
 from human_instance_segmentation_tpu.ops import pallas_head
+from human_instance_segmentation_tpu.ops import quant as jquant
 from human_instance_segmentation_tpu.ops.pallas_head import head_fusion
 from human_instance_segmentation_tpu_torch.models import blocks
-from human_instance_segmentation_tpu_torch.ops import _build, cuda_head
+from human_instance_segmentation_tpu_torch.ops import _build, cuda_head, quant
 from human_instance_segmentation_tpu_torch.weights import load_jax_params
 
 ATOL = 1e-5
@@ -54,15 +58,112 @@ def test_conv_ln_act_matches_pallas(rng, kernel, residual, wrapper):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("kernel", [1, 3])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("wrapper", ["plain", "dispatch"])
+def test_conv_ln_act_int8_matches_pallas(rng, kernel, residual, wrapper):
+    """The int8 form (xscale) vs the interpreted Pallas kernel in float32:
+    same quantized operands, an exact integer conv, the same dequant; the
+    LayerNorm sums differ only in order."""
+    o = _operands(rng, k=kernel)
+    res = o["res"] if residual else None
+    xs = float(np.abs(o["x"]).max() / 127.0 * 0.9)
+    with jax.default_matmul_precision("highest"):
+        ref = pallas_head.conv_ln_act(
+            *(jnp.asarray(o[k]) for k in ("x", "w", "b", "g", "beta")),
+            None if res is None else jnp.asarray(res), height=4, width=3, kernel=kernel,
+            xscale=xs)
+        exact = pallas_head.conv_ln_act(
+            *(jnp.asarray(o[k]) for k in ("x", "w", "b", "g", "beta")),
+            None if res is None else jnp.asarray(res), height=4, width=3, kernel=kernel)
+    t = {k: torch.from_numpy(v) for k, v in o.items()}
+    args = (t["x"], t["w"], t["b"], t["g"], t["beta"], t["res"] if residual else None)
+    before = cuda_head.conv_ln_act_s8.launches
+    if wrapper == "plain":
+        out = cuda_head.conv_ln_act_plain(*args, kernel=kernel, xscale=xs)
+    else:
+        out = cuda_head.conv_ln_act(*args, height=4, width=3, kernel=kernel, xscale=xs)
+    assert cuda_head.conv_ln_act_s8.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4)
+    assert np.abs(np.asarray(ref) - np.asarray(exact)).max() > 1e-4  # int8 really ran
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_conv_ln_act_plain_is_order_independent(rng, residual):
+    """The LayerNorm statistics are float64 sums rounded once, so the order
+    of the ROI's pixels does not change a bit of the result (the CUDA kernel
+    sums in another order and must agree bit for bit). With k=1 each pixel's
+    conv is its own, so permuting pixels permutes the output exactly."""
+    o = _operands(rng, n=2, h=16, w=12, ci=32, co=48, k=1)
+    xs = float(np.abs(o["x"]).max() / 127.0)
+    t = {k: torch.from_numpy(v) for k, v in o.items()}
+    perm = torch.from_numpy(rng.permutation(16 * 12))
+
+    def shuffle(a):
+        return a.reshape(2, 16 * 12, -1)[:, perm].reshape(2, 1, 16 * 12, -1).contiguous()
+
+    res = t["res"] if residual else None
+    out = cuda_head.conv_ln_act_plain(t["x"], t["w"], t["b"], t["g"], t["beta"], res, kernel=1,
+                                      xscale=xs)
+    moved = cuda_head.conv_ln_act_plain(shuffle(t["x"]), t["w"], t["b"], t["g"], t["beta"],
+                                        None if res is None else shuffle(res), kernel=1,
+                                        xscale=xs)
+    assert out.is_contiguous()
+    assert torch.equal(moved, shuffle(out))
+
+
+@pytest.mark.parametrize("block", ["cna3", "cna1", "res"])
+@pytest.mark.parametrize("scaled", ["calibrated", "uncalibrated"])
+def test_block_int8_gate_and_parity(rng, monkeypatch, block, scaled):
+    """Under int8 serving a fusable block takes the fused unit's int8 form
+    when its convs have calibrated scales, and the unfused QConv path
+    (dynamic scales) when they do not, as in the JAX blocks; both match."""
+    c = 256
+    x = rng.standard_normal((2, 4, 3, c)).astype(np.float32)
+    if block == "res":
+        jmod, tmod, convs = jblocks.ResidualBlock(c), blocks.ResidualBlock(c), ("conv1", "conv2")
+    else:
+        k = 3 if block == "cna3" else 1
+        jmod, tmod = jblocks.ConvNormAct(c, kernel=k), blocks.ConvNormAct(c, c, kernel=k)
+        convs = ("conv",)
+    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)
+    variables = jax.tree.map(
+        lambda a: np.asarray(a) + 0.1 * rng.standard_normal(a.shape).astype(np.float32),
+        variables)
+    scales = ({name: float(np.abs(x).max() / 127.0 * (1 + i)) for i, name in enumerate(convs)}
+              if scaled == "calibrated" else None)
+    with jax.default_matmul_precision("highest"), head_fusion(), \
+            jquant.int8_serving(True, scales):
+        ref = np.asarray(jmod.apply(variables, jnp.asarray(x), train=False))
+    load_jax_params(tmod, variables)
+    tmod.eval()
+    calls = []
+    real = cuda_head.conv_ln_act
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("xscale"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cuda_head, "conv_ln_act", spy)
+    blocks.set_head_fusion(tmod, True)
+    quant.set_int8_serving(tmod, True, scales)
+    with torch.no_grad():
+        out = tmod(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    if scales:
+        assert calls == [scales[n] for n in convs]
+    else:
+        assert not calls
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("bad", ["xscale", "kernel", "height", "w_shape", "residual_shape"])
 def test_conv_ln_act_rejects(rng, bad):
     t = {k: torch.from_numpy(v) for k, v in _operands(rng).items()}
     kw = dict(height=4, width=3)
     args = [t["x"], t["w"], t["b"], t["g"], t["beta"], None]
     err = ValueError
-    if bad == "xscale":
-        kw["xscale"] = 0.1
-        err = NotImplementedError
+    if bad == "xscale":  # the int8 form needs a positive finite scale
+        kw["xscale"] = 0.0
     elif bad == "kernel":
         kw["kernel"] = 5
     elif bad == "height":
@@ -153,4 +254,23 @@ def test_library_name_tracks_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
     assert {p.name for p in _build._sources()} == {"k.cu"}
     real = {p.name for p in (_build.PACKAGE_DIR / "csrc").glob("*.cu")}
-    assert real == {"conv_ln_act.cu", "roi_align.cu"}
+    assert real == {"conv_ln_act.cu", "qconv.cu", "roi_align.cu"}
+    header = tmp_path / "k.cuh"  # a changed header builds anew too
+    header.write_text("// one\n")
+    with_header = _build.library_path()
+    header.write_text("// two\n")
+    assert _build.library_path() != with_header
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_launcher_signature_matches_source(name):
+    """Each ctypes signature lists the C launcher's parameters in order
+    (pointers and the stream as void*, int, float, double): a mismatch
+    would pass garbage without any error."""
+    src = "\n".join(p.read_text() for p in (_build.PACKAGE_DIR / "csrc").glob("*.cu"))
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+    assert m, name
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double}
+    params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+    want = [ctypes.c_void_p if p.endswith("*") else ctype[p] for p in params]
+    assert _build.SIGNATURES[name] == want

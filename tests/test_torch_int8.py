@@ -1,0 +1,157 @@
+"""The port's int8 serving slice vs the JAX package's int8 engine at a small
+size, on the same weights, inputs and scales (CPU, float32).
+
+Config: test_torch_flagship.py's TINY (variant "tiny", image 64x96, roi
+16x12, mask 32x24, base_channels 64), at mid_channels 32 and 256: at 256
+the gate QConvs (1x1 over mid/4 and mid/2 channels) pass the kh*kw*Ci >= 48
+test, at 32 they do not. JAX serves ``quantize="int8", fused_head=True``
+with its plain stage-1 tail (``fused_tail=0``, the port's form), so its
+decoder scale keys are ``pretrained_unet/decoder{i}/conv{i}``; its Pallas
+kernel runs interpreted. The port runs its plain versions on the CPU.
+
+Tolerances. The quantized operands and the integer convs are bitwise
+equal (tests/test_torch_quant.py); what differs is float32 summation order
+in the float convs and norms, and int8 turns an order difference that moves
+a value across a rounding boundary of the next quantizer into a whole code.
+The JAX package shows the size of that on its own: its jitted engine and
+its op-by-op apply of the same int8 graph differ by 2-7e-3 in the binary
+masks and agree on only 0.970-0.994 of instance pixels (the dilation boost
+flips whole 3x3 neighbourhoods at near-ties; 0.994-1.0 without it), over
+mid 32/256 and two weight seeds. So the port is held to:
+- stage 1 against JAX's op-by-op int8 apply, binary max abs <= 1e-3
+  (measured 6e-8: the stage-1 convs match code for code);
+- the deployed outputs against the JAX engine no further than JAX's own
+  apply is: binary within 1e-3 of it, instance agreement within 0.01 of
+  it, and >= 0.995 without the dilation boost.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from human_instance_segmentation_tpu.inference import InferenceEngine as JaxEngine
+from human_instance_segmentation_tpu.inference import deployed_outputs as jax_deployed_outputs
+from human_instance_segmentation_tpu.models.assembly import (
+    HierarchicalInstanceSegmenter as JaxSegmenter)
+from human_instance_segmentation_tpu.ops import pallas_head
+from human_instance_segmentation_tpu.ops.pallas_head import head_fusion
+from human_instance_segmentation_tpu.ops.quant import int8_serving
+from human_instance_segmentation_tpu_torch.inference import (ENCODER_INT8_DENY, InferenceEngine,
+                                                             create_flagship, pad_rois, roi_bucket)
+from human_instance_segmentation_tpu_torch.ops import cuda_head, quant
+from human_instance_segmentation_tpu_torch.weights import load_jax_params
+from test_torch_flagship import ROIS, TINY, _variables
+
+
+@pytest.fixture(scope="module", params=[32, 256], ids=["mid32", "mid256"])
+def tiny(request):
+    cfg = dict(TINY, mid_channels=request.param)
+    jmodel = JaxSegmenter(encoder_variant="tiny", **cfg)
+    variables = _variables(jmodel, seed=5)
+    port = create_flagship(variant="tiny", seed=0, **cfg)
+    load_jax_params(port, variables)
+    images = np.random.default_rng(11).random((2, 64, 96, 3), dtype=np.float32)
+    jeng = JaxEngine(jmodel, variables, dilation_pixels=1, quantize="int8", fused_head=True)
+    with jax.default_matmul_precision("highest"):
+        jeng.calibrate(images, ROIS)
+    return dict(mid=request.param, jmodel=jmodel, variables=variables, port=port,
+                images=images, jeng=jeng, jscales=dict(jeng._scales))
+
+
+def test_calibration_keys_match_jax(tiny):
+    engine = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8", fused_head=True)
+    engine.calibrate(tiny["images"], ROIS)
+    scales, jscales = engine.scales, tiny["jscales"]
+    assert sorted(scales) == sorted(jscales)
+    for key in jscales:
+        assert scales[key] == pytest.approx(jscales[key], rel=1e-5), key
+    # denied or not, every eligible QConv was calibrated
+    assert any(k.startswith("pretrained_unet/encoder/") for k in scales)
+    assert "pretrained_unet/decoder4/conv1" in scales and "feature_combiner" in scales
+    assert ("head/base_head/gate1" in scales) == (tiny["mid"] // 4 >= 48)
+    # a second batch merges by max
+    engine.calibrate(tiny["images"][:1] * 2.0, ROIS[:1])
+    assert all(engine.scales[k] >= scales[k] for k in scales)
+    assert any(engine.scales[k] > scales[k] for k in scales)
+
+
+def test_int8_slice_matches_jax(tiny, monkeypatch):
+    jscales = tiny["jscales"]
+    jcalls, calls = [], []
+    jreal, real = pallas_head.conv_ln_act, cuda_head.conv_ln_act
+
+    def jspy(*args, **kwargs):
+        jcalls.append((kwargs.get("kernel", 3), kwargs.get("xscale") is not None))
+        return jreal(*args, **kwargs)
+
+    def spy(*args, **kwargs):
+        calls.append((kwargs.get("kernel", 3), kwargs.get("xscale") is not None))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pallas_head, "conv_ln_act", jspy)
+    monkeypatch.setattr(cuda_head, "conv_ln_act", spy)
+    images, jeng = tiny["images"], tiny["jeng"]
+    rois_p = pad_rois(ROIS, roi_bucket(len(ROIS)))
+    with jax.default_matmul_precision("highest"):
+        jinst, jbinary = jeng(images, ROIS)
+        jcalls.clear()  # count one op-by-op forward (jit may trace more than once)
+        with int8_serving(True, jscales, ENCODER_INT8_DENY), head_fusion():
+            jlogits, jaux = tiny["jmodel"].apply(tiny["variables"], jnp.asarray(images),
+                                                 jnp.asarray(rois_p), train=False)
+        outs = {d: [np.asarray(t) for t in jax_deployed_outputs(jlogits, jaux,
+                                                                 jnp.asarray(rois_p), d)]
+                for d in (0, 1)}
+    # res2 x2 (its 16x12 ROI map is fusable here) and the bottleneck x5, all
+    # int8, plus at mid 256 the shared trunk (shared_in, shared_res0/1) and
+    # tnt_res0, all 16x12 at 256; proj's input arrives int8 from
+    # prequantize_for, so it is unfused
+    n_fused = 7 + (7 if tiny["mid"] >= 256 else 0)
+    assert sorted(jcalls) == [(3, True)] * n_fused
+
+    engine = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8", fused_head=True)
+    engine.scales = dict(jscales)
+    before = quant.QConv.int8_calls
+    inst, binary = engine(images, ROIS)
+    assert sorted(calls) == sorted(jcalls)
+    qconvs = [m for m in tiny["port"].modules() if isinstance(m, quant.QConv)]
+    # every QConv marked int8 ran int8, except the convs the fused units own
+    assert quant.QConv.int8_calls - before == sum(m.runs_int8 for m in qconvs) - n_fused
+    assert all(m.denied for n, m in tiny["port"].named_modules()
+               if isinstance(m, quant.QConv) and ".encoder." in n)
+    assert inst.shape == (3, 32, 24, 1) and binary.shape == (2, 64, 96, 1)
+
+    einst, ebinary = outs[1][0][:3], outs[1][1]
+    assert float(np.abs(binary - ebinary).max()) <= 1e-3
+    jax_bin = float(np.abs(ebinary - np.asarray(jbinary)).max())
+    assert float(np.abs(binary - np.asarray(jbinary)).max()) <= jax_bin + 1e-3
+    jax_agree = float((einst == np.asarray(jinst)).mean())
+    assert float((inst == np.asarray(jinst)).mean()) >= jax_agree - 0.01
+    flat = InferenceEngine(tiny["port"], quantize="int8", fused_head=True)
+    flat.scales = dict(jscales)
+    inst0, _ = flat(images, ROIS)
+    assert float((inst0 == outs[0][0][:3]).mean()) >= 0.995
+
+
+def test_int8_plain_path_and_dynamic_scales(tiny):
+    """``kernels=False`` selects the plain fused unit and int8 convs (the
+    same result on the CPU); before calibration ``forward`` serves dynamic scales, and
+    the first ``__call__`` calibrates."""
+    images = torch.from_numpy(tiny["images"])
+    rois = torch.from_numpy(pad_rois(ROIS, 4))
+    served = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8", fused_head=True)
+    plain = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8", fused_head=True,
+                            kernels=False)
+    for e in (served, plain):
+        e.scales = dict(tiny["jscales"])
+    a = served.forward(images, rois)[2]
+    b = plain.forward(images, rois)[2]
+    assert torch.equal(a, b)
+    fresh = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8")
+    dyn = fresh.forward(images, rois)[2]
+    assert fresh.scales is None and torch.isfinite(dyn).all()
+    fresh(tiny["images"], ROIS)
+    assert sorted(fresh.scales) == sorted(tiny["jscales"])
+    with pytest.raises(ValueError, match="quantize"):
+        InferenceEngine(tiny["port"], quantize="int4")
