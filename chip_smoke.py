@@ -28,12 +28,28 @@ package beside the script; it imports nothing of JAX. Phases:
    ``pallas_roi_align=False``) in float32 and bf16;
 8. (f) batch 32 x 1 ROI forwards, bf16 kernel path vs int8 kernel path,
    and the int8 QConvs' share of stage-2 device time (``torch.profiler``,
-   with the 12 kernels that take the most device time).
+   with the 12 kernels that take the most device time);
+9. tail and filters (:func:`check_tail_and_filters`): the fused stage-1
+   tail, the bilateral filter and the edge smoothing against their plain
+   versions at the slice's shapes (B0, 480x640, batch 32) and at ragged
+   ones, timed beside the plain version and, for the tail, beside the
+   unfused bf16 chain the model runs with ``pallas_tail=False``;
+10. flagship with the tail (:func:`serve_with_tail`):
+    ``create_flagship(pallas_tail=True)`` served in bf16 and float32, 1 tail
+    + 5 conv_ln_act + 2 roi_align launches per forward, held against the
+    same weights with ``pallas_tail=False``;
+11. binary-mask mode (:func:`binary_mask_mode`): UNet with the tail ->
+    person probability -> ``binary_mask_bilateral`` -> edge smoothing ->
+    1 px dilation, and the exact bilateral filter on the same probability,
+    at batch 32, one launch of each of the three kernels per batch, held
+    against the plain versions, ms per batch.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
 
-It prints a JSON line of per-kernel results, then as its last line
+It prints a JSON line of per-kernel results (launches on the served paths,
+max abs error, kernel, plain and library or chain times, and the bound: the
+least time the card could take for the same work), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -76,6 +92,24 @@ QCONV_SHAPES = {
 # float32 kernel path vs plain path end to end: least instance agreement
 MIN_AGREE = 0.995
 INT8_PEAK_TOPS = 1979.0  # H100 SXM dense int8 (NVIDIA data sheet, at 700 W)
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W),
+# for each kernel's bound: the larger of bytes / HBM rate and operations /
+# the peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# exp runs on the special-function units, 16 a clock on each of 132 SMs; the
+# clock is the one the float32 peak implies (67e12 / (132 * 128 * 2))
+SFU_PER_S = 132 * 16 * (PEAK_OPS["f32"] / (132 * 128 * 2))
+# the fused stage-1 tail at the flagship's last decoder stage: decoder3's
+# output (B, 240, 320, 32) -> 16 channels -> (B, 480, 640) logits
+TAIL_SHAPE = (32, 240, 320, 32, 16)
+# tail, float32: the JAX package's gate for its Pallas tail
+# (tests/test_pallas_tail.py). bfloat16: kernel and plain version round the
+# same float32 logit once, so they differ by at most one bf16 ulp (2^-7
+# relative) where the float32 sums straddle a rounding boundary.
+TOL_TAIL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-5, 2.0 ** -7)}
+TOL_BILATERAL = 1e-5
+BINARY_SHAPE = (32, 480, 640, 1)
 
 
 def card_line() -> str:
@@ -117,6 +151,17 @@ def unfused_chain(x, w, b, gamma, beta):
     xc, wc, bc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b.to(x.dtype)
     k = w.shape[0]
     return lambda: torch.relu(ln(F.conv2d(xc, wc, bc, padding=k // 2)))
+
+
+def head_bound(kind: str) -> dict:
+    """conv_ln_act at ``HEAD_SHAPE``, k=3, bf16 activations: x and the
+    output once, the weights (2 bytes, or 1 as int8), three float32 vectors;
+    the conv's multiply-adds plus ~10 operations per output for the norm."""
+    n, h, w, c = HEAD_SHAPE
+    px = n * h * w
+    wbytes = 2 if kind == "bf16" else 1
+    return bound(2 * px * c * 2 + 9 * c * c * wbytes + 3 * c * 4,
+                 2 * 9 * c * c * px + 10 * px * c, kind)
 
 
 def check_kernels(card: str, rng) -> list:
@@ -164,14 +209,15 @@ def check_kernels(card: str, rng) -> list:
             kms = median_ms(lambda: cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w))
             pms = median_ms(lambda: cuda_head.conv_ln_act_plain(x, wt, b, g, be))
             cms = median_ms(unfused_chain(x, wt, b, g, be))
-            timing = (kms, pms)
+            timing = (kms, pms, cms)
             print(f"conv_ln_act bf16 k=3 {HEAD_SHAPE}->{c}: kernel {kms:.4f} ms, plain "
                   f"{pms:.4f} ms, unfused bf16 chain {cms:.4f} ms (median of {TIMING_REPS}, "
                   f"CUDA events) [{card}]")
     results.append({"name": "conv_ln_act", "route": "cuda",
                     "source": "human_instance_segmentation_tpu_torch/csrc/conv_ln_act.cu",
                     "replaces": "human_instance_segmentation_tpu/ops/pallas_head.py:243",
-                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]})
+                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                    "library_ms": None, "chain_ms": timing[2], **head_bound("bf16")})
 
     # ---- roi_align ------------------------------------------------------
     nroi = n
@@ -188,7 +234,7 @@ def check_kernels(card: str, rng) -> list:
     worst = 0.0
     timing = None
     scale = (float(IMAGE_HW[0]), float(IMAGE_HW[1]))
-    for ch in (3, 2):
+    for ch in (3, 2, 1):  # the RGB crop, the 2-channel logit crop, the dense branch's
         feats32 = torch.tensor(rng.standard_normal((n, *IMAGE_HW, ch)), dtype=torch.float32,
                                device=dev)
         for dt in (torch.float32, torch.bfloat16):
@@ -221,10 +267,216 @@ def check_kernels(card: str, rng) -> list:
                     print(f"roi_align bf16 {tuple(feats.shape)} x {nroi} rois -> {ROI_HW}: "
                           f"kernel {kms:.4f} ms, plain {pms:.4f} ms (median of {TIMING_REPS}, "
                           f"CUDA events) [{card}]")
+    # bytes this run's boxes need: every source pixel under a box once (at
+    # most the four taps of each output), 3 bf16 channels, plus the output
+    boxes = (rois[:, 3:5] - rois[:, 1:3]).clip(0, 1) * [IMAGE_HW[1], IMAGE_HW[0]] + 1
+    taps = sum(min(float(bw * bh), 4.0 * ROI_HW[0] * ROI_HW[1]) for bw, bh in boxes)
+    outs = nroi * ROI_HW[0] * ROI_HW[1] * 3
     results.append({"name": "roi_align", "route": "cuda",
                     "source": "human_instance_segmentation_tpu_torch/csrc/roi_align.cu",
                     "replaces": "human_instance_segmentation_tpu/ops/pallas_roi_align.py:128",
-                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]})
+                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                    "library_ms": None, **bound(taps * 3 * 2 + outs * 2, 8 * outs, "f32")})
+    return results
+
+
+def bound(nbytes: float, ops: float, kind: str, sfu_ops: float = 0.0) -> dict:
+    """The least time the card could take: bytes moved once over the HBM
+    rate against operations over the peak rate of their type (and exps over
+    the special-function rate)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / PEAK_OPS[kind], sfu_ops / SFU_PER_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def tail_operands(rng, ci: int, c: int, dtype, dev):
+    """Seeded tail weights at LeCun scale with non-trivial BN statistics,
+    HWIO as the wrapper takes them."""
+    import torch
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    def bn():
+        return tuple(t(v) for v in (rng.uniform(0.5, 1.5, c), rng.standard_normal(c) * 0.1,
+                                    rng.standard_normal(c) * 0.1, rng.uniform(0.5, 1.5, c)))
+
+    k0 = t(rng.standard_normal((3, 3, ci, c)) / (9 * ci) ** 0.5)
+    k1 = t(rng.standard_normal((3, 3, c, c)) / (9 * c) ** 0.5)
+    kh = t(rng.standard_normal((3, 3, c, 1)) / (9 * c) ** 0.5)
+    bh = t(rng.standard_normal(1))
+    return k0, bn(), k1, bn(), kh, bh
+
+
+def unfused_tail_chain(x_nchw, k0, bn0, k1, bn1, kh, bh):
+    """What the model runs with ``pallas_tail=False``, as a zero-argument
+    callable: the last DecoderBlock and the seg head as modules in x's dtype."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.models.unet import DecoderBlock
+
+    ci, c = k0.shape[2], k0.shape[3]
+    block = DecoderBlock(ci, 0, c).to(device=x_nchw.device, dtype=x_nchw.dtype).eval()
+    head = torch.nn.Conv2d(c, 1, 3, padding=1).to(device=x_nchw.device, dtype=x_nchw.dtype)
+    with torch.no_grad():
+        block.conv0.weight.copy_(k0.permute(3, 2, 0, 1))
+        block.conv1.weight.copy_(k1.permute(3, 2, 0, 1))
+        head.weight.copy_(kh.permute(3, 2, 0, 1))
+        head.bias.copy_(bh)
+        for m, p in ((block.bn0, bn0), (block.bn1, bn1)):
+            for dst, src in zip((m.weight, m.bias, m.running_mean, m.running_var), p):
+                dst.copy_(src)
+
+    def run():
+        with torch.inference_mode():
+            return head(block(x_nchw, None))[:, 0]
+
+    return run
+
+
+def blob_mask(rng, shape, dev):
+    """A {0, 1} float32 mask of smooth blobs with a noisy rim: low-pass
+    noise thresholded, then 2% of the pixels flipped."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, c = shape
+    noise = torch.tensor(rng.standard_normal((b * c, 1, h // 8 + 2, w // 8 + 2)), dtype=torch.float32,
+                         device=dev)
+    smooth = F.interpolate(noise, size=(h, w), mode="bilinear", align_corners=False)
+    mask = (smooth > 0).reshape(b, c, h, w).permute(0, 2, 3, 1)
+    flip = torch.tensor(rng.random(shape) < 0.02, device=dev)
+    return (mask ^ flip).to(torch.float32).contiguous()
+
+
+def check_tail_and_filters(card: str, rng) -> list:
+    """Phase 9: the fused tail, the bilateral filter and the edge smoothing
+    against their plain versions at the slice's shapes and ragged ones."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.ops import cuda_kernels, cuda_tail
+
+    dev = torch.device("cuda")
+    results = []
+
+    # ---- tail -----------------------------------------------------------
+    worst, timing = 0.0, None
+    b, h, w, ci, c = TAIL_SHAPE
+    cases = [(TAIL_SHAPE, dt, layout) for dt in (torch.float32, torch.bfloat16)
+             for layout in ("nchw", "nhwc")]
+    # odd sizes (partial tiles in both directions), channels off the kernel's
+    # chunk (8) and block (16) widths, C > 16 (two output-channel blocks)
+    cases += [(shape, dt, "nhwc") for shape in ((2, 13, 19, 5, 12), (1, 9, 21, 12, 20))
+              for dt in (torch.float32, torch.bfloat16)]
+    for shape, dt, layout in cases:
+        cb, chh, cw, cci, cc = shape
+        ops = tail_operands(rng, cci, cc, dt, dev)
+        x = torch.tensor(rng.standard_normal((cb, chh, cw, cci)), dtype=dt, device=dev)
+        if layout == "nchw":  # as the model hands it over: NCHW memory, NHWC view
+            x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        got = cuda_tail.tail(x, *ops)
+        torch.cuda.synchronize()
+        ref = cuda_tail.tail_plain(x, *ops)
+        torch.cuda.synchronize()
+        if got.shape != (cb, 2 * chh, 2 * cw) or got.dtype != dt:
+            raise AssertionError(f"tail {shape} {dt}: output {tuple(got.shape)} {got.dtype}")
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        atol, rtol = TOL_TAIL[str(dt).split(".")[1]]
+        print(f"tail {shape} {dt} {layout} input: max_abs_err={err:.3e} (atol {atol}, rtol "
+              f"{rtol}), |ref| max {ref.float().abs().max().item():.2f}")
+        if not (bool((diff <= atol + rtol * ref.float().abs()).all())
+                and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"tail {shape} {dt} {layout}: {err}")
+        if dt == torch.float32:
+            worst = max(worst, err)
+        if (shape, dt, layout) == (TAIL_SHAPE, torch.bfloat16, "nchw"):  # the served form
+            xn = x.permute(0, 3, 1, 2)
+            chain = unfused_tail_chain(xn, *ops)
+            cdiff = (chain().float() - ref.float()).abs().max().item()
+            kms = median_ms(lambda: cuda_tail.tail(x, *ops))
+            pms = median_ms(lambda: cuda_tail.tail_plain(x, *ops), reps=5, warmup=1)
+            cms = median_ms(chain)
+            timing = (kms, pms, cms)
+            print(f"tail bf16 {TAIL_SHAPE}: kernel {kms:.4f} ms, plain (float32 chain) "
+                  f"{pms:.4f} ms, unfused bf16 chain of the model {cms:.4f} ms (its max abs "
+                  f"distance from the plain version {cdiff:.3e}) (median of {TIMING_REPS}, CUDA "
+                  f"events) [{card}]")
+        del x, got, ref, diff
+        torch.cuda.empty_cache()
+    px = b * 2 * h * 2 * w
+    results.append({"name": "tail", "route": "cuda",
+                    "source": "human_instance_segmentation_tpu_torch/csrc/tail.cu",
+                    "replaces": "human_instance_segmentation_tpu/ops/pallas_tail.py:269",
+                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                    "library_ms": None, "chain_ms": timing[2],
+                    **bound(2 * b * h * w * ci + 2 * px, 2 * 9 * (ci * c + c * c + c) * px, "bf16")})
+
+    # ---- bilateral_filter -------------------------------------------------
+    worst, timing = 0.0, None
+    for shape, k, ss, sr in ((BINARY_SHAPE, 7, 1.5, 0.2), ((2, 37, 53, 3), 5, 1.0, 0.1),
+                             ((1, 16, 9, 2), 9, 2.0, 0.3)):
+        x = torch.tensor(rng.random(shape), dtype=torch.float32, device=dev)
+        got = cuda_kernels.bilateral_filter(x, k, ss, sr)
+        torch.cuda.synchronize()
+        ref = cuda_kernels.bilateral_filter_plain(x, k, ss, sr)
+        err = (got - ref).abs().max().item()
+        print(f"bilateral_filter {shape} k={k} sigma ({ss}, {sr}): max_abs_err={err:.3e} "
+              f"(atol {TOL_BILATERAL})")
+        if not (err <= TOL_BILATERAL and got.shape == x.shape and torch.isfinite(got).all()):
+            raise AssertionError(f"bilateral_filter {shape} k={k}: {err}")
+        worst = max(worst, err)
+        if shape == BINARY_SHAPE:
+            kms = median_ms(lambda: cuda_kernels.bilateral_filter(x, k, ss, sr))
+            pms = median_ms(lambda: cuda_kernels.bilateral_filter_plain(x, k, ss, sr), reps=5,
+                            warmup=1)
+            timing = (kms, pms)
+            print(f"bilateral_filter f32 {shape} k={k}: kernel {kms:.4f} ms, plain ({k * k} "
+                  f"shifted multiply-adds) {pms:.4f} ms (median of {TIMING_REPS}, CUDA events) "
+                  f"[{card}]")
+    n = 1
+    for d in BINARY_SHAPE:
+        n *= d
+    results.append({"name": "bilateral_filter", "route": "cuda",
+                    "source": "human_instance_segmentation_tpu_torch/csrc/postprocess.cu",
+                    "replaces": "human_instance_segmentation_tpu/ops/pallas_kernels.py:100",
+                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                    "library_ms": None, "chain_ms": timing[1],
+                    **bound(8 * n, 8 * 49 * n, "f32", sfu_ops=49 * n)})
+
+    # ---- edge_smooth --------------------------------------------------------
+    worst, timing = 0.0, None
+    masks = [("blobs", blob_mask(rng, BINARY_SHAPE, dev)),
+             ("noise", torch.tensor(rng.random(BINARY_SHAPE) > 0.5, device=dev).float()),
+             ("ragged blobs", blob_mask(rng, (2, 37, 53, 3), dev))]
+    for name, m in masks:
+        for thr, strength in ((0.5, 3.0), (0.4, 1.5)):
+            got = cuda_kernels.edge_smooth(m, thr, strength)
+            torch.cuda.synchronize()
+            ref = cuda_kernels.edge_smooth_plain(m, thr, strength)
+            ndiff = int((got != ref).sum().item())
+            print(f"edge_smooth {name} {tuple(m.shape)} threshold {thr} strength {strength}: "
+                  f"{ndiff} differing pixels (tol 0), changed {(got != m).float().mean():.4f} of "
+                  f"the mask")
+            if ndiff or got.shape != m.shape:
+                raise AssertionError(f"edge_smooth {name}: {ndiff} pixels differ")
+        if name == "blobs":
+            kms = median_ms(lambda: cuda_kernels.edge_smooth(m))
+            pms = median_ms(lambda: cuda_kernels.edge_smooth_plain(m))
+            timing = (kms, pms)
+            print(f"edge_smooth f32 {tuple(m.shape)}: kernel {kms:.4f} ms, plain (two depthwise "
+                  f"convs and the blend) {pms:.4f} ms (median of {TIMING_REPS}, CUDA events) "
+                  f"[{card}]")
+    soft = torch.tensor(rng.random(BINARY_SHAPE), dtype=torch.float32, device=dev)
+    ndiff = int((cuda_kernels.edge_smooth(soft) != cuda_kernels.edge_smooth_plain(soft)).sum())
+    print(f"edge_smooth soft (non-binary) input {BINARY_SHAPE}: {ndiff} of {n} pixels differ "
+          f"(reported, not gated: the sums round in another order off {{0, 1}})")
+    results.append({"name": "edge_smooth", "route": "cuda",
+                    "source": "human_instance_segmentation_tpu_torch/csrc/postprocess.cu",
+                    "replaces": "human_instance_segmentation_tpu/ops/pallas_kernels.py:157",
+                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                    "library_ms": None, "chain_ms": timing[1], "soft_input_diff_pixels": ndiff,
+                    **bound(8 * n, 30 * n, "f32", sfu_ops=n)})
     return results
 
 
@@ -403,7 +655,10 @@ def check_int8_kernels(card: str, rng) -> list:
               f"(float64) {pms:.4f} ms, bf16 cuDNN conv (NCHW) {cms:.4f} ms, NCHW->NHWC "
               f"permute of the input {perm:.4f} ms [{card}]")
         if name == "decoder4/conv0":
-            timing = (kms, pms)
+            timing = (kms, pms, cms)
+            px = n * h * w
+            qbound = bound(px * ci * 2 + 9 * ci * co * 2 + px * co * 2, 2 * 9 * ci * co * px,
+                           "int8")
         del x32, w32, xq, xb, wb, xc, wc
         torch.cuda.empty_cache()
 
@@ -436,7 +691,10 @@ def check_int8_kernels(card: str, rng) -> list:
                     "replaces": "scripts/exp_r4_probe.py:86",
                     "also_replaces": "scripts/exp_r4_probe.py:59",
                     "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
-                    "s8_matmul_4096_ms": gms, "s8_matmul_4096_tops": tops})
+                    # no PyTorch call runs an s8 conv on the card: the nearest
+                    # library call is cuDNN's bf16 conv of the same shape
+                    "library_ms": timing[2], "library": "F.conv2d bf16 (cuDNN, NCHW), not s8",
+                    **qbound, "s8_matmul_4096_ms": gms, "s8_matmul_4096_tops": tops})
 
     # ---- (c) conv_ln_act, int8 form --------------------------------------
     n, h, w, c = HEAD_SHAPE
@@ -478,7 +736,8 @@ def check_int8_kernels(card: str, rng) -> list:
     results.append({"name": "conv_ln_act_s8", "route": "cuda",
                     "source": "human_instance_segmentation_tpu_torch/csrc/conv_ln_act.cu",
                     "replaces": "human_instance_segmentation_tpu/ops/pallas_head.py:243",
-                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]})
+                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                    "library_ms": None, **head_bound("int8")})
     return results
 
 
@@ -693,6 +952,226 @@ def time_int8(served_bf16, served_int8, card: str, rng) -> None:
         print(f"  {e.self_device_time_total / 3e3:8.3f} ms/call  {e.count // 3:4d}x  {e.key[:90]}")
 
 
+def serve_with_tail(card: str, rng) -> dict:
+    """Phase 10: the flagship with the fused stage-1 tail
+    (``create_flagship(pallas_tail=True)``) served in bf16 and float32 with
+    ``fused_head=True``; launch counts asserted per forward; outputs held
+    against the same weights with ``pallas_tail=False`` (float32: binary
+    max-abs <= 1e-4, instance agreement >= MIN_AGREE; bf16: binary <= 1e-2
+    and an agreement with the float32 reference no more than 0.002 below the
+    bf16 ``pallas_tail=False`` path's own). Returns the launch counts of the
+    served bf16 forwards."""
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.inference import (InferenceEngine,
+                                                                 create_flagship, pad_rois)
+    from human_instance_segmentation_tpu_torch.ops import cuda_head, cuda_roi_align, cuda_tail
+
+    def engine(dtype, tail: bool):
+        model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                                image_size=IMAGE_HW, mid_channels=128, seed=0, device="cuda",
+                                pallas_tail=tail)
+        return InferenceEngine(model, dilation_pixels=1, dtype=dtype, fused_head=True)
+
+    counters = {"tail": cuda_tail.tail, "conv_ln_act": cuda_head.conv_ln_act,
+                "roi_align": cuda_roi_align.roi_align}
+    served = engine(torch.bfloat16, True)
+    requests = [make_request(rng, 4, 3), make_request(rng, 32, 32)]
+    for f in counters.values():
+        f.launches = 0
+    outs = []
+    for images, rois in requests:
+        c0 = {k: f.launches for k, f in counters.items()}
+        outs.append(served(images, rois))
+        d = {k: f.launches - c0[k] for k, f in counters.items()}
+        print(f"tail flagship batch {images.shape[0]} x {rois.shape[0]} rois: launches {d} "
+              f"(one forward)")
+        if d != {"tail": 1, "conv_ln_act": 5, "roi_align": 2}:
+            raise AssertionError(f"expected 1 tail, 5 conv_ln_act, 2 roi_align launches, got {d}")
+    launches = {k: f.launches for k, f in counters.items()}
+
+    no_tail_bf16 = engine(torch.bfloat16, False)
+    others = {"no tail bf16": no_tail_bf16, "tail f32": engine(torch.float32, True),
+              "no tail f32": engine(torch.float32, False)}
+    for (images, rois), (inst, binary) in zip(requests, outs):
+        b, n = images.shape[0], rois.shape[0]
+        if inst.shape != (n, *MASK_HW, 1) or binary.shape != (b, *IMAGE_HW, 1):
+            raise AssertionError(f"bad output shapes {inst.shape}, {binary.shape}")
+        if not (np.isfinite(inst).all() and np.isfinite(binary).all()):
+            raise AssertionError("non-finite outputs")
+        t0 = cuda_tail.tail.launches
+        o = {name: e(images, rois) for name, e in others.items()}
+        if cuda_tail.tail.launches != t0 + 1:
+            raise AssertionError("the float32 tail engine did not launch the tail kernel once")
+        tag = f"tail flagship batch {b} x {n} rois"
+        bin_f32 = float(np.abs(o["tail f32"][1] - o["no tail f32"][1]).max())
+        agree_f32 = _agreement(o["tail f32"][0], o["no tail f32"][0])
+        print(f"{tag} f32 tail vs pallas_tail=False: binary max_abs_err {bin_f32:.3e} (tol 1e-4), "
+              f"instance agreement {agree_f32:.6f} (min {MIN_AGREE})")
+        bin_bf16 = float(np.abs(binary - o["no tail bf16"][1]).max())
+        bin_ref = float(np.abs(binary - o["no tail f32"][1]).max())
+        bin_ref_p = float(np.abs(o["no tail bf16"][1] - o["no tail f32"][1]).max())
+        agree_k = _agreement(inst, o["no tail f32"][0])
+        agree_p = _agreement(o["no tail bf16"][0], o["no tail f32"][0])
+        print(f"{tag} bf16 tail vs pallas_tail=False: binary max_abs_err {bin_bf16:.3e} (tol "
+              f"1e-2); binary vs f32: tail {bin_ref:.3e}, no tail {bin_ref_p:.3e}; instance "
+              f"agreement vs f32: tail {agree_k:.6f}, no tail {agree_p:.6f} (tail >= no tail - "
+              f"0.002)")
+        if not (bin_f32 <= 1e-4 and agree_f32 >= MIN_AGREE):
+            raise AssertionError(f"{tag}: the f32 tail disagrees with pallas_tail=False")
+        if not (bin_bf16 <= 1e-2 and agree_k >= agree_p - 0.002):
+            raise AssertionError(f"{tag}: the bf16 tail is further from f32 than pallas_tail=False")
+    del others, o
+    torch.cuda.empty_cache()
+    print(f"before timing: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+
+    batch = 32
+    images, rois = make_request(rng, batch, batch)
+    images_t = torch.tensor(images, device="cuda", dtype=torch.bfloat16)
+    rois_t = torch.tensor(pad_rois(rois, batch), device="cuda")
+    engines = {"tail": served, "no tail": no_tail_bf16}
+    times = {"tail": [], "no tail": []}
+    for name in ("no tail", "tail", "tail", "no tail"):
+        times[name].append(median_ms(lambda: engines[name].forward(images_t, rois_t),
+                                     reps=TIMING_REPS // 2))
+    for name, ms in times.items():
+        med = statistics.median(ms)
+        print(f"forward batch {batch} x 1 roi, bf16, fused head, {name}: {med:.3f} ms/batch, "
+              f"{batch / med * 1e3:.1f} img/s (per-round medians {ms}, {TIMING_REPS // 2} "
+              f"forwards each, CUDA events) [{card}]")
+    return launches
+
+
+def binary_mask_mode(card: str, rng) -> dict:
+    """Phase 11: binary-mask mode composed from the port's public functions
+    at batch 32, 480x640: ``PeopleSegmentationUNet(pallas_tail=True)`` ->
+    person probability -> ``binary_mask_bilateral(k=7, iterations=2)`` ->
+    ``edge_smooth_binary_mask`` -> 1 px dilation, and on the same
+    probability map the exact ``bilateral_filter(k=7, 1.5, 0.2)``.
+
+    Held against the same pipeline on the plain versions (the tail's plain
+    version, ``use_kernel=False`` on the two filters) twice: stage by stage
+    on the served run's own tensors (edge smoothing equal, bilateral within
+    ``TOL_BILATERAL``), and end to end, where the tail's rounding differences
+    move a probability across a threshold for a few pixels (mask agreement
+    >= 0.999). Returns the launch counts of the served bf16 run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from human_instance_segmentation_tpu_torch.inference import create_flagship
+    from human_instance_segmentation_tpu_torch.models import postprocess as pp
+    from human_instance_segmentation_tpu_torch.ops import cuda_kernels, cuda_tail
+    from human_instance_segmentation_tpu_torch.ops.morphology import dilate
+
+    batch = 32
+    images = torch.tensor(rng.random((batch, *IMAGE_HW, 3)), dtype=torch.float32, device="cuda")
+    counters = {"tail": cuda_tail.tail, "bilateral_filter": cuda_kernels.bilateral_filter,
+                "edge_smooth": cuda_kernels.edge_smooth}
+
+    def pipeline(unet, x, kernels: bool):
+        unet.tail_use_kernel = kernels
+        with torch.inference_mode():
+            form, logit = unet(x.permute(0, 3, 1, 2), raw=True)
+            if form != "dense" or logit.shape != (batch, *IMAGE_HW):
+                raise AssertionError(f"expected the dense form, got {form} {tuple(logit.shape)}")
+            prob = torch.sigmoid(logit.float())[..., None]
+            smoothed = pp.binary_mask_bilateral(prob, kernel_size=7, num_iterations=2)
+            edged = pp.edge_smooth_binary_mask(smoothed, use_kernel=kernels)
+            mask = dilate(edged, 1).to(x.dtype)
+            exact = pp.bilateral_filter(prob, 7, 1.5, 0.2, use_kernel=kernels)
+        return {"prob": prob, "smoothed": smoothed, "edged": edged, "mask": mask, "exact": exact}
+
+    launches = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        flagship = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                                   image_size=IMAGE_HW, mid_channels=128, seed=0, device="cuda",
+                                   pallas_tail=True)
+        unet = flagship.pretrained_unet.to(dtype).eval()
+        del flagship
+        x = images.to(dtype)
+        # random weights give an almost constant logit sign, so a mask that
+        # checks nothing: centre the head's bias on this batch's median logit
+        with torch.inference_mode():
+            median = unet(x.permute(0, 3, 1, 2), raw=True)[1].float().median()
+        with torch.no_grad():
+            unet.seg_head.bias -= median.to(dtype)
+        for f in counters.values():
+            f.launches = 0
+        served = pipeline(unet, x, True)
+        torch.cuda.synchronize()
+        d = {k: f.launches for k, f in counters.items()}
+        name = str(dtype).split(".")[1]
+        print(f"binary mode {name} batch {batch}: launches {d} (one batch)")
+        if d != {"tail": 1, "bilateral_filter": 1, "edge_smooth": 1}:
+            raise AssertionError(f"expected one launch of each kernel, got {d}")
+        if dtype == torch.bfloat16:
+            launches = d
+        mask = served["mask"]
+        if mask.shape != (batch, *IMAGE_HW, 1) or not bool(((mask == 0) | (mask == 1)).all()):
+            raise AssertionError("the binary mask is not a {0, 1} map of the images' shape")
+        if not torch.isfinite(served["exact"]).all():
+            raise AssertionError("non-finite bilateral output")
+        # stage by stage, on the served run's own tensors
+        edged_plain = pp.edge_smooth_binary_mask(served["smoothed"], use_kernel=False)
+        ndiff = int((edged_plain != served["edged"]).sum())
+        exact_plain = pp.bilateral_filter(served["prob"], 7, 1.5, 0.2, use_kernel=False)
+        berr = (exact_plain - served["exact"]).abs().max().item()
+        # end to end on the plain versions
+        plain = pipeline(unet, x, False)
+        agree = float((plain["mask"] == mask).float().mean())
+        perr = (plain["prob"] - served["prob"]).abs().max().item()
+        eerr = (plain["exact"] - served["exact"]).abs().max().item()
+        print(f"binary mode {name}: edge_smooth on the served mask {ndiff} differing pixels (tol "
+              f"0); bilateral_filter on the served probability max_abs_err {berr:.3e} (atol "
+              f"{TOL_BILATERAL}); end to end vs plain versions: probability max_abs_err "
+              f"{perr:.3e}, mask agreement {agree:.6f} (min 0.999), exact bilateral "
+              f"max_abs_err {eerr:.3e}; person share {mask.float().mean():.4f}")
+        if ndiff or berr > TOL_BILATERAL or agree < 0.999:
+            raise AssertionError(f"binary mode {name} disagrees with its plain versions")
+        if dtype == torch.bfloat16:
+            times = {"kernels": [], "plain": []}
+            for which in ("plain", "kernels", "kernels", "plain"):
+                times[which].append(median_ms(lambda: pipeline(unet, x, which == "kernels"),
+                                              reps=TIMING_REPS // 2, warmup=1))
+            for which, ms in times.items():
+                med = statistics.median(ms)
+                print(f"binary mode batch {batch} bf16, {which}: {med:.3f} ms/batch, "
+                      f"{batch / med * 1e3:.1f} img/s, mask and exact bilateral (per-round "
+                      f"medians {ms}, {TIMING_REPS // 2} batches each, CUDA events) [{card}]")
+            xn, prob, sm = x.permute(0, 3, 1, 2), served["prob"], served["smoothed"]
+            unet.tail_use_kernel = True
+            with torch.inference_mode():
+                stages = {
+                    "UNet with the tail": median_ms(lambda: unet(xn, raw=True)),
+                    "binary_mask_bilateral k7 x2 (plain PyTorch)": median_ms(
+                        lambda: pp.binary_mask_bilateral(prob, 7, num_iterations=2)),
+                    "edge_smooth kernel + 1 px dilation": median_ms(
+                        lambda: dilate(pp.edge_smooth_binary_mask(sm), 1)),
+                    "exact bilateral_filter kernel": median_ms(
+                        lambda: pp.bilateral_filter(prob, 7, 1.5, 0.2))}
+            print(f"binary mode batch {batch} bf16, kernels, by stage: "
+                  + "; ".join(f"{k} {v:.3f} ms" for k, v in stages.items()) + f" [{card}]")
+            # how much of a batch the card is busy: device time by the profiler
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    pipeline(unet, x, True)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            busy = sum(e.self_device_time_total for e in events) / 3e3
+            tail_ms = sum(e.self_device_time_total for e in events if "tail_kernel" in e.key) / 3e3
+            wall = statistics.median(times["kernels"])
+            print(f"binary mode batch {batch} bf16, kernels, profile of 3 batches: device busy "
+                  f"{busy:.3f} ms per batch of {wall:.3f} ms wall ({100 * (1 - busy / wall):.1f}% "
+                  f"idle), {sum(e.count for e in events) // 3} kernels per batch, the tail kernel "
+                  f"{tail_ms:.3f} ms [{card}]")
+        del served, plain, unet, x
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -722,7 +1201,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 9))
+    phases = set(range(1, 12))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -730,6 +1209,8 @@ def main() -> None:
         kernels += check_kernels(card, rng)
     if 6 in phases:
         kernels += check_int8_kernels(card, rng)
+    if 9 in phases:
+        kernels += check_tail_and_filters(card, rng)
     served = None
     if phases & {4, 5, 8}:
         bf16_launches, served, plain = serve_and_compare(128, rng)
@@ -751,10 +1232,20 @@ def main() -> None:
         serve_and_compare(256, rng)
     if 7 in phases:
         serve_int8(256, rng)
+    if 10 in phases:
+        torch.cuda.empty_cache()
+        launches["tail"] = serve_with_tail(card, rng)["tail"]
+        torch.cuda.empty_cache()
+    if 11 in phases:
+        binary_launches = binary_mask_mode(card, rng)
+        launches["tail"] = launches.get("tail", 0) + binary_launches["tail"]
+        launches["bilateral_filter"] = binary_launches["bilateral_filter"]
+        launches["edge_smooth"] = binary_launches["edge_smooth"]
 
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
-    if any(k["launches"] == 0 for k in kernels) and phases >= {3, 4, 6, 7}:
+        k["bound_share"] = k["bound_ms"] / k["ms"]
+    if any(k["launches"] == 0 for k in kernels) and phases >= {3, 4, 6, 7, 9, 10, 11}:
         raise AssertionError(f"a kernel of the main path was never launched: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

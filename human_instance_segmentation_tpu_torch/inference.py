@@ -8,6 +8,10 @@ server sees few distinct shapes, as in the JAX engine.
 Deployed outputs (the reference ONNX graph's contract, NHWC):
   instance_masks: (N, mh, mw, 1)  1.0 where argmax(class) == 1
   binary_masks:   (B, H, W, 1)    P(person) from the stage-1 UNet
+
+``create_flagship(pallas_tail=True)`` ends stage 1 in the fused tail
+(``ops/cuda_tail``); the binary mask then comes from
+``aux["person_prob_dense"]``.
 """
 
 from __future__ import annotations
@@ -72,7 +76,10 @@ def deployed_outputs(
     valid = (rois[:, 0] >= 0).to(logits.dtype)[:, None, None, None]
     instance = instance * valid
     if isinstance(full_image_logits, dict):
-        full_image_logits = full_image_logits["full_image_logits"]
+        aux = full_image_logits
+        if "person_prob_dense" in aux:  # fused-tail serving: (B, H, W)
+            return instance, aux["person_prob_dense"][..., None]
+        full_image_logits = aux["full_image_logits"]
     binary = torch.softmax(full_image_logits, dim=-1)[..., 0:1]
     return instance, binary
 
@@ -92,9 +99,11 @@ class InferenceEngine:
     default denies the stage-1 encoder) and the fused units in their int8
     form. Activation scales are calibrated from the first batch served, or
     by :meth:`calibrate`; until then :meth:`forward` uses dynamic scales.
-    ``kernels=False`` computes the fused unit and the int8 convs with their
-    plain PyTorch versions on any device: the plain path of the same graph
-    that a GPU run holds the kernels against.
+    ``kernels=False`` computes the fused unit, the int8 convs and the fused
+    stage-1 tail (a model built with ``pallas_tail=True``) with their plain
+    PyTorch versions on any device: the plain path of the same graph that a
+    GPU run holds the kernels against. ``pallas_tail`` with int8 raises until
+    the s8 tail kernel is ported.
     """
 
     def __init__(
@@ -113,6 +122,11 @@ class InferenceEngine:
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
+        if quantize == "int8" and model.pretrained_unet.pallas_tail:
+            raise NotImplementedError(
+                "pallas_tail=True with quantize='int8' needs the s8 fused tail (the JAX "
+                "package's ops/pallas_tail_q.py::tail_with_borders_q), which is not ported yet; "
+                "it is not served by the bfloat16 tail or the unfused s8 convs instead")
         dev = (resolve_device(device) if device is not None
                else next(model.parameters()).device)
         self.model = model.to(device=dev, dtype=dtype).eval()
@@ -147,6 +161,7 @@ class InferenceEngine:
         set_head_fusion(self.model, self.fused_head, self.kernels)
         set_int8_serving(self.model, self.quantize == "int8", self.scales, self.int8_deny,
                          self.kernels)
+        self.model.pretrained_unet.tail_use_kernel = self.kernels
         with torch.inference_mode():
             logits, aux = self.model(images.to(self.dtype), rois.to(torch.float32))
             inst, binary = deployed_outputs(logits, aux, rois, self.dilation_pixels)

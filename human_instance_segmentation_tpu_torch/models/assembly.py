@@ -8,6 +8,14 @@ are taken by ``ops.cuda_roi_align`` when ``pallas_roi_align`` is on (the
 JAX flag name; here it is on by default and covers both crops). With it
 off, the crops call the plain ``ops.sampling.roi_align``.
 
+With ``pallas_tail=True`` it is the JAX package's dense branch
+(assembly.py:246-259): stage 1 ends in the fused tail (``ops/cuda_tail``)
+and hands over a one-channel ``(B, H, W)`` logit map, which is cropped at
+one channel before the 1 -> 2 channel wrapper (RoIAlign is linear, so the
+two commute, except that a wrapper bias then also reaches the crop's
+zero-padded out-of-image samples, as in the JAX package) and gives
+``aux["person_prob_dense"]``.
+
 Public I/O is NHWC as in the JAX package; the modules run NCHW inside.
 """
 
@@ -70,7 +78,8 @@ class HierarchicalInstanceSegmenter(nn.Module):
                  use_distance_transform: bool = True, norm: str = "layernorm2d",
                  activation: str = "relu", base_channels: int = 96, depth: int = 3,
                  unet_decoder_channels: Tuple[int, ...] = (256, 128, 64, 32, 16),
-                 stage1_upsample_mode: str = "bilinear", pallas_roi_align: bool = True):
+                 stage1_upsample_mode: str = "bilinear", pallas_roi_align: bool = True,
+                 pallas_tail: bool = False):
         super().__init__()
         if not (use_contour_detection or use_distance_transform):
             # the JAX model then takes PretrainedUNetGuidedHead instead
@@ -80,7 +89,8 @@ class HierarchicalInstanceSegmenter(nn.Module):
         self.image_size = tuple(image_size)
         self.pallas_roi_align = pallas_roi_align
         self.pretrained_unet = PeopleSegmentationUNet(
-            encoder_variant, unet_decoder_channels, upsample_mode=stage1_upsample_mode)
+            encoder_variant, unet_decoder_channels, upsample_mode=stage1_upsample_mode,
+            pallas_tail=pallas_tail)
         self.unet_wrapper = PeopleSegUNetWrapper()
         self.rgb_extractor = RGBPatchFeatureExtractor(feature_dim, norm, activation)
         self.feature_combiner = QConv(feature_dim + 2, feature_dim, 1)
@@ -98,6 +108,17 @@ class HierarchicalInstanceSegmenter(nn.Module):
         # turns a one-ulp difference into whole codes)
         return fn(x.contiguous(), rois, rh, rw, spatial_scale=scale, aligned=True).contiguous()
 
+    def person_prob(self, x: torch.Tensor) -> torch.Tensor:
+        """``softmax(wrapper(x))[channel 0]`` of one-channel logits of any
+        shape, as ``sigmoid((w0 - w1) x + (b0 - b1))``: the wrapper's weights
+        are read by a two-point probe, so this holds for any trained
+        wrapper and stays elementwise."""
+        probe = self.unet_wrapper(torch.tensor([0.0, 1.0], dtype=x.dtype,
+                                               device=x.device).reshape(2, 1, 1, 1))
+        bias = probe[0, :, 0, 0]
+        wvec = probe[1, :, 0, 0] - bias
+        return torch.sigmoid(x * (wvec[0] - wvec[1]) + (bias[0] - bias[1]))
+
     def stage2(self, roi_rgb: torch.Tensor,
                roi_bg_fg: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The per-ROI stage: RGB crops (N, rh, rw, 3) and stage-1 logit
@@ -112,12 +133,19 @@ class HierarchicalInstanceSegmenter(nn.Module):
                 rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         if tuple(images.shape[1:3]) != self.image_size:
             raise ValueError(f"model built for {self.image_size}, got {tuple(images.shape[1:3])}")
-        x1 = self.pretrained_unet(_nchw(images))
-        full_image_logits = _nhwc(self.unet_wrapper(x1))
-        roi_bg_fg = self._crop(full_image_logits, rois)
+        form, x1 = self.pretrained_unet(_nchw(images), raw=True)
+        if form == "dense":  # x1 (B, H, W): the fused tail's one-channel logit map
+            roi1 = self._crop(x1[..., None], rois)
+            roi_bg_fg = _nhwc(self.unet_wrapper(_nchw(roi1))).contiguous()
+            full_image_logits = _nhwc(self.unet_wrapper(x1[:, None]))
+        else:
+            full_image_logits = _nhwc(self.unet_wrapper(x1))
+            roi_bg_fg = self._crop(full_image_logits, rois)
         roi_rgb = self._crop(images, rois)
 
         logits, aux = self.stage2(roi_rgb, roi_bg_fg)
+        if form == "dense":
+            aux["person_prob_dense"] = self.person_prob(x1)
         aux["full_image_logits"] = full_image_logits
         aux["roi_bg_fg"] = roi_bg_fg
         aux["roi_patches"] = roi_rgb

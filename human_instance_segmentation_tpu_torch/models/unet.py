@@ -1,10 +1,15 @@
 """Full-image people-segmentation UNet, stage 1 (NCHW, plain form).
 
 Counterpart of the JAX package's ``models/unet.py`` without the phase-form
-serving rewrites (``fused_tail``, ``encoder_s2d_front``, ``pallas_tail``,
-``n4_tail``): ImageNet normalisation, the EfficientNet encoder, five smp
-decoder stages (2x upsample, skip concat, (conv3x3-BN-ReLU) x 2, BN eps
-1e-5) and a 3x3 segmentation head with bias.
+serving rewrites (``fused_tail``, ``encoder_s2d_front``, ``n4_tail``):
+ImageNet normalisation, the EfficientNet encoder, five smp decoder stages
+(2x upsample, skip concat, (conv3x3-BN-ReLU) x 2, BN eps 1e-5) and a 3x3
+segmentation head with bias.
+
+``pallas_tail=True`` (the JAX flag's name) computes the last decoder stage
+and the seg head as one fused unit, ``ops/cuda_tail.tail``: a hand-written
+CUDA kernel on a CUDA tensor, its plain version on the CPU. The parameters
+are the same by name, so checkpoints swap between the two forms.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import cuda_tail
 from ..ops.norms import BatchNorm2d
 from ..ops.quant import QConv
 from ..ops.s2d import upsample_2x_nearest
@@ -60,8 +66,12 @@ class PeopleSegmentationUNet(nn.Module):
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16), classes: int = 1,
                  normalize_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406),
                  normalize_std: Tuple[float, float, float] = (0.229, 0.224, 0.225),
-                 upsample_mode: str = "bilinear"):
+                 upsample_mode: str = "bilinear", pallas_tail: bool = False):
         super().__init__()
+        self.classes = classes
+        self.upsample_mode = upsample_mode
+        self.pallas_tail = pallas_tail
+        self.tail_use_kernel = True  # False: the fused tail's plain version on any device
         self.normalize_mean = tuple(normalize_mean)
         self.normalize_std = tuple(normalize_std)
         self.encoder = EfficientNetEncoder(encoder_variant)
@@ -75,7 +85,42 @@ class PeopleSegmentationUNet(nn.Module):
             ch = out_ch
         self.seg_head = nn.Conv2d(ch, classes, 3, padding=1)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def _tail_active(self, last_skip: Optional[torch.Tensor]) -> bool:
+        """Whether the fused tail replaces the last stage: what is semantic
+        of the JAX gate (eval mode, bilinear upsample, a skip-free last
+        stage, one class), without its TPU tiling conditions."""
+        if not (self.pallas_tail and not self.training and self.upsample_mode == "bilinear"
+                and last_skip is None and self.classes == 1):
+            return False
+        last = getattr(self, f"decoder{self.n_decoders - 1}")
+        if last.conv0.calib_amax is not None:
+            return False  # a calibration pass records the unfused convs' inputs
+        if last.conv0.runs_int8 or last.conv1.runs_int8:
+            raise NotImplementedError(
+                "pallas_tail with int8 serving needs the s8 fused tail "
+                "(the JAX package's ops/pallas_tail_q.py::tail_with_borders_q), which is not "
+                "ported yet; serve pallas_tail in float32/bfloat16 or int8 without it")
+        return True
+
+    def _fused_tail(self, h: torch.Tensor) -> torch.Tensor:
+        """Decoder output (B, Ci, h, w) -> dense logits (B, 2h, 2w)."""
+        last = getattr(self, f"decoder{self.n_decoders - 1}")
+
+        def hwio(conv):
+            return conv.weight.permute(2, 3, 1, 0)
+
+        def bn(m):
+            return (m.weight, m.bias, m.running_mean, m.running_var)
+
+        fn = cuda_tail.tail if self.tail_use_kernel else cuda_tail.tail_plain
+        return fn(h.permute(0, 2, 3, 1), hwio(last.conv0), bn(last.bn0), hwio(last.conv1),
+                  bn(last.bn1), hwio(self.seg_head), self.seg_head.bias)
+
+    def forward(self, images: torch.Tensor, raw: bool = False):
+        """Logits (B, classes, H, W). With ``raw=True`` returns ``(form,
+        tensor)``: ``("dense", (B, H, W))`` when the fused tail ran (the
+        one-class logit map without a channel axis), else ``("plain",
+        (B, classes, H, W))``."""
         mean = torch.tensor(self.normalize_mean, dtype=images.dtype, device=images.device)
         std = torch.tensor(self.normalize_std, dtype=images.dtype, device=images.device)
         x = (images - mean[:, None, None]) / std[:, None, None]
@@ -84,8 +129,12 @@ class PeopleSegmentationUNet(nn.Module):
         h = feats[-1]
         for i in range(self.n_decoders):
             skip = skips[i] if i < len(skips) else None
+            if i == self.n_decoders - 1 and self._tail_active(skip):
+                y = self._fused_tail(h)
+                return ("dense", y) if raw else y[:, None]
             h = getattr(self, f"decoder{i}")(h, skip)
-        return self.seg_head(h)
+        y = self.seg_head(h)
+        return ("plain", y) if raw else y
 
 
 class PeopleSegUNetWrapper(nn.Module):

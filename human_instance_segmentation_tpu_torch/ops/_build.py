@@ -34,6 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 # C signatures of the exported launchers; each returns cudaGetLastError().
 SIGNATURES = {
     # x, w, b, gamma, beta, residual, out, scratch, N, H, W, Ci, Co, k,
@@ -54,6 +55,18 @@ SIGNATURES = {
     # in dtype (0 f32, 1 bf16, 2 s8), out dtype (0 f32, 1 bf16, 2 s32), stream
     "s8_conv_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _P],
+    # x (P, H, W) f32, spatial (k, k) f32, out, P, H, W, k, 1 / (2 sigma_range^2), stream
+    "bilateral_filter_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # mask (P, H, W) f32, out, P, H, W, blur_strength, threshold, stream
+    "edge_smooth_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
+    # x and its element strides (batch, row, column, channel), w0 (9, Cip, Cp),
+    # scale/shift 0 (2, Cp), w1 (9, Cp, Cp), scale/shift 1, head weights (9, Cp),
+    # head bias (1,), out (B, 2h, 2w), B, h, w, Ci, Cip, Cp,
+    # dtype (0 f32, 1 bf16), stream
+    "tail_launch": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _P],
+    # Cp -> bytes of shared memory the tail kernel needs (not a launcher)
+    "tail_smem_bytes_for": [_I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,4 +1,5 @@
-"""Max pooling and dilation of NHWC maps (torch MaxPool2d semantics)."""
+"""Max/average pooling, dilation and erosion of NHWC maps (torch pooling
+semantics)."""
 
 from __future__ import annotations
 
@@ -17,3 +18,17 @@ def dilate(x: torch.Tensor, pixels: int) -> torch.Tensor:
     if pixels <= 0:
         return x
     return max_pool2d(x, 2 * pixels + 1, 1, pixels)
+
+
+def erode(x: torch.Tensor, pixels: int) -> torch.Tensor:
+    """Erosion: ``1 - dilate(1 - x)``."""
+    if pixels <= 0:
+        return x
+    return 1.0 - dilate(1.0 - x, pixels)
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """Average pool over H, W of an NHWC tensor; the zero padding counts
+    (``count_include_pad=True``, torch's default)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), kernel, stride, padding, count_include_pad=True)
+    return y.permute(0, 2, 3, 1)

@@ -254,7 +254,7 @@ def test_library_name_tracks_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
     assert {p.name for p in _build._sources()} == {"k.cu"}
     real = {p.name for p in (_build.PACKAGE_DIR / "csrc").glob("*.cu")}
-    assert real == {"conv_ln_act.cu", "qconv.cu", "roi_align.cu"}
+    assert real == {"conv_ln_act.cu", "postprocess.cu", "qconv.cu", "roi_align.cu", "tail.cu"}
     header = tmp_path / "k.cuh"  # a changed header builds anew too
     header.write_text("// one\n")
     with_header = _build.library_path()
@@ -265,12 +265,13 @@ def test_library_name_tracks_sources(monkeypatch, tmp_path):
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_launcher_signature_matches_source(name):
     """Each ctypes signature lists the C launcher's parameters in order
-    (pointers and the stream as void*, int, float, double): a mismatch
-    would pass garbage without any error."""
+    (pointers and the stream as void*, int, long long, float, double): a
+    mismatch would pass garbage without any error."""
     src = "\n".join(p.read_text() for p in (_build.PACKAGE_DIR / "csrc").glob("*.cu"))
     m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
     assert m, name
-    ctype = {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double}
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float, "double": ctypes.c_double,
+             "long long": ctypes.c_longlong}
     params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
     want = [ctypes.c_void_p if p.endswith("*") else ctype[p] for p in params]
     assert _build.SIGNATURES[name] == want

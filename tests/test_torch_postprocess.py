@@ -1,0 +1,196 @@
+"""The port's post-processing (models/postprocess.py, ops/morphology.py,
+ops/cuda_kernels.py) vs the JAX package's, on the same numpy inputs (CPU,
+float32).
+
+Float outputs are held to atol 1e-5; binarised outputs must be equal. The
+two functions that have a kernel (``bilateral_filter``,
+``edge_smooth_binary_mask``) are also held against the JAX package's Pallas
+kernels run in interpret mode. On the CPU every wrapper takes its kernel's
+plain version; the CUDA kernels themselves are held against those plain
+versions on a GPU by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from human_instance_segmentation_tpu.models import postprocess as jpp
+from human_instance_segmentation_tpu.ops import morphology as jmorph
+from human_instance_segmentation_tpu.ops.pallas_kernels import (bilateral_filter_pallas,
+                                                                edge_smooth_pallas)
+from human_instance_segmentation_tpu_torch.models import postprocess as pp
+from human_instance_segmentation_tpu_torch.ops import cuda_kernels, morphology
+
+ATOL = 1e-5
+SHAPES = [(2, 16, 24, 3), (1, 9, 13, 1)]
+
+
+def _soft(rng, shape):
+    return rng.random(shape).astype(np.float32)
+
+
+def _blobs(rng, shape):
+    """A {0, 1} mask of smooth blobs (thresholded low-pass noise) with a few
+    flipped pixels: edges of every orientation, speckle, flat regions."""
+    b, h, w, c = shape
+    coarse = rng.standard_normal((b, h // 4 + 2, w // 4 + 2, c))
+    up = np.repeat(np.repeat(coarse, 4, axis=1), 4, axis=2)[:, :h, :w]
+    up = (up + np.roll(up, 1, 1) + np.roll(up, 1, 2) + np.roll(up, (1, 1), (1, 2))) / 4
+    mask = up > 0
+    return (mask ^ (rng.random(shape) < 0.03)).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+# name -> (input maker, JAX call, port call, binarised output?)
+CASES = {
+    "mask_dilation_logit_boost": (
+        lambda rng, s: rng.standard_normal(s[:3] + (3,)).astype(np.float32) * 2,
+        lambda x: jpp.mask_dilation_logit_boost(x, 1),
+        lambda x: pp.mask_dilation_logit_boost(x, 1), False),
+    "edge_smooth_binary_mask": (
+        _blobs, lambda x: jpp.edge_smooth_binary_mask(x, 0.5, 3.0),
+        lambda x: pp.edge_smooth_binary_mask(x, 0.5, 3.0), True),
+    "edge_smooth_binary_mask_params": (
+        _blobs, lambda x: jpp.edge_smooth_binary_mask(x, 0.4, 1.5),
+        lambda x: pp.edge_smooth_binary_mask(x, 0.4, 1.5), True),
+    "directional_edge_smooth": (
+        _blobs, jpp.directional_edge_smooth, pp.directional_edge_smooth, True),
+    "optimized_edge_smooth": (
+        _blobs, lambda x: jpp.optimized_edge_smooth(x, "bfloat16"),
+        lambda x: pp.optimized_edge_smooth(x, torch.bfloat16), True),
+    "optimized_edge_smooth_f32": (
+        _blobs, lambda x: jpp.optimized_edge_smooth(x, "float32"),
+        lambda x: pp.optimized_edge_smooth(x, torch.float32), True),
+    "multiclass_edge_smooth_basic": (
+        lambda rng, s: rng.standard_normal(s[:3] + (3,)).astype(np.float32),
+        lambda x: jpp.multiclass_edge_smooth(x, 2, "basic"),
+        lambda x: pp.multiclass_edge_smooth(x, 2, "basic"), True),
+    "multiclass_edge_smooth_directional": (
+        lambda rng, s: rng.standard_normal(s[:3] + (3,)).astype(np.float32),
+        lambda x: jpp.multiclass_edge_smooth(x, 1, "directional"),
+        lambda x: pp.multiclass_edge_smooth(x, 1, "directional"), True),
+    "multiclass_edge_smooth_optimized": (
+        lambda rng, s: rng.standard_normal(s[:3] + (3,)).astype(np.float32),
+        lambda x: jpp.multiclass_edge_smooth(x, 1, "optimized"),
+        lambda x: pp.multiclass_edge_smooth(x, 1, "optimized"), True),
+    "bilateral_filter_k5": (
+        _soft, lambda x: jpp.bilateral_filter(x, 5, 1.0, 0.1),
+        lambda x: pp.bilateral_filter(x, 5, 1.0, 0.1), False),
+    "bilateral_filter_k7": (
+        _soft, lambda x: jpp.bilateral_filter(x, 7, 1.5, 0.2),
+        lambda x: pp.bilateral_filter(x, 7, 1.5, 0.2), False),
+    "fast_bilateral_filter": (
+        _soft, lambda x: jpp.fast_bilateral_filter(x, 5, 1.0, 0.1, 2),
+        lambda x: pp.fast_bilateral_filter(x, 5, 1.0, 0.1, 2), False),
+    "fast_bilateral_filter_one_pass": (
+        _soft, lambda x: jpp.fast_bilateral_filter(x, 3, 0.8, 0.2, 1),
+        lambda x: pp.fast_bilateral_filter(x, 3, 0.8, 0.2, 1), False),
+    "guided_filter": (
+        _soft, lambda x: jpp.guided_filter(x, None, 2, 0.01),
+        lambda x: pp.guided_filter(x, None, 2, 0.01), False),
+    "binary_mask_bilateral": (
+        _soft, lambda x: jpp.binary_mask_bilateral(x, 7, 1.5, 0.5, 2),
+        lambda x: pp.binary_mask_bilateral(x, 7, 1.5, 0.5, 2), True),
+    "morphological_bilateral": (
+        _blobs, lambda x: jpp.morphological_bilateral(x, 5, 1.0, 3),
+        lambda x: pp.morphological_bilateral(x, 5, 1.0, 3), True),
+    "erode": (
+        _soft, lambda x: jmorph.erode(x, 2), lambda x: morphology.erode(x, 2), False),
+    "dilate": (
+        _soft, lambda x: jmorph.dilate(x, 1), lambda x: morphology.dilate(x, 1), False),
+    "avg_pool2d": (
+        _soft, lambda x: jmorph.avg_pool2d(x, 3, 1, 1),
+        lambda x: morphology.avg_pool2d(x, 3, 1, 1), False),
+    "avg_pool2d_strided": (
+        _soft, lambda x: jmorph.avg_pool2d(x, 2, 2, 0),
+        lambda x: morphology.avg_pool2d(x, 2, 2, 0), False),
+}
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_matches_jax(rng, name, shape):
+    make, jfn, tfn, binarised = CASES[name]
+    x = make(rng, shape)
+    ref = np.asarray(jfn(jnp.asarray(x)))
+    out = tfn(_t(x))
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    if binarised:
+        assert set(np.unique(ref)) <= {0.0, 1.0}
+        np.testing.assert_array_equal(out.numpy(), ref)
+    else:
+        np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_adaptive_edge_smooth_matches_jax(rng, shape):
+    m = _blobs(rng, shape)
+    b = shape[0]
+    bs = rng.uniform(1, 5, b).astype(np.float32)
+    es = rng.uniform(0.5, 2, (b, 1)).astype(np.float32)
+    ft = rng.uniform(0.3, 0.7, b).astype(np.float32)
+    ref = np.asarray(jpp.adaptive_edge_smooth(*(jnp.asarray(v) for v in (m, bs, es, ft))))
+    out = pp.adaptive_edge_smooth(_t(m), _t(bs), _t(es), _t(ft))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_guided_filter_with_guide_matches_jax(rng):
+    x, g = _soft(rng, SHAPES[0]), _soft(rng, SHAPES[0])
+    ref = np.asarray(jpp.guided_filter(jnp.asarray(x), jnp.asarray(g), 1, 0.05))
+    np.testing.assert_allclose(pp.guided_filter(_t(x), _t(g), 1, 0.05).numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("shape,k,ss,sr", [((2, 16, 24, 3), 5, 1.0, 0.1),
+                                           ((1, 8, 8, 1), 7, 1.5, 0.2)])
+def test_bilateral_filter_matches_pallas(rng, shape, k, ss, sr, use_kernel):
+    """The shapes of tests/test_pallas_kernels.py; on the CPU both settings
+    of ``use_kernel`` compute the plain version and launch nothing."""
+    x = _soft(rng, shape)
+    ref = np.asarray(bilateral_filter_pallas(jnp.asarray(x), k, ss, sr, interpret=True))
+    before = cuda_kernels.bilateral_filter.launches
+    out = pp.bilateral_filter(_t(x), k, ss, sr, use_kernel=use_kernel)
+    assert cuda_kernels.bilateral_filter.launches == before
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 1), (2, 16, 24, 3)])
+def test_edge_smooth_matches_pallas(rng, shape, use_kernel):
+    m = (rng.random(shape) > 0.5).astype(np.float32)
+    ref = np.asarray(edge_smooth_pallas(jnp.asarray(m), 0.5, 3.0, interpret=True))
+    before = cuda_kernels.edge_smooth.launches
+    out = pp.edge_smooth_binary_mask(_t(m), 0.5, 3.0, use_kernel=use_kernel)
+    assert cuda_kernels.edge_smooth.launches == before
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_edge_smooth_keeps_mask_dtype(rng):
+    m = torch.from_numpy(_blobs(rng, SHAPES[0])).to(torch.bfloat16)
+    out = pp.edge_smooth_binary_mask(m)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.float(), pp.edge_smooth_binary_mask(m.float()))
+
+
+@pytest.mark.parametrize("fn,args,err", [
+    (cuda_kernels.bilateral_filter, (torch.zeros(2, 4, 4), 5), ValueError),       # rank
+    (cuda_kernels.bilateral_filter, (torch.zeros(1, 2, 8, 1), 5), ValueError),    # pad >= H
+    (cuda_kernels.bilateral_filter, (torch.zeros(1, 8, 8, 1, dtype=torch.int32), 5), TypeError),
+    (cuda_kernels.edge_smooth, (torch.zeros(4, 4),), ValueError),
+    (cuda_kernels.edge_smooth, (torch.zeros(1, 4, 4, 1, dtype=torch.int64),), TypeError),
+])
+def test_kernel_wrappers_reject(fn, args, err):
+    with pytest.raises(err):
+        fn(*args)
+
+
+@pytest.mark.parametrize("fn", [cuda_kernels.bilateral_filter, cuda_kernels.edge_smooth])
+def test_no_plain_fallback_off_the_cpu(fn):
+    """A tensor that is neither on the CPU nor on a CUDA device never
+    reaches the plain version through the wrapper."""
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        fn(torch.zeros(1, 8, 8, 1, device="meta"))
