@@ -42,7 +42,19 @@ package beside the script; it imports nothing of JAX. Phases:
     person probability -> ``binary_mask_bilateral`` -> edge smoothing ->
     1 px dilation, and the exact bilateral filter on the same probability,
     at batch 32, one launch of each of the three kernels per batch, held
-    against the plain versions, ms per batch.
+    against the plain versions, ms per batch;
+12. fused MBConv and the int8 tail (:func:`check_mbconv_and_tail_q`): both
+    passes of ``fused_mbconv`` against their plain versions at the six block
+    shapes the B0 encoder gives them at batch 32 and at ragged ones, and
+    ``tail_q`` against ``tail_q_plain`` (interior equal, float border within
+    the float tail's tolerance) for float and int8 inputs, timed beside the
+    plain versions and the chains the model would run without them;
+13. the slice that runs both (:func:`serve_fused_encoder_and_tail_q`):
+    ``create_flagship(pallas_tail=True, encoder_fused_blocks=N)`` for N = 3
+    and 6, served in bf16 without quantization and with ``quantize="int8"``,
+    launch counts asserted per forward, outputs held against
+    ``kernels=False`` and (unquantized, float32) against the model without
+    either flag, forward times beside N = 0 and a device-time profile.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -308,10 +320,13 @@ def tail_operands(rng, ci: int, c: int, dtype, dev):
     return k0, bn(), k1, bn(), kh, bh
 
 
-def unfused_tail_chain(x_nchw, k0, bn0, k1, bn1, kh, bh):
+def unfused_tail_chain(x_nchw, k0, bn0, k1, bn1, kh, bh, int8_scales=None):
     """What the model runs with ``pallas_tail=False``, as a zero-argument
-    callable: the last DecoderBlock and the seg head as modules in x's dtype."""
+    callable: the last DecoderBlock and the seg head as modules in x's dtype;
+    with ``int8_scales`` (conv0's, conv1's) the block's convs run s8."""
     import torch
+
+    from human_instance_segmentation_tpu_torch.ops import quant
 
     from human_instance_segmentation_tpu_torch.models.unet import DecoderBlock
 
@@ -326,6 +341,8 @@ def unfused_tail_chain(x_nchw, k0, bn0, k1, bn1, kh, bh):
         for m, p in ((block.bn0, bn0), (block.bn1, bn1)):
             for dst, src in zip((m.weight, m.bias, m.running_mean, m.running_var), p):
                 dst.copy_(src)
+    if int8_scales is not None:
+        quant.set_int8_serving(block, True, dict(zip(("conv0", "conv1"), int8_scales)))
 
     def run():
         with torch.inference_mode():
@@ -480,6 +497,270 @@ def check_tail_and_filters(card: str, rng) -> list:
     return results
 
 
+# the first six MBConv blocks of the B0 encoder at 480x640, batch 32: x (B,
+# Ci, H, W), expand ratio, kernel, stride, Co (the squeeze width is Ci // 4)
+MBCONV_SHAPES = [
+    ((32, 32, 240, 320), 1, 3, 1, 16),
+    ((32, 16, 240, 320), 6, 3, 2, 24),
+    ((32, 24, 120, 160), 6, 3, 1, 24),
+    ((32, 24, 120, 160), 6, 5, 2, 40),
+    ((32, 40, 60, 80), 6, 5, 1, 40),
+    ((32, 40, 60, 80), 6, 3, 2, 80),
+]
+# odd channel counts, extents off the 8 x 16 tile, batch 1
+MBCONV_RAGGED = [
+    ((1, 5, 13, 19), 6, 3, 1, 7),
+    ((2, 12, 22, 18), 3, 5, 2, 9),
+    ((1, 7, 9, 11), 1, 5, 1, 7),
+    ((1, 9, 6, 36), 4, 3, 2, 9),
+]
+# fused_mbconv, float32: the JAX package's gate for its Pallas kernel
+# (tests/test_pallas_mbconv.py:48). bfloat16: kernel and plain version round at
+# the same four places, but their float32 sums differ in the last bits, so a
+# value can land on the other side of a bf16 rounding boundary: one ulp of `a`
+# or of `d * se` moves y by |w| * 2^-8 |operand| (a few 1e-3), and y's own
+# rounding by one ulp (2^-8 |y| relative to the midpoint, 2^-7 |y| at worst).
+TOL_MBCONV = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
+
+
+def mbconv_operands(rng, ci: int, expand: int, k: int, co: int, dtype, dev):
+    """Seeded folded MBConv weights at LeCun scale (BN gains near 1 folded
+    in), as ``fused_mbconv`` takes them."""
+    import torch
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    cm, cse = ci * expand, max(1, ci // 4)
+    we = t(rng.standard_normal((ci, cm)) / ci ** 0.5) if expand != 1 else None
+    be = t(rng.standard_normal(cm) * 0.1) if expand != 1 else None
+    return (we, be, t(rng.standard_normal((k, k, cm)) / k), t(rng.standard_normal(cm) * 0.1),
+            t(rng.standard_normal((cm, cse)) / cm ** 0.5), t(rng.standard_normal(cse) * 0.1),
+            t(rng.standard_normal((cse, cm)) / cse ** 0.5), t(rng.standard_normal(cm) * 0.1),
+            t(rng.standard_normal((cm, co)) / cm ** 0.5), t(rng.standard_normal(co) * 0.1))
+
+
+def unfused_mbconv_chain(x, ci: int, expand: int, k: int, stride: int, co: int):
+    """What the encoder runs without ``fused_blocks``, as a zero-argument
+    callable: the MBConv module (cuDNN convs, BN, SiLU and squeeze-excite as
+    separate ops) in x's dtype, random weights."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.models.efficientnet import MBConv
+
+    block = MBConv(ci, co, expand, k, stride).to(device=x.device, dtype=x.dtype).eval()
+
+    def run():
+        with torch.inference_mode():
+            return block(x)
+
+    return run
+
+
+def mbconv_bounds(shape, expand: int, k: int, stride: int, co: int, elem: int):
+    """Bounds of the two passes at one block shape: bytes (x once per pass,
+    y once, the sums) against the two 1x1 products at the bf16 tensor-core
+    peak, the depthwise taps at the float32 peak and the SiLUs' exps."""
+    b, ci, h, w = shape
+    cm, px_in, px_out = ci * expand, b * h * w, b * (h // stride) * (w // stride)
+    mm_e = 2 * ci * cm * px_in if expand != 1 else 0
+    dw, exps = 2 * k * k * cm * px_out, cm * px_out + (cm * px_in if expand != 1 else 0)
+
+    def t(nbytes, mm):
+        t_ops = max(mm / PEAK_OPS["bf16"], dw / PEAK_OPS["f32"], exps / SFU_PER_S) * 1e3
+        return nbytes / HBM_BYTES_PER_S * 1e3, t_ops
+
+    sums = t(px_in * ci * elem + b * cm * 4, mm_e)
+    apply = t(px_in * ci * elem + px_out * co * elem + b * cm * elem, mm_e + 2 * cm * co * px_out)
+    return sums, apply
+
+
+def tail_q_scales(x, ops):
+    """Calibrated-style scales of the int8 tail from the float chain on the
+    first image: abs-max / 127 of x, of conv1's input and of the head's."""
+    import torch
+    import torch.nn.functional as F
+
+    from human_instance_segmentation_tpu_torch.ops import cuda_tail
+    from human_instance_segmentation_tpu_torch.ops.sampling import upsample_2x_bilinear
+
+    k0, bn0, k1, bn1, _, _ = ops
+    s0, t0 = cuda_tail.fold_bn(bn0)
+    s1, t1 = cuda_tail.fold_bn(bn1)
+    y = upsample_2x_bilinear(x[:1].float().permute(0, 3, 1, 2), axes=(2, 3))
+    y0 = F.relu(cuda_tail._conv(y, k0) * s0[:, None, None] + t0[:, None, None])
+    y1 = F.relu(cuda_tail._conv(y0, k1) * s1[:, None, None] + t1[:, None, None])
+    return tuple(max(float(v.abs().max()), 1e-6) / 127.0 for v in (x.float(), y0, y1))
+
+
+def check_mbconv_and_tail_q(card: str, rng) -> list:
+    """Phase 12: the fused MBConv (both passes) and the int8 fused tail
+    against their plain versions at the served and at ragged shapes, timed
+    beside the plain versions and the chains the model would run instead."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.ops import cuda_mbconv, cuda_tail, quant
+
+    dev = torch.device("cuda")
+    results = []
+
+    # ---- fused_mbconv ---------------------------------------------------
+    worst = {"sums": 0.0, "apply": 0.0}
+    ms = {"sums": 0.0, "apply": 0.0, "fused": 0.0, "plain_sums": 0.0, "plain": 0.0, "chain": 0.0}
+    bounds = {"sums": [0.0, 0.0], "apply": [0.0, 0.0]}
+    # the served encoder hands its blocks channels-last memory (its NHWC input
+    # is viewed as NCHW and cuDNN keeps the format): that is the timed layout;
+    # contiguous NCHW is checked beside it
+    cl, nchw = torch.channels_last, torch.contiguous_format
+    cases = [(c, dt, fmt, True) for c in MBCONV_SHAPES
+             for dt, fmt in ((torch.float32, nchw), (torch.bfloat16, cl))]
+    cases += [(c, dt, fmt, False) for c in MBCONV_RAGGED
+              for dt, fmt in ((torch.float32, cl), (torch.bfloat16, nchw), (torch.bfloat16, cl))]
+    for (shape, expand, k, stride, co), dt, fmt, served in cases:
+        b, ci, h, w = shape
+        residual = stride == 1 and ci == co
+        x = torch.tensor(rng.standard_normal(shape), dtype=dt,
+                         device=dev).contiguous(memory_format=fmt)
+        ops = mbconv_operands(rng, ci, expand, k, co, dt, dev)
+        we, be, wdw, bdw, wr, br, ws, bs, wp, bp = ops
+        kw = dict(kernel=k, stride=stride)
+        got_sums = cuda_mbconv.mbconv_sums(x, we, be, wdw, bdw, **kw)
+        got = cuda_mbconv.fused_mbconv(x, *ops, residual=residual, **kw)
+        torch.cuda.synchronize()
+        ref_sums = cuda_mbconv.mbconv_sums_plain(x, we, be, wdw, bdw, **kw)
+        ref = cuda_mbconv.fused_mbconv_plain(x, *ops, residual=residual, **kw)
+        count = (h // stride) * (w // stride)
+        serr = ((got_sums - ref_sums).abs() / count).max().item()  # as an error of the mean
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        name = str(dt).split(".")[1]
+        atol, rtol = TOL_MBCONV[name]
+        layout = "channels-last" if fmt == cl else "NCHW"
+        print(f"fused_mbconv {shape} e{expand} k{k} s{stride} -> {co} {name} {layout}: mean-of-d "
+              f"max_abs_err={serr:.3e} (atol 1e-5), y max_abs_err={err:.3e} (atol {atol}, rtol "
+              f"{rtol:.2e}), |ref| max {ref.float().abs().max().item():.2f}")
+        if got.shape != ref.shape or got.dtype != dt or not torch.isfinite(got.float()).all() \
+                or not got.is_contiguous(memory_format=fmt):
+            raise AssertionError(f"fused_mbconv {shape} {name}: bad output")
+        if serr > 1e-5 or not bool((diff <= atol + rtol * ref.float().abs()).all()):
+            raise AssertionError(f"fused_mbconv {shape} k{k} s{stride} {name}: {serr}, {err}")
+        if dt == torch.float32:
+            worst["sums"] = max(worst["sums"], serr)
+            worst["apply"] = max(worst["apply"], err)
+        if served and dt == torch.bfloat16:
+            se = cuda_mbconv.squeeze_excite(got_sums, count, wr, br, ws, bs, dt)
+            t = {"sums": median_ms(lambda: cuda_mbconv.mbconv_sums(x, we, be, wdw, bdw, **kw)),
+                 "apply": median_ms(lambda: cuda_mbconv.mbconv_apply(
+                     x, se, we, be, wdw, bdw, wp, bp, residual=residual, **kw)),
+                 "fused": median_ms(lambda: cuda_mbconv.fused_mbconv(
+                     x, *ops, residual=residual, **kw)),
+                 "plain_sums": median_ms(lambda: cuda_mbconv.mbconv_sums_plain(
+                     x, we, be, wdw, bdw, **kw), reps=5, warmup=1),
+                 "plain": median_ms(lambda: cuda_mbconv.fused_mbconv_plain(
+                     x, *ops, residual=residual, **kw), reps=5, warmup=1),
+                 "chain": median_ms(unfused_mbconv_chain(x, ci, expand, k, stride, co))}
+            bs_, ba_ = mbconv_bounds(shape, expand, k, stride, co, 2)
+            print(f"fused_mbconv bf16 channels-last {shape} e{expand} k{k} s{stride}: sums kernel "
+                  f"{t['sums']:.4f} ms (bound {max(bs_):.4f}), apply kernel {t['apply']:.4f} ms "
+                  f"(bound {max(ba_):.4f}), both with the squeeze-excite ops {t['fused']:.4f} ms, "
+                  f"plain {t['plain']:.4f} ms, unfused bf16 MBConv module (cuDNN) "
+                  f"{t['chain']:.4f} ms (median of {TIMING_REPS}, CUDA events) [{card}]")
+            for key in ms:
+                ms[key] += t[key]
+            for key, bb in (("sums", bs_), ("apply", ba_)):
+                bounds[key][0] += bb[0]
+                bounds[key][1] += bb[1]
+        del x, got, ref, diff
+        torch.cuda.empty_cache()
+    print(f"fused_mbconv bf16 channels-last, the six served blocks together: sums "
+          f"{ms['sums']:.4f} ms, apply {ms['apply']:.4f} ms, fused (2 launches + squeeze-excite) "
+          f"{ms['fused']:.4f} ms, plain {ms['plain']:.4f} ms, unfused bf16 MBConv modules "
+          f"{ms['chain']:.4f} ms [{card}]")
+    for key, line in (("sums", 183), ("apply", 201)):
+        tb, to = bounds[key]
+        results.append({
+            "name": f"mbconv_{key}", "route": "cuda",
+            "source": "human_instance_segmentation_tpu_torch/csrc/mbconv.cu",
+            "replaces": f"human_instance_segmentation_tpu/ops/pallas_mbconv.py:{line}",
+            "max_abs_err": worst[key], "ms": ms[key],
+            "plain_ms": ms["plain_sums"] if key == "sums" else ms["plain"],
+            # no single PyTorch call computes an MBConv: the chain is the unfused
+            # module (both passes together replace it)
+            "library_ms": ms["chain"] if key == "apply" else None,
+            "library": "chain: the unfused bf16 MBConv modules (cuDNN), six blocks",
+            "chain_ms": ms["chain"], "fused_ms": ms["fused"], "shapes": "sum over MBCONV_SHAPES",
+            "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"})
+
+    # ---- tail_q -----------------------------------------------------------
+    worst, timing = 0.0, None
+    b, h, w, ci, c = TAIL_SHAPE
+    cases = [(TAIL_SHAPE, dt, kind) for dt, kind in (
+        (torch.bfloat16, "nchw"), (torch.float32, "nchw"), (torch.bfloat16, "int8"),
+        (torch.float32, "int8"))]
+    cases += [(shape, dt, kind) for shape in ((2, 13, 19, 5, 12), (1, 9, 21, 12, 20),
+                                              (1, 16, 40, 48, 16))
+              for dt in (torch.float32, torch.bfloat16) for kind in ("nhwc", "int8")]
+    for shape, dt, kind in cases:
+        cb, chh, cw, cci, cc = shape
+        ops = tail_operands(rng, cci, cc, dt, dev)
+        x = torch.tensor(rng.standard_normal((cb, chh, cw, cci)), dtype=dt, device=dev)
+        sx, sm, sh = tail_q_scales(x, ops)
+        sx *= 0.8  # some inputs clip
+        if kind == "nchw":
+            x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        xin = quant.quantize_symmetric(x, sx) if kind == "int8" else x
+        got = cuda_tail.tail_q(xin, *ops, sx, sm, sh, out_dtype=dt)
+        torch.cuda.synchronize()
+        ref = cuda_tail.tail_q_plain(xin, *ops, sx, sm, sh, out_dtype=dt)
+        flt = cuda_tail.tail_plain(x, *ops)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[1]
+        if got.shape != (cb, 2 * chh, 2 * cw) or got.dtype != dt:
+            raise AssertionError(f"tail_q {shape} {name}: output {tuple(got.shape)} {got.dtype}")
+        diff = (got.float() - ref.float()).abs()
+        bd = cuda_tail.BORDER
+        inner = diff[:, bd:-bd, bd:-bd]
+        ierr = inner.max().item() if inner.numel() else 0.0
+        atol, rtol = TOL_TAIL[name]
+        edge_ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+        rel = ((got.float() - flt.float()).abs().max() / flt.float().abs().max()).item()
+        print(f"tail_q {shape} {name} {kind} input: interior max_abs_err={ierr:.3e} (tol 0, "
+              f"{inner.numel()} pixels), border max_abs_err={diff.max().item():.3e} (atol {atol}, "
+              f"rtol {rtol}); distance from the float tail {100 * rel:.2f}% of its max")
+        if ierr != 0.0 or not edge_ok or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"tail_q {shape} {name} {kind}: interior {ierr}, border "
+                                 f"{diff.max().item()}")
+        if dt == torch.float32:
+            worst = max(worst, diff.max().item())
+        if (shape, dt, kind) == (TAIL_SHAPE, torch.bfloat16, "nchw"):  # the served form
+            wq = cuda_tail.build_tail_weights_q(*ops, sx, sm, sh)
+            packed = cuda_tail.pack_tail_weights_q(wq)
+            kms = median_ms(lambda: cuda_tail.tail_q(x, *ops, sx, sm, sh, packed=packed))
+            bms = median_ms(lambda: cuda_tail.tail_q(x, *ops, sx, sm, sh))
+            pms = median_ms(lambda: cuda_tail.tail_q_plain(x, *ops, sx, sm, sh), reps=3, warmup=1)
+            fms = median_ms(lambda: cuda_tail.tail(x, *ops))
+            cms = median_ms(unfused_tail_chain(x.permute(0, 3, 1, 2), *ops,
+                                               int8_scales=(sx, sm)))
+            timing = (kms, pms, cms, fms)
+            print(f"tail_q bf16 {TAIL_SHAPE}: kernels (quantize, int8 map, two float strips) "
+                  f"{kms:.4f} ms with kept weights, {bms:.4f} ms building them per call, plain "
+                  f"(float64 convs) {pms:.4f} ms, float tail kernel {fms:.4f} ms, unfused int8 "
+                  f"decoder stage + bf16 seg head of the model {cms:.4f} ms (median of "
+                  f"{TIMING_REPS}, CUDA events) [{card}]")
+        del x, xin, got, ref, flt, diff
+        torch.cuda.empty_cache()
+    px = b * 2 * h * 2 * w
+    results.append({"name": "tail_q", "route": "cuda",
+                    "source": "human_instance_segmentation_tpu_torch/csrc/tail_q.cu",
+                    "replaces": "human_instance_segmentation_tpu/ops/pallas_tail_q.py:236",
+                    "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                    "library_ms": timing[2],
+                    "library": "chain: unfused int8 decoder stage (qconv2d) + bf16 seg head",
+                    "chain_ms": timing[2], "float_tail_ms": timing[3],
+                    **bound(2 * b * h * w * ci + 2 * px, 2 * 9 * (ci * c + c * c + c) * px, "int8")})
+    return results
+
+
 def make_request(rng, batch: int, nrois: int):
     import numpy as np
 
@@ -519,7 +800,7 @@ def serve_and_compare(mid: int, rng):
 
     def engine(dtype, kernels: bool):
         model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
-                                image_size=IMAGE_HW, mid_channels=mid, seed=0, device="cuda",
+                                image_size=IMAGE_HW, mid_channels=mid, seed=0,
                                 pallas_roi_align=kernels)
         return InferenceEngine(model, dilation_pixels=1, dtype=dtype, fused_head=kernels)
 
@@ -748,7 +1029,7 @@ def int8_engine(mid: int, dtype, kernels: bool, scales=None):
     from human_instance_segmentation_tpu_torch.inference import InferenceEngine, create_flagship
 
     model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
-                            image_size=IMAGE_HW, mid_channels=mid, seed=0, device="cuda",
+                            image_size=IMAGE_HW, mid_channels=mid, seed=0,
                             pallas_roi_align=kernels)
     engine = InferenceEngine(model, dilation_pixels=1, dtype=dtype, fused_head=True,
                              quantize="int8", kernels=kernels)
@@ -970,7 +1251,7 @@ def serve_with_tail(card: str, rng) -> dict:
 
     def engine(dtype, tail: bool):
         model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
-                                image_size=IMAGE_HW, mid_channels=128, seed=0, device="cuda",
+                                image_size=IMAGE_HW, mid_channels=128, seed=0,
                                 pallas_tail=tail)
         return InferenceEngine(model, dilation_pixels=1, dtype=dtype, fused_head=True)
 
@@ -1086,7 +1367,7 @@ def binary_mask_mode(card: str, rng) -> dict:
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):
         flagship = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
-                                   image_size=IMAGE_HW, mid_channels=128, seed=0, device="cuda",
+                                   image_size=IMAGE_HW, mid_channels=128, seed=0,
                                    pallas_tail=True)
         unet = flagship.pretrained_unet.to(dtype).eval()
         del flagship
@@ -1172,6 +1453,196 @@ def binary_mask_mode(card: str, rng) -> dict:
     return launches
 
 
+def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
+    """Phase 13: the flagship with ``pallas_tail=True`` and
+    ``encoder_fused_blocks=N`` (N = 3 and 6) served in bf16 with
+    ``fused_head=True``, without quantization and with ``quantize="int8"``,
+    for a batch 32 x 1 ROI request and a smaller one.
+
+    Launch counts are asserted per forward: N ``mbconv_sums`` and N
+    ``mbconv_apply``, 5 ``conv_ln_act`` (or its s8 form), 2 ``roi_align``;
+    without quantization 1 ``tail``; with int8 1 ``tail_q`` (whose float border
+    strips are 2 launches of ``tail``) and one ``qconv`` per int8-marked QConv
+    outside the fused units and outside the last decoder stage, whose two
+    convs the tail absorbed. Outputs are held against the same weights and
+    scales served with ``kernels=False`` and ``pallas_roi_align=False`` in
+    float32 (binary max-abs <= 1e-2, instance agreement >= MIN_AGREE) and in
+    bf16 (as :func:`serve_and_compare`), and without quantization also
+    against ``encoder_fused_blocks=0, pallas_tail=False`` in float32 (binary
+    max-abs <= 1e-4: the flags change the route, not the result). Forward
+    times are printed beside the N = 0 forward of the same call. Returns the
+    launch counts of the served bf16 forwards, summed over the four
+    configurations."""
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.inference import (InferenceEngine,
+                                                                 create_flagship, pad_rois)
+    from human_instance_segmentation_tpu_torch.ops import (cuda_head, cuda_mbconv,
+                                                           cuda_roi_align, cuda_tail, quant)
+
+    def engine(n, dtype, quantize, kernels=True, tail=True, scales=None):
+        model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                                image_size=IMAGE_HW, mid_channels=128, seed=0,
+                                pallas_roi_align=kernels, pallas_tail=tail,
+                                encoder_fused_blocks=n)
+        e = InferenceEngine(model, dilation_pixels=1, dtype=dtype, fused_head=True,
+                            quantize=quantize, kernels=kernels)
+        e.scales = dict(scales) if scales is not None else None
+        return e
+
+    counters = {"mbconv_sums": cuda_mbconv.mbconv_sums, "mbconv_apply": cuda_mbconv.mbconv_apply,
+                "tail": cuda_tail.tail, "tail_q": cuda_tail.tail_q,
+                "conv_ln_act": cuda_head.conv_ln_act, "conv_ln_act_s8": cuda_head.conv_ln_act_s8,
+                "qconv": quant.qconv2d, "roi_align": cuda_roi_align.roi_align}
+    requests = [make_request(rng, 32, 32), make_request(rng, 4, 3)]
+    total = {k: 0 for k in counters}
+    timed = {}
+    for quantize in (None, "int8"):
+        for n in (3, 6):
+            mode = quantize or "bf16"
+            served = engine(n, torch.bfloat16, quantize)
+            if quantize:
+                served.calibrate(*requests[1])
+                for key in ("pretrained_unet/decoder4#x", "pretrained_unet/decoder4#mid",
+                            "pretrained_unet#head"):
+                    if key not in served.scales:
+                        raise AssertionError(f"calibration recorded no {key}")
+            qconvs = [m for m in served.model.modules() if isinstance(m, quant.QConv)]
+            for f in counters.values():
+                f.launches = 0
+            outs = []
+            for images, rois in requests:
+                c0 = {k: f.launches for k, f in counters.items()}
+                outs.append(served(images, rois))
+                d = {k: f.launches - c0[k] for k, f in counters.items()}
+                marked = sum(m.runs_int8 for m in qconvs)
+                print(f"N={n} {mode} batch {images.shape[0]} x {rois.shape[0]} rois: launches "
+                      f"{d}; QConvs marked int8 {marked} (one forward)")
+                want = {"mbconv_sums": n, "mbconv_apply": n, "roi_align": 2}
+                if quantize:
+                    want.update({"tail_q": 1, "tail": 2, "conv_ln_act": 0, "conv_ln_act_s8": 5,
+                                 "qconv": marked - 5 - 2})
+                else:
+                    want.update({"tail_q": 0, "tail": 1, "conv_ln_act": 5, "conv_ln_act_s8": 0,
+                                 "qconv": 0})
+                if d != want:
+                    raise AssertionError(f"N={n} {mode}: expected launches {want}, got {d}")
+            for k, f in counters.items():
+                total[k] += f.launches
+
+            scales = served.scales
+            plain_bf16 = engine(n, torch.bfloat16, quantize, kernels=False, scales=scales)
+            others = {"plain bf16": plain_bf16,
+                      "served f32": engine(n, torch.float32, quantize, scales=scales),
+                      "plain f32": engine(n, torch.float32, quantize, kernels=False,
+                                          scales=scales)}
+            if not quantize:
+                others["no flags f32"] = engine(0, torch.float32, None, tail=False)
+            for (images, rois), (inst, binary) in zip(requests, outs):
+                b, nr = images.shape[0], rois.shape[0]
+                if inst.shape != (nr, *MASK_HW, 1) or binary.shape != (b, *IMAGE_HW, 1):
+                    raise AssertionError(f"bad output shapes {inst.shape}, {binary.shape}")
+                if not (np.isfinite(inst).all() and np.isfinite(binary).all()):
+                    raise AssertionError("non-finite outputs")
+                if not set(np.unique(inst)) <= {0.0, 1.0}:
+                    raise AssertionError("instance masks are not binary")
+                o = {name: e(images, rois) for name, e in others.items()}
+                tag = f"N={n} {mode} batch {b} x {nr} rois"
+                bin_f32 = float(np.abs(o["served f32"][1] - o["plain f32"][1]).max())
+                agree_f32 = _agreement(o["served f32"][0], o["plain f32"][0])
+                print(f"{tag} f32 kernels vs kernels=False: binary max_abs_err {bin_f32:.3e} "
+                      f"(tol 1e-2), instance agreement {agree_f32:.6f} (min {MIN_AGREE})")
+                bin_bf16 = float(np.abs(binary - o["plain bf16"][1]).max())
+                agree_k = _agreement(inst, o["plain f32"][0])
+                agree_p = _agreement(o["plain bf16"][0], o["plain f32"][0])
+                print(f"{tag} bf16 kernels vs kernels=False: binary max_abs_err {bin_bf16:.3e} "
+                      f"(tol 1e-2), instance agreement "
+                      f"{_agreement(inst, o['plain bf16'][0]):.6f}; vs f32 plain: kernels "
+                      f"{agree_k:.6f}, plain bf16 {agree_p:.6f} (kernels >= plain - 0.002); fg "
+                      f"share {inst.mean():.4f}")
+                if not (bin_f32 <= 1e-2 and agree_f32 >= MIN_AGREE):
+                    raise AssertionError(f"{tag}: the f32 slice disagrees with its plain path")
+                if not (bin_bf16 <= 1e-2 and agree_k >= agree_p - 0.002):
+                    raise AssertionError(f"{tag}: the bf16 slice is further from f32 than its "
+                                         "plain path")
+                if not quantize:
+                    bin_ref = float(np.abs(o["served f32"][1] - o["no flags f32"][1]).max())
+                    agree_ref = _agreement(o["served f32"][0], o["no flags f32"][0])
+                    print(f"{tag} f32 vs encoder_fused_blocks=0, pallas_tail=False: binary "
+                          f"max_abs_err {bin_ref:.3e} (tol 1e-4), instance agreement "
+                          f"{agree_ref:.6f} (min {MIN_AGREE})")
+                    if not (bin_ref <= 1e-4 and agree_ref >= MIN_AGREE):
+                        raise AssertionError(f"{tag}: the flags changed the result")
+            del others, plain_bf16, o
+            timed[(mode, n)] = served
+            torch.cuda.empty_cache()
+
+    # ---- forward times beside N = 0 (pallas_tail=True) in the same call -------
+    batch = 32
+    images, rois = make_request(rng, batch, batch)
+    images_t = torch.tensor(images, device="cuda", dtype=torch.bfloat16)
+    rois_t = torch.tensor(pad_rois(rois, batch), device="cuda")
+    timed[("bf16", 0)] = engine(0, torch.bfloat16, None)
+    timed[("int8", 0)] = engine(0, torch.bfloat16, "int8")
+    for (mode, n), e in timed.items():
+        if mode == "int8":
+            e.calibrate(images, rois)
+    torch.cuda.empty_cache()
+    order = sorted(timed, key=lambda k: (k[0], k[1]))
+    times = {k: [] for k in order}
+    for key in order + order[::-1]:
+        times[key].append(median_ms(lambda: timed[key].forward(images_t, rois_t),
+                                    reps=TIMING_REPS // 2))
+    for key in order:
+        med = statistics.median(times[key])
+        print(f"forward batch {batch} x 1 roi, {key[0]}, fused head, pallas_tail, "
+              f"encoder_fused_blocks={key[1]}: {med:.3f} ms/batch, {batch / med * 1e3:.1f} img/s "
+              f"(per-round medians {times[key]}, {TIMING_REPS // 2} forwards each, CUDA events) "
+              f"[{card}]")
+    # the stage-1 encoder alone on the same batch, in the memory format the
+    # forward gives it (the NHWC images viewed as NCHW): the unfused blocks
+    # (cuDNN convs, BN, SiLU and squeeze-excite as separate ops) against N
+    # fused ones
+    x_enc = images_t.permute(0, 3, 1, 2)
+    enc = {n: timed[("bf16", n)].model.pretrained_unet.encoder for n in (0, 3, 6)}
+    enc_ms = {n: [] for n in enc}
+    with torch.inference_mode():
+        for n in (0, 3, 6, 6, 3, 0):
+            enc_ms[n].append(median_ms(lambda: enc[n](x_enc), reps=TIMING_REPS // 2))
+    print(f"B0 encoder alone, batch {batch} bf16: "
+          + "; ".join(f"fused_blocks={n} {statistics.median(v):.3f} ms (rounds {v})"
+                      for n, v in enc_ms.items()) + f" [{card}]")
+
+    # where a forward's device time goes, with and without the two kernels
+    from torch.profiler import ProfilerActivity, profile
+
+    for key in (("bf16", 0), ("bf16", 6), ("int8", 0), ("int8", 6)):
+        e = timed[key]
+        e.forward(images_t, rois_t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                e.forward(images_t, rois_t)
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA"]
+        busy = sum(ev.self_device_time_total for ev in events) / 3e3
+
+        def part(*names):
+            return sum(ev.self_device_time_total for ev in events
+                       if any(nm in ev.key for nm in names)) / 3e3
+
+        wall = statistics.median(times[key])
+        print(f"profile of 3 forwards, {key[0]}, encoder_fused_blocks={key[1]}: device busy "
+              f"{busy:.3f} ms per forward of {wall:.3f} ms wall ({100 * (1 - busy / wall):.1f}% "
+              f"idle), {sum(ev.count for ev in events) // 3} kernels per forward; mbconv kernels "
+              f"{part('mbconv_kernel'):.3f} ms, tail_q kernels (int8 map + quantize) "
+              f"{part('tail_q_kernel', 'quantize_kernel'):.3f} ms, float tail kernel "
+              f"{part('tail_kernel'):.3f} ms, s8 conv kernels {part('s8igemm'):.3f} ms "
+              f"[{card}]")
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -1201,7 +1672,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 12))
+    phases = set(range(1, 14))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -1211,6 +1682,8 @@ def main() -> None:
         kernels += check_int8_kernels(card, rng)
     if 9 in phases:
         kernels += check_tail_and_filters(card, rng)
+    if 12 in phases:
+        kernels += check_mbconv_and_tail_q(card, rng)
     served = None
     if phases & {4, 5, 8}:
         bf16_launches, served, plain = serve_and_compare(128, rng)
@@ -1242,10 +1715,18 @@ def main() -> None:
         launches["bilateral_filter"] = binary_launches["bilateral_filter"]
         launches["edge_smooth"] = binary_launches["edge_smooth"]
 
+    if 13 in phases:
+        torch.cuda.empty_cache()
+        slice_launches = serve_fused_encoder_and_tail_q(card, rng)
+        for name in ("mbconv_sums", "mbconv_apply", "tail_q"):
+            launches[name] = slice_launches[name]
+        for name in ("tail", "conv_ln_act", "conv_ln_act_s8", "qconv", "roi_align"):
+            launches[name] = launches.get(name, 0) + slice_launches[name]
+
     for k in kernels:
         k["launches"] = launches.get(k["name"], 0)
         k["bound_share"] = k["bound_ms"] / k["ms"]
-    if any(k["launches"] == 0 for k in kernels) and phases >= {3, 4, 6, 7, 9, 10, 11}:
+    if any(k["launches"] == 0 for k in kernels) and phases >= {3, 4, 6, 7, 9, 10, 11, 12, 13}:
         raise AssertionError(f"a kernel of the main path was never launched: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

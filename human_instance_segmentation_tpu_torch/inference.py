@@ -10,8 +10,14 @@ Deployed outputs (the reference ONNX graph's contract, NHWC):
   binary_masks:   (B, H, W, 1)    P(person) from the stage-1 UNet
 
 ``create_flagship(pallas_tail=True)`` ends stage 1 in the fused tail
-(``ops/cuda_tail``); the binary mask then comes from
-``aux["person_prob_dense"]``.
+(``ops/cuda_tail``; its s8 form under calibrated int8 serving); the binary
+mask then comes from ``aux["person_prob_dense"]``.
+``create_flagship(encoder_fused_blocks=N)`` runs the first N encoder blocks
+through the fused MBConv kernel (``ops/cuda_mbconv``).
+
+The entry points run on the GPU unless the caller asks for the CPU:
+``create_flagship`` builds on ``device="cuda"`` by default and raises where
+there is no CUDA, and the engine serves on its model's device.
 """
 
 from __future__ import annotations
@@ -99,11 +105,16 @@ class InferenceEngine:
     default denies the stage-1 encoder) and the fused units in their int8
     form. Activation scales are calibrated from the first batch served, or
     by :meth:`calibrate`; until then :meth:`forward` uses dynamic scales.
-    ``kernels=False`` computes the fused unit, the int8 convs and the fused
-    stage-1 tail (a model built with ``pallas_tail=True``) with their plain
-    PyTorch versions on any device: the plain path of the same graph that a
-    GPU run holds the kernels against. ``pallas_tail`` with int8 raises until
-    the s8 tail kernel is ported.
+    ``kernels=False`` computes the fused unit, the int8 convs, the fused
+    stage-1 tail (a model built with ``pallas_tail=True``) and the fused
+    encoder blocks (``encoder_fused_blocks``) with their plain PyTorch
+    versions on any device: the plain path of the same graph that a GPU run
+    holds the kernels against. ``pallas_tail`` with int8 ends stage 1 in the
+    s8 fused tail once calibration has recorded its three scales, and in the
+    float tail until then.
+
+    ``device=None`` serves on the model's device (``create_flagship`` builds
+    on the GPU unless told otherwise).
     """
 
     def __init__(
@@ -122,11 +133,6 @@ class InferenceEngine:
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        if quantize == "int8" and model.pretrained_unet.pallas_tail:
-            raise NotImplementedError(
-                "pallas_tail=True with quantize='int8' needs the s8 fused tail (the JAX "
-                "package's ops/pallas_tail_q.py::tail_with_borders_q), which is not ported yet; "
-                "it is not served by the bfloat16 tail or the unfused s8 convs instead")
         dev = (resolve_device(device) if device is not None
                else next(model.parameters()).device)
         self.model = model.to(device=dev, dtype=dtype).eval()
@@ -142,13 +148,15 @@ class InferenceEngine:
 
     def calibrate(self, images: np.ndarray, rois: np.ndarray) -> None:
         """Record every eligible QConv's input abs-max on (images, rois),
-        served unfused and un-quantized in the engine's dtype, and fold the
+        served unfused and un-quantized in the engine's dtype (and, for a
+        ``pallas_tail`` model, the s8 tail's three points), and fold the
         scales into int8 serving (pointwise max over calls)."""
         bucket = roi_bucket(max(rois.shape[0], 1), max_bucket=self.max_bucket)
         rois_p = torch.as_tensor(pad_rois(np.asarray(rois, np.float32), bucket)).to(self.device)
         images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
         set_head_fusion(self.model, False)
         set_int8_serving(self.model, False)
+        self.model.pretrained_unet.encoder.set_fused_kernels(self.kernels)
         with torch.inference_mode(), calibration(self.model) as calib:
             self.model(images_t, rois_p)
         scales = collect_scales(calib)
@@ -162,6 +170,7 @@ class InferenceEngine:
         set_int8_serving(self.model, self.quantize == "int8", self.scales, self.int8_deny,
                          self.kernels)
         self.model.pretrained_unet.tail_use_kernel = self.kernels
+        self.model.pretrained_unet.encoder.set_fused_kernels(self.kernels)
         with torch.inference_mode():
             logits, aux = self.model(images.to(self.dtype), rois.to(torch.float32))
             inst, binary = deployed_outputs(logits, aux, rois, self.dilation_pixels)
@@ -217,11 +226,13 @@ def create_flagship(
     mask_size: Tuple[int, int] = (128, 96),
     image_size: Tuple[int, int] = (480, 640),
     seed: int = 0,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = "cuda",
     **kwargs,
 ) -> HierarchicalInstanceSegmenter:
     """Build the flagship (B0 by default) with seeded random weights, in
-    eval mode on ``device``."""
+    eval mode on ``device``: the GPU unless the caller asks for the CPU
+    (no CUDA raises). ``kwargs`` go to the model (``mid_channels``,
+    ``pallas_tail``, ``encoder_fused_blocks``, ...)."""
     dev = resolve_device(device)
     model = HierarchicalInstanceSegmenter(
         encoder_variant=variant, roi_size=roi_size, mask_size=mask_size,

@@ -14,7 +14,8 @@ and hands over a one-channel ``(B, H, W)`` logit map, which is cropped at
 one channel before the 1 -> 2 channel wrapper (RoIAlign is linear, so the
 two commute, except that a wrapper bias then also reaches the crop's
 zero-padded out-of-image samples, as in the JAX package) and gives
-``aux["person_prob_dense"]``.
+``aux["person_prob_dense"]``. ``encoder_fused_blocks=N`` is handed down to
+the stage-1 encoder (the first N MBConv blocks through the fused kernel).
 
 Public I/O is NHWC as in the JAX package; the modules run NCHW inside.
 """
@@ -79,7 +80,7 @@ class HierarchicalInstanceSegmenter(nn.Module):
                  activation: str = "relu", base_channels: int = 96, depth: int = 3,
                  unet_decoder_channels: Tuple[int, ...] = (256, 128, 64, 32, 16),
                  stage1_upsample_mode: str = "bilinear", pallas_roi_align: bool = True,
-                 pallas_tail: bool = False):
+                 pallas_tail: bool = False, encoder_fused_blocks: int = 0):
         super().__init__()
         if not (use_contour_detection or use_distance_transform):
             # the JAX model then takes PretrainedUNetGuidedHead instead
@@ -90,7 +91,7 @@ class HierarchicalInstanceSegmenter(nn.Module):
         self.pallas_roi_align = pallas_roi_align
         self.pretrained_unet = PeopleSegmentationUNet(
             encoder_variant, unet_decoder_channels, upsample_mode=stage1_upsample_mode,
-            pallas_tail=pallas_tail)
+            pallas_tail=pallas_tail, encoder_fused_blocks=encoder_fused_blocks)
         self.unet_wrapper = PeopleSegUNetWrapper()
         self.rgb_extractor = RGBPatchFeatureExtractor(feature_dim, norm, activation)
         self.feature_combiner = QConv(feature_dim + 2, feature_dim, 1)

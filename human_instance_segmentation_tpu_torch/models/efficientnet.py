@@ -1,8 +1,9 @@
 """EfficientNet encoders (NCHW) with the five UNet feature taps.
 
-Counterpart of the JAX package's ``models/efficientnet.py`` in its plain
-form (no fused MBConv kernel, no space-to-depth front): MBConv + squeeze-
-excite, SiLU, BatchNorm eps 1e-3, and TF ``'SAME'`` padding. At stride 2
+Counterpart of the JAX package's ``models/efficientnet.py`` without its
+space-to-depth front: MBConv + squeeze-excite, SiLU, BatchNorm eps 1e-3, and
+TF ``'SAME'`` padding. ``EfficientNetEncoder(fused_blocks=N)`` runs the first
+N MBConv blocks through the fused kernel (``ops/cuda_mbconv``) in eval mode. At stride 2
 SAME padding is asymmetric (480 -> 240 with k=3 pads (0, 1), with k=5
 (1, 2)); a symmetric ``padding=k//2`` would shift every stride-2 output by
 a pixel, so :class:`Conv2dSame` pads explicitly and convolves unpadded.
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import cuda_mbconv
 from ..ops.norms import BatchNorm2d
 from ..ops.quant import QConv
 
@@ -95,12 +97,23 @@ class MBConv(nn.Module):
 
     The SE squeeze width is ``int(in_ch * se_ratio)`` of the block input,
     not of the expanded width.
+
+    ``fused=True`` (eval mode only, a block with squeeze-excitation) computes
+    the same function through ``ops/cuda_mbconv.fused_mbconv``: the three BNs
+    folded into the convs, the folded weights cast to the activation dtype;
+    the hand-written CUDA kernel on a CUDA tensor, its plain version on the
+    CPU or with ``use_kernel = False``. Same parameters by name.
     """
 
     def __init__(self, in_channels: int, out_channels: int, expand_ratio: int, kernel: int,
-                 stride: int, se_ratio: float = 0.25):
+                 stride: int, se_ratio: float = 0.25, fused: bool = False):
         super().__init__()
         mid = in_channels * expand_ratio
+        self.kernel = kernel
+        self.stride = stride
+        self.fused = fused
+        self.use_kernel = True  # False: the fused block's plain version on any device
+        self._fold = None
         self.residual = stride == 1 and in_channels == out_channels
         if expand_ratio != 1:
             self.expand_conv = QConv(in_channels, mid, 1, bias=False)
@@ -114,7 +127,49 @@ class MBConv(nn.Module):
         self.project_conv = QConv(mid, out_channels, 1, bias=False)
         self.bn2 = BatchNorm2d(out_channels, _BN_EPS)
 
+    def _folded(self, dt: torch.dtype):
+        """``fused_mbconv``'s weight operands in ``dt``: the BNs folded as the
+        JAX package's ``MBConv._fused`` folds them (efficientnet.py:260), made
+        once and kept until a parameter or buffer changes (its storage, its
+        version counter, as ``QConv.quantized_weight`` keeps its codes)."""
+        tensors = list(self.parameters()) + list(self.buffers())
+        keep = not any(t.is_inference() for t in tensors)
+        key = (dt, tuple((t.device, t.data_ptr(), t._version) for t in tensors)) if keep else None
+        if keep and self._fold is not None and self._fold[0] == key:
+            return self._fold[1]
+
+        def bn(m):
+            return cuda_mbconv.fold_bn(m.weight, m.bias, m.running_mean, m.running_var, m.eps)
+
+        def mat(conv):  # (Cout, Cin, 1, 1) -> (Cin, Cout)
+            return conv.weight[:, :, 0, 0].t()
+
+        with torch.inference_mode(False), torch.no_grad():
+            if self.expand_conv is not None:
+                g0, b0 = bn(self.bn0)
+                we, be = (mat(self.expand_conv).float() * g0).to(dt).contiguous(), b0.to(dt)
+            else:
+                we = be = None
+            g1, b1 = bn(self.bn1)
+            wdw = (self.dw_conv.weight[:, 0].float() * g1[:, None, None]).permute(1, 2, 0)
+            g2, b2 = bn(self.bn2)
+            wp = (mat(self.project_conv).float() * g2).to(dt).contiguous()
+            se = self.se
+            ops = (we, be, wdw.to(dt).contiguous(), b1.to(dt),
+                   mat(se.reduce).to(dt).contiguous(), se.reduce.bias.to(dt),
+                   mat(se.expand).to(dt).contiguous(), se.expand.bias.to(dt), wp, b2.to(dt))
+        if keep:
+            self._fold = (key, ops, tensors)  # the tensors held, so no address is reused
+        return ops
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        fn = cuda_mbconv.fused_mbconv if self.use_kernel else cuda_mbconv.fused_mbconv_plain
+        return fn(x, *self._folded(x.dtype), kernel=self.kernel, stride=self.stride,
+                  residual=self.residual)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused and not self.training and self.se is not None:
+            return self._fused(x)
         h = x
         if self.expand_conv is not None:
             h = F.silu(self.bn0(self.expand_conv(h)))
@@ -131,23 +186,36 @@ class EfficientNetEncoder(nn.Module):
 
     _TAP_AFTER = (1, 2, 4, 6)
 
-    def __init__(self, variant: str = "b0", in_channels: int = 3):
+    def __init__(self, variant: str = "b0", in_channels: int = 3, fused_blocks: int = 0):
+        """``fused_blocks``: serving only, the first N MBConv blocks (the
+        high-resolution ones) run through the fused kernel in eval mode."""
         super().__init__()
+        self.fused_blocks = fused_blocks
         width, depth, _ = VARIANTS[variant]
         stem_ch = round_channels(32, width)
         self.stem_conv = Conv2dSame(in_channels, stem_ch, 3, stride=2, bias=False)
         self.stem_bn = BatchNorm2d(stem_ch, _BN_EPS)
         self.stages: List[List[str]] = []
         ch = stem_ch
+        block_idx = 0
         for stage_i, (e, k, s, c, r) in enumerate(_B0_STAGES):
             out_ch = round_channels(c, width)
             names = []
             for j in range(round_repeats(r, depth)):
                 name = f"stage{stage_i}_block{j}"
-                self.add_module(name, MBConv(ch, out_ch, e, k, s if j == 0 else 1))
+                self.add_module(name, MBConv(ch, out_ch, e, k, s if j == 0 else 1,
+                                             fused=block_idx < fused_blocks))
                 names.append(name)
                 ch = out_ch
+                block_idx += 1
             self.stages.append(names)
+
+    def set_fused_kernels(self, use_kernel: bool) -> None:
+        """``False`` routes the fused blocks through their plain version on
+        any device (the path a GPU run holds the kernel against)."""
+        for m in self.modules():
+            if isinstance(m, MBConv):
+                m.use_kernel = use_kernel
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         h = F.silu(self.stem_bn(self.stem_conv(x)))

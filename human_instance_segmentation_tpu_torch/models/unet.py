@@ -8,13 +8,19 @@ segmentation head with bias.
 
 ``pallas_tail=True`` (the JAX flag's name) computes the last decoder stage
 and the seg head as one fused unit, ``ops/cuda_tail.tail``: a hand-written
-CUDA kernel on a CUDA tensor, its plain version on the CPU. The parameters
-are the same by name, so checkpoints swap between the two forms.
+CUDA kernel on a CUDA tensor, its plain version on the CPU. Under int8
+serving with the three calibrated scales of the tail (``<path>/decoder4#x``,
+``<path>/decoder4#mid``, ``<path>#head``, recorded by a calibration pass) the
+unit is ``ops/cuda_tail.tail_q``, its s8 form; without them it stays the
+float one, as in the JAX package. ``encoder_fused_blocks=N`` runs the first N
+encoder blocks through the fused MBConv kernel in eval mode. The parameters
+are the same by name, so checkpoints swap between the forms.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,8 +50,14 @@ class DecoderBlock(nn.Module):
         self.conv1 = QConv(features, features, 3, padding=1, bias=False)
         self.bn1 = BatchNorm2d(features)
 
-    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor],
+                sow: Optional[Callable[[str, torch.Tensor], None]] = None) -> torch.Tensor:
+        """``sow(tag, tensor)``, when given, is handed the block's input
+        (``"x"``) and conv1's input (``"mid"``): the calibration points of
+        the fused tail."""
         h, w = x.shape[2:]
+        if sow is not None:
+            sow("x", x)
         if self.upsample_mode == "nearest":
             x = upsample_2x_nearest(x, _NCHW)
         else:
@@ -55,6 +67,8 @@ class DecoderBlock(nn.Module):
                 x = resize_bilinear(x, skip.shape[2], skip.shape[3], axes=_NCHW)
             x = torch.cat([x, skip], dim=1)
         x = F.relu(self.bn0(self.conv0(x)))
+        if sow is not None:
+            sow("mid", x)
         return F.relu(self.bn1(self.conv1(x)))
 
 
@@ -66,15 +80,21 @@ class PeopleSegmentationUNet(nn.Module):
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16), classes: int = 1,
                  normalize_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406),
                  normalize_std: Tuple[float, float, float] = (0.229, 0.224, 0.225),
-                 upsample_mode: str = "bilinear", pallas_tail: bool = False):
+                 upsample_mode: str = "bilinear", pallas_tail: bool = False,
+                 encoder_fused_blocks: int = 0):
         super().__init__()
         self.classes = classes
         self.upsample_mode = upsample_mode
         self.pallas_tail = pallas_tail
         self.tail_use_kernel = True  # False: the fused tail's plain version on any device
+        # (s_x, s_mid, s_head) of the s8 tail, set by ops.quant.set_int8_serving
+        self.tail_scales: Optional[Tuple[float, float, float]] = None
+        # {(sub-path, tag): [abs-max, ...]} while ops.quant.calibration records
+        self.calib_tags: Optional[Dict[Tuple[str, str], list]] = None
+        self._tail_q = None  # (key, weights kept alive, packed operands)
         self.normalize_mean = tuple(normalize_mean)
         self.normalize_std = tuple(normalize_std)
-        self.encoder = EfficientNetEncoder(encoder_variant)
+        self.encoder = EfficientNetEncoder(encoder_variant, fused_blocks=encoder_fused_blocks)
         taps = encoder_feature_channels(encoder_variant)
         skips = list(taps[:-1])[::-1]  # s16, s8, s4, s2
         ch = taps[-1]
@@ -85,26 +105,55 @@ class PeopleSegmentationUNet(nn.Module):
             ch = out_ch
         self.seg_head = nn.Conv2d(ch, classes, 3, padding=1)
 
-    def _tail_active(self, last_skip: Optional[torch.Tensor]) -> bool:
-        """Whether the fused tail replaces the last stage: what is semantic
-        of the JAX gate (eval mode, bilinear upsample, a skip-free last
-        stage, one class), without its TPU tiling conditions."""
+    @property
+    def _last(self) -> DecoderBlock:
+        return getattr(self, f"decoder{self.n_decoders - 1}")
+
+    def set_tail_scales(self, scales: Optional[Dict[str, float]], path: str) -> None:
+        """Take the s8 tail's three calibrated scales from a scale dict keyed
+        as the JAX package keys them (``path`` is this module's path, ``/``
+        separated); ``None`` where one is missing (models/unet.py:382)."""
+        pfx = path + "/" if path else ""
+        stage = f"{pfx}decoder{self.n_decoders - 1}"
+        got = tuple((scales or {}).get(k) for k in (f"{stage}#x", f"{stage}#mid", f"{path}#head"))
+        self.tail_scales = None if None in got else got
+
+    def _sow(self, sub: str, tag: str, x: torch.Tensor) -> None:
+        self.calib_tags.setdefault((sub, tag), []).append(x.abs().amax().to(torch.float32))
+
+    def _tail_form(self, last_skip: Optional[torch.Tensor]) -> Optional[str]:
+        """Which fused tail replaces the last stage: ``None``, ``"float"`` or
+        ``"int8"``. What is semantic of the JAX gate (eval mode, bilinear
+        upsample, a skip-free last stage, one class, no calibration pass),
+        without its TPU tiling conditions; int8 when the stage's convs run
+        int8 and the three scales are there."""
         if not (self.pallas_tail and not self.training and self.upsample_mode == "bilinear"
                 and last_skip is None and self.classes == 1):
-            return False
-        last = getattr(self, f"decoder{self.n_decoders - 1}")
-        if last.conv0.calib_amax is not None:
-            return False  # a calibration pass records the unfused convs' inputs
-        if last.conv0.runs_int8 or last.conv1.runs_int8:
-            raise NotImplementedError(
-                "pallas_tail with int8 serving needs the s8 fused tail "
-                "(the JAX package's ops/pallas_tail_q.py::tail_with_borders_q), which is not "
-                "ported yet; serve pallas_tail in float32/bfloat16 or int8 without it")
-        return True
+            return None
+        last = self._last
+        if last.conv0.calib_amax is not None or self.calib_tags is not None:
+            return None  # a calibration pass records the unfused stage's ranges
+        if last.conv0.runs_int8 and last.conv1.runs_int8 and self.tail_scales is not None:
+            return "int8"
+        return "float"
 
-    def _fused_tail(self, h: torch.Tensor) -> torch.Tensor:
+    def _tail_q_operands(self, operands, dtype: torch.dtype):
+        """The s8 tail's packed kernel operands, made once and kept until a
+        weight, a BN statistic or a scale changes."""
+        tensors = [operands[0], *operands[1], operands[2], *operands[3], *operands[4:]]
+        if any(t.is_inference() for t in tensors):
+            return None
+        key = (dtype, self.tail_scales,
+               tuple((t.device, t.data_ptr(), t._version) for t in tensors))
+        if self._tail_q is None or self._tail_q[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                wq = cuda_tail.build_tail_weights_q(*operands, *self.tail_scales)
+                self._tail_q = (key, tensors, cuda_tail.pack_tail_weights_q(wq))
+        return self._tail_q[2]
+
+    def _fused_tail(self, h: torch.Tensor, form: str) -> torch.Tensor:
         """Decoder output (B, Ci, h, w) -> dense logits (B, 2h, 2w)."""
-        last = getattr(self, f"decoder{self.n_decoders - 1}")
+        last = self._last
 
         def hwio(conv):
             return conv.weight.permute(2, 3, 1, 0)
@@ -112,9 +161,16 @@ class PeopleSegmentationUNet(nn.Module):
         def bn(m):
             return (m.weight, m.bias, m.running_mean, m.running_var)
 
+        operands = (hwio(last.conv0), bn(last.bn0), hwio(last.conv1), bn(last.bn1),
+                    hwio(self.seg_head), self.seg_head.bias)
+        x = h.permute(0, 2, 3, 1)
+        if form == "int8":
+            if not self.tail_use_kernel:
+                return cuda_tail.tail_q_plain(x, *operands, *self.tail_scales)
+            packed = self._tail_q_operands(operands, h.dtype) if h.is_cuda else None
+            return cuda_tail.tail_q(x, *operands, *self.tail_scales, packed=packed)
         fn = cuda_tail.tail if self.tail_use_kernel else cuda_tail.tail_plain
-        return fn(h.permute(0, 2, 3, 1), hwio(last.conv0), bn(last.bn0), hwio(last.conv1),
-                  bn(last.bn1), hwio(self.seg_head), self.seg_head.bias)
+        return fn(x, *operands)
 
     def forward(self, images: torch.Tensor, raw: bool = False):
         """Logits (B, classes, H, W). With ``raw=True`` returns ``(form,
@@ -129,10 +185,18 @@ class PeopleSegmentationUNet(nn.Module):
         h = feats[-1]
         for i in range(self.n_decoders):
             skip = skips[i] if i < len(skips) else None
-            if i == self.n_decoders - 1 and self._tail_active(skip):
-                y = self._fused_tail(h)
+            last = i == self.n_decoders - 1
+            form = self._tail_form(skip) if last else None
+            if form is not None:
+                y = self._fused_tail(h, form)
                 return ("dense", y) if raw else y[:, None]
-            h = getattr(self, f"decoder{i}")(h, skip)
+            name = f"decoder{i}"
+            sow = None
+            if last and self.pallas_tail and self.calib_tags is not None:
+                sow = functools.partial(self._sow, name)  # the s8 tail's calibration points
+            h = getattr(self, name)(h, skip, sow)
+            if sow is not None:
+                self._sow("", "head", h)
         y = self.seg_head(h)
         return ("plain", y) if raw else y
 

@@ -67,6 +67,24 @@ SIGNATURES = {
                     _I, _P],
     # Cp -> bytes of shared memory the tail kernel needs (not a launcher)
     "tail_smem_bytes_for": [_I],
+    # x and its element strides (batch, channel, row, column), we, be, wdw (k*k, Cm), bdw,
+    # se (B, Cm), wp, bp, out and its strides, partial (B, tiles, Cm) f32, B, Ci, Cm, Co, H, W,
+    # k, stride, residual, apply (0 sums pass, 1 apply pass), dtype (0 f32, 1 bf16), stream
+    "mbconv_launch": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # Ci, Co, k, stride, sizeof(T), expand, apply -> bytes of shared memory (not a launcher)
+    "mbconv_smem_bytes_for": [_I, _I, _I, _I, _I, _I, _I],
+    # Ho, Wo -> tiles per image, the middle extent of partial (not a launcher)
+    "mbconv_tiles_for": [_I, _I],
+    # x and its element strides (batch, row, column, channel), xq (B, h, w, Ci) int8,
+    # float32(1 / s_x), B, h, w, Ci, dtype (0 f32, 1 bf16), stream
+    "tail_q_quantize_launch": [_P, _L, _L, _L, _L, _P, _F, _I, _I, _I, _I, _I, _P],
+    # xq, w0 / w1 / wh codes and the float32 parameters as
+    # ops/cuda_tail.pack_tail_weights_q lays them out, out (B, 2h, 2w), B, h, w, Ci, Cip, Cp,
+    # out dtype (0 f32, 1 bf16), stream
+    "tail_q_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # Cip, Cp -> bytes of shared memory the int8 tail kernel needs (not a launcher)
+    "tail_q_smem_bytes_for": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

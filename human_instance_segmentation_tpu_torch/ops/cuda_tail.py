@@ -23,16 +23,45 @@ every intermediate stays float32; the logit is rounded once to ``x``'s
 dtype. In bfloat16 this is closer to the float32 result than the unfused
 chain the model runs with ``pallas_tail=False``, which rounds to bfloat16
 after the upsample, each conv and each BN.
+
+Int8 form (:func:`tail_q`, counterpart of ``ops/pallas_tail_q.py::
+tail_with_borders_q``; kernel ``csrc/tail_q.cu``, plain version
+:func:`tail_q_plain`): the same chain with three s8 x s8 -> s32 convs and
+calibrated static activation scales ``s_x``, ``s_mid``, ``s_head``:
+
+1. ``xq = clip(round(x * float32(1 / s_x)), -127, 127)`` unless x is int8;
+2. conv0 is the composition of the upsample with ``k0 * bn0's scale``: four
+   3x3 kernels on x's own grid, one per output parity, zero padding on that
+   grid, quantized with one scale per (parity, output channel)
+   (:func:`build_tail_weights_q`; composed in float64 and rounded once); the
+   s32 sum times ``s_x * sw0``, plus BN0's shift, ReLU;
+3. requantize with ``1 / s_mid``; conv1 with ``k1 * bn1's scale`` quantized
+   per output channel, times ``s_mid * sw1``, plus BN1's shift, ReLU;
+4. requantize with ``1 / s_head``; the head with one weight scale, times
+   ``s_head * swh``, plus ``bh``;
+5. the outer six rows and columns of the map are not int8: they are the float
+   tail (:func:`tail` / :func:`tail_plain`, un-quantized weights) of the
+   dequantized input ``xq * s_x``, computed on four edge strips (the first and
+   last 8 rows and columns of x, two launches of the float kernel) and written
+   over the int8 map's border;
+6. the result is in ``out_dtype``, else x's dtype, bfloat16 for an int8 x.
+
+Integer sums are exact and every float step after them is one correctly
+rounded float32 operation in the kernel and in the plain version, so the two
+are equal in the interior; the border differs as the float kernel differs
+from its plain version.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .quant import _div, quantize_symmetric, s8_conv_plain
+from .s2d import quantize_static
 from .sampling import upsample_2x_bilinear
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,7 +72,11 @@ BN_EPS = 1e-5
 
 BatchNormParams = Sequence[torch.Tensor]  # (scale, bias, mean, var), each (C,)
 
-__all__ = ["tail", "tail_plain", "fold_bn"]
+BORDER = 6   # outer rows and columns of the int8 map that are float
+_STRIP = 8   # input rows and columns whose float tail covers the border
+
+__all__ = ["tail", "tail_plain", "fold_bn", "tail_q", "tail_q_plain", "build_tail_weights_q",
+           "pack_tail_weights_q", "compose_up_conv", "TailWeightsQ"]
 
 
 def fold_bn(bn: BatchNormParams, eps: float = BN_EPS) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -138,3 +171,225 @@ def tail(x: torch.Tensor, k0: torch.Tensor, bn0: BatchNormParams, k1: torch.Tens
 
 
 tail.launches = 0
+
+
+# ---- int8 form -------------------------------------------------------------
+
+# 2x half-pixel bilinear upsample, output 2i + f of source i: {source offset: weight}
+_UP = {-1: {-1: 0.75, 0: 0.25}, 0: {-1: 0.25, 0: 0.75}, 1: {0: 0.75, 1: 0.25},
+       2: {0: 0.25, 1: 0.75}}
+
+
+class TailWeightsQ(NamedTuple):
+    """:func:`build_tail_weights_q`'s result. ``w0q`` (3, 3, Ci, 4, C) int8:
+    the composed conv0 on x's grid, axis 3 the output parity ``2 py + px``;
+    ``g0`` (4, C) = ``s_x * sw0``; ``w1q`` (3, 3, C, C), ``g1`` (C,) = ``s_mid
+    * sw1``; ``whq`` (3, 3, C, 1), ``gh`` (1,) = ``s_head * swh``; ``b0``,
+    ``b1`` (C,) the BN shifts, ``bh`` (1,); all float32 but the codes."""
+    w0q: torch.Tensor
+    g0: torch.Tensor
+    b0: torch.Tensor
+    w1q: torch.Tensor
+    g1: torch.Tensor
+    b1: torch.Tensor
+    whq: torch.Tensor
+    gh: torch.Tensor
+    bh: torch.Tensor
+    s_x: float
+    s_mid: float
+    s_head: float
+
+
+def compose_up_conv(k: torch.Tensor) -> torch.Tensor:
+    """Fold the 2x bilinear upsample into a following 3x3 conv: k (3, 3, Ci,
+    Co) float64 -> (3, 3, Ci, 4, Co) over the source grid, ``y[2i + py, 2j +
+    px] = sum_delta K[delta, :, 2 py + px] x[(i, j) + delta]`` away from the
+    source's edge (the JAX package's ``ops/s2d.py::compose_up_conv_kernel``)."""
+    fac = torch.zeros((2, 3, 3), dtype=torch.float64)  # [parity, tap d + 1, source offset + 1]
+    for a in range(2):
+        for d in (-1, 0, 1):
+            for delta, wt in _UP[a + d].items():
+                fac[a, d + 1, delta + 1] += wt
+    fac = fac.to(k.device)
+    return torch.einsum("yxio,ayY,bxX->YXiabo", k, fac, fac).reshape(3, 3, k.shape[2], 4,
+                                                                     k.shape[3])
+
+
+def _quantize_out_channels(w: torch.Tensor, keep: Tuple[int, ...]):
+    """int8 codes and float32 scales ``max(|w|, 1e-8) / 127`` over every axis
+    not in ``keep`` (pallas_tail_q.py:66)."""
+    red = tuple(i for i in range(w.dim()) if i not in keep)
+    sw = _div(w.abs().amax(dim=red, keepdim=True).clamp_min(1e-8), 127.0)
+    return quantize_symmetric(w, sw), sw.reshape([w.shape[i] for i in keep])
+
+
+def build_tail_weights_q(k0, bn0, k1, bn1, kh, bh, s_x: float, s_mid: float,
+                         s_head: float) -> TailWeightsQ:
+    """The int8 tail's weight codes and dequantization scales
+    (pallas_tail_q.py:78, without its patch-matrix layouts). The composed
+    conv0 weights are built in float64 and rounded to float32 once, then
+    quantized as the JAX package quantizes its float32 ones."""
+    f32, f64 = torch.float32, torch.float64
+    s0, t0 = fold_bn(bn0)
+    s1, t1 = fold_bn(bn1)
+    w0 = (compose_up_conv(k0.to(f64)) * s0.to(f64)).to(f32)
+    w0q, sw0 = _quantize_out_channels(w0, (3, 4))
+    w1q, sw1 = _quantize_out_channels(k1.to(f32) * s1, (3,))
+    whq, swh = _quantize_out_channels(kh.to(f32), ())
+
+    def scale(s, sw):
+        return torch.full((1,), s, dtype=f32, device=sw.device) * sw
+
+    return TailWeightsQ(w0q, scale(s_x, sw0), t0, w1q, scale(s_mid, sw1), t1, whq,
+                        scale(s_head, swh.reshape(1)), bh.to(f32).reshape(1), float(s_x),
+                        float(s_mid), float(s_head))
+
+
+def _edge_dtype(x: torch.Tensor, out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    if out_dtype is not None:
+        return out_dtype
+    return torch.bfloat16 if x.dtype == torch.int8 else x.dtype
+
+
+def _check_q(x, k0, bn0, k1, bn1, kh, bh, out_dtype) -> torch.dtype:
+    _check(x, k0, bn0, k1, bn1, kh, bh)
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise TypeError(f"tail_q takes float32, bfloat16 or int8 input, got {x.dtype}")
+    edge = _edge_dtype(x, out_dtype)
+    if edge not in _DTYPES:
+        raise TypeError(f"tail_q writes float32 or bfloat16, got {edge}")
+    return edge
+
+
+def _write_border(out: torch.Tensor, xq: torch.Tensor, s_x: float, float_tail, ops) -> None:
+    """Overwrite the outer ``BORDER`` rows and columns of ``out`` (B, 2h, 2w)
+    with the float tail of the dequantized edge strips of ``xq`` (B, h, w, Ci)
+    (left and right first, then top and bottom, as the JAX package merges
+    them; the strips agree where they overlap)."""
+    b = xq.shape[0]
+    sx = torch.full((1,), s_x, dtype=torch.float32, device=xq.device)
+
+    def strips(lo, hi):
+        deq = (torch.cat([lo, hi]).to(torch.float32) * sx).to(out.dtype)
+        y = float_tail(deq, *ops)
+        return y[:b], y[b:]
+
+    left, right = strips(xq[:, :, :_STRIP], xq[:, :, -_STRIP:])
+    out[:, :, :BORDER] = left[:, :, :BORDER]
+    out[:, :, -BORDER:] = right[:, :, -BORDER:]
+    top, bottom = strips(xq[:, :_STRIP], xq[:, -_STRIP:])
+    out[:, :BORDER] = top[:, :BORDER]
+    out[:, -BORDER:] = bottom[:, -BORDER:]
+
+
+def _dequant(acc: torch.Tensor, g: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """int32 sums -> float32: one multiply, one add, each rounded once."""
+    return acc.to(torch.float32) * g + shift
+
+
+def tail_q_plain(x: torch.Tensor, k0, bn0, k1, bn1, kh, bh, s_x: float, s_mid: float,
+                 s_head: float, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`tail_q` in plain PyTorch (any device): exact integer convs
+    (float64 sums of the integer tensors), the float steps one tensor op
+    each, the border from :func:`tail_plain`."""
+    edge = _check_q(x, k0, bn0, k1, bn1, kh, bh, out_dtype)
+    wq = build_tail_weights_q(k0, bn0, k1, bn1, kh, bh, s_x, s_mid, s_head)
+    b, h, w, ci = x.shape
+    c = k0.shape[3]
+    xq = x.contiguous() if x.dtype == torch.int8 else quantize_static(x, s_x)
+    acc = s8_conv_plain(xq, wq.w0q.reshape(3, 3, ci, 4 * c), padding=1)
+    y = F.relu(_dequant(acc.reshape(b, h, w, 4, c), wq.g0, wq.b0))
+    yq = quantize_static(y, s_mid).reshape(b, h, w, 2, 2, c)
+    yq = yq.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, c)  # the four parities interleaved
+    y = F.relu(_dequant(s8_conv_plain(yq, wq.w1q, padding=1), wq.g1, wq.b1))
+    yq = quantize_static(y, s_head)
+    out = _dequant(s8_conv_plain(yq, wq.whq, padding=1)[..., 0], wq.gh, wq.bh).to(edge)
+    _write_border(out, xq, s_x, tail_plain, (k0, bn0, k1, bn1, kh, bh))
+    return out
+
+
+def _pack_rows(wq: torch.Tensor, cs: int, n_pad: int) -> torch.Tensor:
+    """(3, 3, Cin, N) codes -> [3][ks][n_pad][32] as ``csrc/tail_q.cu`` reads
+    them: within kernel row dy the contraction index is dx * cs + channel,
+    zero codes past Cin, past the third tap and past N."""
+    _, _, cin, n = wq.shape
+    ks = -(-3 * cs // 32)
+    rows = torch.zeros((3, 3, cs, n_pad), dtype=torch.int8, device=wq.device)
+    rows[:, :, :cin, :n] = wq
+    flat = torch.zeros((3, ks * 32, n_pad), dtype=torch.int8, device=wq.device)
+    flat[:, :3 * cs] = rows.reshape(3, 3 * cs, n_pad)
+    return flat.reshape(3, ks, 32, n_pad).permute(0, 1, 3, 2).contiguous()
+
+
+def pack_tail_weights_q(wq: TailWeightsQ):
+    """The kernel's operands: (w0, w1, wh int8 as :func:`_pack_rows` lays
+    them out, float32 parameters g0 (4 Cp) | b0 | g1 | b1 (Cp each) | gh, bh,
+    1 / s_mid, 1 / s_head), with Cip and Cp = Ci and C rounded up to 16."""
+    ci, c = wq.w0q.shape[2], wq.w0q.shape[4]
+    cip, cp = -(-ci // 16) * 16, -(-c // 16) * 16
+    dev = wq.w0q.device
+    w0 = torch.zeros((3, 3, ci, 4, cp), dtype=torch.int8, device=dev)
+    w0[..., :c] = wq.w0q
+    fp = torch.zeros(7 * cp + 4, dtype=torch.float32, device=dev)
+    fp[:4 * cp].view(4, cp)[:, :c] = wq.g0
+    for i, v in enumerate((wq.b0, wq.g1, wq.b1)):
+        fp[(4 + i) * cp:(4 + i) * cp + c] = v
+    fp[7 * cp:] = torch.cat([wq.gh, wq.bh, torch.tensor(
+        [1.0 / wq.s_mid, 1.0 / wq.s_head], dtype=torch.float32, device=dev)])
+    return (_pack_rows(w0.reshape(3, 3, ci, 4 * cp), cip, 4 * cp), _pack_rows(wq.w1q, cp, cp),
+            _pack_rows(wq.whq, cp, 8), fp)
+
+
+def tail_q(x: torch.Tensor, k0, bn0, k1, bn1, kh, bh, s_x: float, s_mid: float, s_head: float,
+           out_dtype: Optional[torch.dtype] = None, packed=None) -> torch.Tensor:
+    """The int8 fused tail (module docstring). x (B, h, w, Ci) float32 or
+    bfloat16 with any strides, or int8 already quantized with ``s_x``;
+    operands as :func:`tail`; returns (B, 2h, 2w). ``packed`` is
+    :func:`pack_tail_weights_q`'s result for these weights and scales, made
+    earlier. A CPU tensor takes :func:`tail_q_plain`; a CUDA tensor launches
+    the kernels or raises."""
+    edge = _check_q(x, k0, bn0, k1, bn1, kh, bh, out_dtype)
+    if x.device.type == "cpu":
+        return tail_q_plain(x, k0, bn0, k1, bn1, kh, bh, s_x, s_mid, s_head, out_dtype)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"tail_q: no kernel for device {x.device}")
+    b, h, w, ci = x.shape
+    c = k0.shape[3]
+    cip, cp = -(-ci // 16) * 16, -(-c // 16) * 16
+    if cp > 32:
+        raise ValueError(f"tail_q: the kernel holds at most 32 channels per warp tile, got C={c}")
+    lib = _build.library()
+    need = lib.tail_q_smem_bytes_for(cip, cp)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"tail_q: Ci={ci} needs {need} bytes of shared memory per block, more "
+                         f"than the {_SMEM_LIMIT} a block can have")
+    if packed is None:
+        packed = pack_tail_weights_q(build_tail_weights_q(k0, bn0, k1, bn1, kh, bh, s_x, s_mid,
+                                                          s_head))
+    w0, w1, wh, fp = packed
+    ks0, ks1 = -(-3 * cip // 32), -(-3 * cp // 32)
+    want = ((3, ks0, 4 * cp, 32), (3, ks1, cp, 32), (3, ks1, 8, 32), (7 * cp + 4,))
+    dtypes = (torch.int8, torch.int8, torch.int8, torch.float32)
+    if tuple((tuple(t.shape), t.dtype) for t in packed) != tuple(zip(want, dtypes)) or any(
+            t.device != x.device or not t.is_contiguous() for t in packed):
+        raise ValueError(f"tail_q: packed operands must be contiguous int8 codes and float32 "
+                         f"parameters on x's device with shapes {want}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.int8:
+        xq = x.contiguous()
+    else:
+        xq = torch.empty((b, h, w, ci), dtype=torch.int8, device=x.device)
+        err = lib.tail_q_quantize_launch(x.data_ptr(), *x.stride(), xq.data_ptr(), 1.0 / s_x, b,
+                                         h, w, ci, _DTYPES[x.dtype], stream)
+        _build.check(err, "tail_q (quantize)")
+    out = torch.empty((b, 2 * h, 2 * w), dtype=edge, device=x.device)
+    err = lib.tail_q_launch(xq.data_ptr(), w0.data_ptr(), w1.data_ptr(), wh.data_ptr(),
+                            fp.data_ptr(), out.data_ptr(), b, h, w, ci, cip, cp, _DTYPES[edge],
+                            stream)
+    tail_q.launches += 1
+    _build.check(err, "tail_q")
+    _write_border(out, xq, s_x, tail, (k0, bn0, k1, bn1, kh, bh))
+    return out
+
+
+tail_q.launches = 0

@@ -308,12 +308,14 @@ def set_int8_serving(model: nn.Module, enabled: bool, scales: Optional[Dict[str,
     False routes the int8 convs through :func:`qconv2d_plain` on any device
     (the plain int8 path a GPU run is compared against)."""
     for name, m in model.named_modules():
+        key = name.replace(".", "/")
         if isinstance(m, QConv):
-            key = name.replace(".", "/")
             m.serving = enabled
             m.denied = int8_denied(key, deny)
             m.static_scale = scales.get(key) if scales else None
             m.use_kernel = kernel
+        elif hasattr(m, "set_tail_scales"):  # the UNet: its s8 tail's ``#x``, ``#mid``, ``#head``
+            m.set_tail_scales(scales if enabled else None, key)
 
 
 @contextlib.contextmanager
@@ -321,14 +323,28 @@ def calibration(model: nn.Module) -> Iterator[dict]:
     """Record the input abs-max of every eligible QConv under ``model``
     (denied or not) while the block runs. Yields a dict that, on exit, holds
     the JAX ``calib`` collection's nested form: module path parts down to an
-    ``amax`` leaf, a tuple of one value per call."""
+    ``amax`` leaf, a tuple of one value per call. A module with a
+    ``calib_tags`` attribute (the UNet, for its fused tail's points) gets a
+    dict to fill with ``{(sub-path, tag): [abs-max, ...]}``; these become
+    ``amax_<tag>`` leaves under the module's path and sub-path."""
     tree: dict = {}
-    qconvs = [(n, m) for n, m in model.named_modules() if isinstance(m, QConv)]
+    named = list(model.named_modules())
+    qconvs = [(n, m) for n, m in named if isinstance(m, QConv)]
+    tagged = [(n, m) for n, m in named if hasattr(m, "calib_tags")]
     for _, m in qconvs:
         m.calib_amax = []
+    for _, m in tagged:
+        m.calib_tags = {}
     try:
         yield tree
     finally:
+        for name, m in tagged:
+            for (sub, tag), values in m.calib_tags.items():
+                node = tree
+                for part in [p for p in name.split(".") + [sub] if p]:
+                    node = node.setdefault(part, {})
+                node["amax_" + tag] = tuple(float(v) for v in values)
+            m.calib_tags = None
         for name, m in qconvs:
             if m.calib_amax:
                 node = tree

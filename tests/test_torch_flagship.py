@@ -62,7 +62,7 @@ def pair(request):
     mode = request.param
     jmodel = JaxSegmenter(encoder_variant="tiny", stage1_upsample_mode=mode, **TINY)
     variables = _variables(jmodel, seed=3)
-    port = create_flagship(variant="tiny", stage1_upsample_mode=mode, seed=0, **TINY)
+    port = create_flagship(variant="tiny", device="cpu", stage1_upsample_mode=mode, seed=0, **TINY)
     load_jax_params(port, variables)
     images = np.random.default_rng(7).random((2, 64, 96, 3), dtype=np.float32)
     return jmodel, variables, port, images
@@ -87,7 +87,7 @@ def test_slice_matches_jax_fused_head(pair, monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(cuda_head, "conv_ln_act", spy)
-    engine = InferenceEngine(port, dilation_pixels=1, fused_head=True)
+    engine = InferenceEngine(port, device="cpu", dilation_pixels=1, fused_head=True)
     inst, binary = engine(images, ROIS)
     assert sorted(calls) == [1] + [3] * 7  # res2 x2 + proj + bottleneck x5
     calls.clear()
@@ -106,7 +106,7 @@ def test_slice_matches_jax_fused_head(pair, monkeypatch):
 
 def test_predict_nchw_and_buckets(pair):
     _, _, port, images = pair
-    engine = InferenceEngine(port, dilation_pixels=1)
+    engine = InferenceEngine(port, device="cpu", dilation_pixels=1)
     inst, binary = engine(images, ROIS)
     inst_c, binary_c = engine.predict_nchw(np.transpose(images, (0, 3, 1, 2)), ROIS)
     np.testing.assert_array_equal(inst_c, np.transpose(inst, (0, 3, 1, 2)))
@@ -141,6 +141,18 @@ def test_cuda_device_raises_without_cuda():
         pytest.skip("this machine has CUDA; the check is for CPU-only hosts")
     with pytest.raises(RuntimeError, match="CUDA"):
         create_flagship(variant="tiny", device="cuda", **TINY)
-    port = create_flagship(variant="tiny", **TINY)
+    port = create_flagship(variant="tiny", device="cpu", **TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(port, device="cuda")
+
+
+def test_entry_points_default_to_the_gpu():
+    """``create_flagship()`` without a device builds on the GPU, so on a host
+    without CUDA it raises instead of quietly running on the CPU; an engine
+    without a device serves on its model's device."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the check is for CPU-only hosts")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_flagship(variant="tiny", **TINY)
+    port = create_flagship(variant="tiny", device="cpu", **TINY)
+    assert InferenceEngine(port).device.type == "cpu"

@@ -50,7 +50,7 @@ def tiny(request):
     cfg = dict(TINY, mid_channels=request.param)
     jmodel = JaxSegmenter(encoder_variant="tiny", **cfg)
     variables = _variables(jmodel, seed=5)
-    port = create_flagship(variant="tiny", seed=0, **cfg)
+    port = create_flagship(variant="tiny", device="cpu", seed=0, **cfg)
     load_jax_params(port, variables)
     images = np.random.default_rng(11).random((2, 64, 96, 3), dtype=np.float32)
     jeng = JaxEngine(jmodel, variables, dilation_pixels=1, quantize="int8", fused_head=True)
@@ -61,7 +61,8 @@ def tiny(request):
 
 
 def test_calibration_keys_match_jax(tiny):
-    engine = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8", fused_head=True)
+    engine = InferenceEngine(tiny["port"], device="cpu",
+                             dilation_pixels=1, quantize="int8", fused_head=True)
     engine.calibrate(tiny["images"], ROIS)
     scales, jscales = engine.scales, tiny["jscales"]
     assert sorted(scales) == sorted(jscales)
@@ -110,7 +111,8 @@ def test_int8_slice_matches_jax(tiny, monkeypatch):
     n_fused = 7 + (7 if tiny["mid"] >= 256 else 0)
     assert sorted(jcalls) == [(3, True)] * n_fused
 
-    engine = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8", fused_head=True)
+    engine = InferenceEngine(tiny["port"], device="cpu",
+                             dilation_pixels=1, quantize="int8", fused_head=True)
     engine.scales = dict(jscales)
     before = quant.QConv.int8_calls
     inst, binary = engine(images, ROIS)
@@ -128,7 +130,7 @@ def test_int8_slice_matches_jax(tiny, monkeypatch):
     assert float(np.abs(binary - np.asarray(jbinary)).max()) <= jax_bin + 1e-3
     jax_agree = float((einst == np.asarray(jinst)).mean())
     assert float((inst == np.asarray(jinst)).mean()) >= jax_agree - 0.01
-    flat = InferenceEngine(tiny["port"], quantize="int8", fused_head=True)
+    flat = InferenceEngine(tiny["port"], device="cpu", quantize="int8", fused_head=True)
     flat.scales = dict(jscales)
     inst0, _ = flat(images, ROIS)
     assert float((inst0 == outs[0][0][:3]).mean()) >= 0.995
@@ -140,18 +142,20 @@ def test_int8_plain_path_and_dynamic_scales(tiny):
     the first ``__call__`` calibrates."""
     images = torch.from_numpy(tiny["images"])
     rois = torch.from_numpy(pad_rois(ROIS, 4))
-    served = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8", fused_head=True)
-    plain = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8", fused_head=True,
+    served = InferenceEngine(tiny["port"], device="cpu",
+                             dilation_pixels=1, quantize="int8", fused_head=True)
+    plain = InferenceEngine(tiny["port"], device="cpu",
+                            dilation_pixels=1, quantize="int8", fused_head=True,
                             kernels=False)
     for e in (served, plain):
         e.scales = dict(tiny["jscales"])
     a = served.forward(images, rois)[2]
     b = plain.forward(images, rois)[2]
     assert torch.equal(a, b)
-    fresh = InferenceEngine(tiny["port"], dilation_pixels=1, quantize="int8")
+    fresh = InferenceEngine(tiny["port"], device="cpu", dilation_pixels=1, quantize="int8")
     dyn = fresh.forward(images, rois)[2]
     assert fresh.scales is None and torch.isfinite(dyn).all()
     fresh(tiny["images"], ROIS)
     assert sorted(fresh.scales) == sorted(tiny["jscales"])
     with pytest.raises(ValueError, match="quantize"):
-        InferenceEngine(tiny["port"], quantize="int4")
+        InferenceEngine(tiny["port"], device="cpu", quantize="int4")

@@ -226,7 +226,7 @@ def flagship_pair():
     wrapper = variables["params"]["unet_wrapper"]["output_conv"]
     wrapper["kernel"] = np.asarray(wrapper["kernel"]) * 0.7 + 0.1
     variables = jax.tree.map(np.asarray, variables)
-    port = create_flagship(variant="tiny", seed=0, pallas_tail=True, **TINY)
+    port = create_flagship(variant="tiny", device="cpu", seed=0, pallas_tail=True, **TINY)
     load_jax_params(port, variables)
     images = rng.random((2, 64, 96, 3), dtype=np.float32)
     return jmodel, variables, port, images
@@ -239,7 +239,7 @@ def test_flagship_dense_branch_matches_jax_plain_path(flagship_pair):
         _, jaux = jax.jit(lambda v, x, r: jmodel.apply(v, x, r, train=False))(
             variables, jnp.asarray(images), jnp.asarray(ROIS))
     before = cuda_tail.tail.launches
-    inst, binary = InferenceEngine(port, dilation_pixels=1)(images, ROIS)
+    inst, binary = InferenceEngine(port, device="cpu", dilation_pixels=1)(images, ROIS)
     assert cuda_tail.tail.launches == before
     with torch.no_grad():
         _, aux = port(torch.from_numpy(images), torch.from_numpy(ROIS))
@@ -259,7 +259,7 @@ def test_person_prob_is_the_wrapper_softmax(flagship_pair, rng):
     """sigmoid((w0 - w1) x + (b0 - b1)) from the two-point probe equals
     softmax(wrapper(x))[channel 0] for any wrapper, bias included."""
     _, _, port, _ = flagship_pair
-    model = create_flagship(variant="tiny", seed=0, pallas_tail=True, **TINY)
+    model = create_flagship(variant="tiny", device="cpu", seed=0, pallas_tail=True, **TINY)
     with torch.no_grad():
         model.unet_wrapper.output_conv.weight.copy_(torch.tensor([0.9, -0.4]).reshape(2, 1, 1, 1))
         model.unet_wrapper.output_conv.bias.copy_(torch.tensor([0.3, -0.2]))
@@ -270,14 +270,16 @@ def test_person_prob_is_the_wrapper_softmax(flagship_pair, rng):
 
 def test_flagship_dense_branch_matches_its_plain_branch(flagship_pair):
     _, _, port, images = flagship_pair
-    plain = create_flagship(variant="tiny", seed=0, **TINY)
+    plain = create_flagship(variant="tiny", device="cpu", seed=0, **TINY)
     plain.load_state_dict(port.state_dict())
-    inst, binary = InferenceEngine(port, dilation_pixels=1, fused_head=True)(images, ROIS)
-    inst_p, binary_p = InferenceEngine(plain, dilation_pixels=1, fused_head=True)(images, ROIS)
+    inst, binary = InferenceEngine(port, device="cpu",
+                                   dilation_pixels=1, fused_head=True)(images, ROIS)
+    inst_p, binary_p = InferenceEngine(plain, device="cpu",
+                                       dilation_pixels=1, fused_head=True)(images, ROIS)
     np.testing.assert_allclose(binary, binary_p, atol=1e-5)
     assert float((inst == inst_p).mean()) >= 0.999
     # kernels=False reaches the tail's plain version through the engine
-    engine = InferenceEngine(port, dilation_pixels=1, kernels=False)
+    engine = InferenceEngine(port, device="cpu", dilation_pixels=1, kernels=False)
     engine(images, ROIS)
     assert port.pretrained_unet.tail_use_kernel is False
 
@@ -296,18 +298,48 @@ def test_calibration_pass_takes_the_unfused_stage(flagship_pair):
 
 
 def test_int8_with_pallas_tail_raises(flagship_pair):
-    """Until the s8 tail kernel is ported, int8 serving refuses the fused
-    tail instead of quietly running it in bfloat16 or unfused."""
+    """int8 serving of a ``pallas_tail`` model no longer raises: the engine
+    calibrates the tail's three scales and ends stage 1 in the s8 fused tail
+    (``tail_q``; its plain version here on the CPU), which stays close to the
+    float tail's binary mask; the model does the same when the serving
+    switches are set by hand, and takes the float tail while a scale is
+    missing."""
     _, _, port, images = flagship_pair
-    with pytest.raises(NotImplementedError, match="tail_with_borders_q"):
-        InferenceEngine(port, quantize="int8")
-    # the model refuses too when the serving switches are set by hand
-    quant.set_int8_serving(port, True)
+    calls = []
+    real_q, real_f = cuda_tail.tail_q, cuda_tail.tail
+    _, binary_f = InferenceEngine(port, device="cpu", dilation_pixels=1)(images, ROIS)
+    engine = InferenceEngine(port, device="cpu", dilation_pixels=1, quantize="int8")
+    cuda_tail.tail_q = lambda *a, **k: (calls.append("q"), real_q(*a, **k))[1]
+    cuda_tail.tail = lambda *a, **k: (calls.append("float"), real_f(*a, **k))[1]
     try:
-        with pytest.raises(NotImplementedError, match="tail_with_borders_q"), torch.no_grad():
-            port.pretrained_unet(torch.from_numpy(images).permute(0, 3, 1, 2))
+        inst, binary = engine(images, ROIS)
+        assert calls[0] == "q" and "person_prob_dense" not in engine.scales
+        assert {"pretrained_unet/decoder4#x", "pretrained_unet/decoder4#mid",
+                "pretrained_unet#head"} <= set(engine.scales)
+        assert inst.shape == (3, 32, 24, 1) and binary.shape == (2, 64, 96, 1)
+        assert np.abs(binary - binary_f).max() < 0.05
+        # the model, with the switches set by hand
+        x = torch.from_numpy(images).permute(0, 3, 1, 2)
+        quant.set_int8_serving(port, True, engine.scales)
+        with torch.no_grad():
+            form, y_q = port.pretrained_unet(x, raw=True)
+        assert form == "dense" and port.pretrained_unet.tail_scales is not None
+        del calls[:]
+        missing = {k: v for k, v in engine.scales.items() if k != "pretrained_unet#head"}
+        quant.set_int8_serving(port, True, missing)
+        with torch.no_grad():
+            form, y_f = port.pretrained_unet(x, raw=True)
+        assert form == "dense" and calls == ["float"]
+        quant.set_int8_serving(port, False)
+        with torch.no_grad():
+            ref = port.pretrained_unet(x, raw=True)[1]
+        assert port.pretrained_unet.tail_scales is None
+        scale = float(ref.abs().max())
+        assert float((y_f - ref).abs().max()) < 0.08 * scale  # the stages before it run s8
+        assert float((y_q - ref).abs().max()) < 0.08 * scale  # tests/test_pallas_tail_q.py:116
     finally:
+        cuda_tail.tail_q, cuda_tail.tail = real_q, real_f
         quant.set_int8_serving(port, False)
     # and int8 without the fused tail still serves
-    plain = create_flagship(variant="tiny", seed=0, **TINY)
-    InferenceEngine(plain, quantize="int8")
+    plain = create_flagship(variant="tiny", device="cpu", seed=0, **TINY)
+    InferenceEngine(plain, device="cpu", quantize="int8")

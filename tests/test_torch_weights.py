@@ -35,7 +35,7 @@ def _n_leaves(tree):
 
 
 def test_every_leaf_consumed_every_parameter_filled(tiny_variables):
-    port = create_flagship(variant="tiny", **TINY)
+    port = create_flagship(variant="tiny", device="cpu", **TINY)
     state = from_jax_params(tiny_variables, port)
     assert len(state) == _n_leaves(tiny_variables) == len(port.state_dict())
     load_jax_params(port, tiny_variables)
@@ -46,7 +46,7 @@ def test_every_leaf_consumed_every_parameter_filled(tiny_variables):
 @pytest.mark.parametrize("mutation", ["extra_leaf", "missing_leaf", "bad_shape", "unknown_leaf",
                                       "unknown_collection"])
 def test_mismatch_raises(tiny_variables, mutation):
-    port = create_flagship(variant="tiny", **TINY)
+    port = create_flagship(variant="tiny", device="cpu", **TINY)
     v = jax.tree.map(lambda a: a, tiny_variables)  # fresh containers, shared leaves
     head = v["params"]["head"]
     err = KeyError
