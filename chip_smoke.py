@@ -17,18 +17,22 @@ package beside the script; it imports nothing of JAX. Phases:
    ``mid_channels=256``;
 5. timing: batch 32 x 1 ROI forwards, kernel path vs plain path;
 6. int8 kernels (:func:`check_int8_kernels`): (a) the s8 conv (qconv2d)
-   against its plain version at the slice's shapes, max abs error 0; (b)
-   s8_matmul: the 256x256 all-ones probe and a 4096^3 GEMM, exact, timed
-   against the card's int8 peak; (c) conv_ln_act's int8 form against its
-   plain version at ``HEAD_SHAPE``;
+   against its plain version at ten shapes of the slice (both regimes of
+   the kernel, every ragged channel count; float, int8, unaligned, NCHW-memory
+   and strided inputs, with and without bias), max abs error 0, each timed
+   beside its bound and cuDNN's bf16 conv; (b) s8_matmul: the 256x256
+   all-ones probe and a 4096^3 GEMM, exact, timed against the card's int8
+   peak and ``torch._int_mm``; (c) conv_ln_act's int8 form against its plain
+   version at ``HEAD_SHAPE``, with its device time split by kernel;
 7. int8 slice (:func:`serve_int8`): (d) the flagship served with
    ``quantize="int8", fused_head=True`` in bf16 at mid 128 and 256, launch
    counts asserted per forward; (e) held against its plain path (the same
    graph, weights and scales with ``kernels=False`` and
    ``pallas_roi_align=False``) in float32 and bf16;
 8. (f) batch 32 x 1 ROI forwards, bf16 kernel path vs int8 kernel path,
-   and the int8 QConvs' share of stage-2 device time (``torch.profiler``,
-   with the 12 kernels that take the most device time);
+   the s8 convs' share of stage-2 device time (``torch.profiler``, with the
+   12 kernels that take the most device time), and for the int8 forward its
+   device time, kernels, idle share and launches per forward;
 9. tail and filters (:func:`check_tail_and_filters`): the fused stage-1
    tail, the bilateral filter and the edge smoothing against their plain
    versions at the slice's shapes (B0, 480x640, batch 32) and at ragged
@@ -69,6 +73,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -92,13 +97,22 @@ TOL_ROI_F32 = 1e-5
 ROI_BF16_RTOL = 2.0 ** -7  # one bf16 ulp of the output, relative
 TIMING_REPS = 20
 # s8 conv shapes of the served int8 slice (batch 32 x 1 ROI): N, H, W, Ci,
-# Co, k. bott_conv (3x3 at 384 on the 16x12 bottleneck); feature_combiner
-# (1x1, 258 = 256 RGB features + 2 logit channels); final_out (1x1, 48 -> 2
-# on the 64x48 ROI map); decoder4/conv0 (3x3, 32 -> 16 at 480x640).
+# Co, k; each regime of the kernel (wgmma for Co > 32, the one-launch kernel
+# below) and each ragged channel count. Stage 2: bott_conv (3x3 at 384 on the
+# 16x12 bottleneck), enc1_out (32x24 map), feature_combiner (1x1, 258 = 256
+# RGB features + 2 logit channels), tnt_res1 (the 128x96 mask map), the logit
+# heads final_out (48 -> 2) and contour/out (64 -> 1). Stage 1: the first
+# conv of the decoder stages 0, 2, 3 and 4 (30x40 up to 480x640).
 QCONV_SHAPES = {
     "bott_conv": (32, 16, 12, 384, 384, 3),
+    "enc1_out": (32, 32, 24, 96, 192, 3),
     "feature_combiner": (32, 64, 48, 258, 256, 1),
+    "tnt_res1": (32, 128, 96, 64, 64, 3),
     "final_out": (32, 64, 48, 48, 2, 1),
+    "contour/out": (32, 64, 48, 64, 1, 1),
+    "decoder0/conv0": (32, 30, 40, 432, 256, 3),
+    "decoder2/conv0": (32, 120, 160, 152, 64, 3),
+    "decoder3/conv0": (32, 240, 320, 96, 32, 3),
     "decoder4/conv0": (32, 480, 640, 32, 16, 3),
 }
 # float32 kernel path vs plain path end to end: least instance agreement
@@ -131,7 +145,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
+def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 3, calls: int = 1) -> float:
+    """Median over ``reps`` CUDA-event timings of ``calls`` launches of ``fn``
+    in a row, per launch. One call between the events also counts the time the
+    host takes to reach the launch (what a caller of one op sees); with
+    several in a row the host runs ahead and the device time remains."""
     import torch
 
     for _ in range(warmup):
@@ -141,11 +159,34 @@ def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def device_ms_by_kernel(fn, reps: int = 10) -> dict:
+    """Device time per call of ``fn`` by kernel (``torch.profiler``), keyed by
+    the kernel's short name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            key = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            found = re.search(r"([A-Za-z_]\w*)\s*[<(]", key)
+            name = found.group(1) if found else e.key[:40]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
 
 
 def unfused_chain(x, w, b, gamma, beta):
@@ -900,24 +941,42 @@ def check_int8_kernels(card: str, rng) -> list:
     results = []
 
     # ---- (a) qconv2d at the slice's shapes: bitwise equal ---------------
-    timing, worst = None, 0.0
+    timing, worst, shapes = None, 0.0, {}
     for name, (n, h, w, ci, co, k) in QCONV_SHAPES.items():
         x32 = torch.tensor(rng.standard_normal((n, h, w, ci)), dtype=torch.float32, device=dev)
         w32 = torch.tensor(rng.standard_normal((k, k, ci, co)) / (k * k * ci) ** 0.5,
                            dtype=torch.float32, device=dev)
+        bias = torch.tensor(rng.standard_normal(co), dtype=torch.float32, device=dev)
         sx = float(x32.abs().max()) / 127.0 * 0.8  # some activations clip
         xq = quant.quantize_symmetric(x32, sx)
-        cases = [(torch.float32, "static", x32), (torch.bfloat16, "static", x32),
-                 (torch.bfloat16, "int8 input", xq), (torch.float32, "dynamic", x32),
-                 (torch.bfloat16, "int8 input, unaligned", unaligned(xq)),
-                 (torch.bfloat16, "static, unaligned", unaligned(x32.to(torch.bfloat16)))]
-        for dt, mode, xin in cases:
-            xin = xin if xin.dtype in (torch.int8, dt) else xin.to(dt)
+        xb, wb = x32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        wide = torch.empty((n, h, w, ci + 16), dtype=torch.bfloat16, device=dev)
+        wide[..., :ci] = xb
+        # (dtype, case, input, the case whose plain result it must equal, bias)
+        cases = [(torch.float32, "static", x32, None, None),
+                 (torch.bfloat16, "static", xb, None, None),
+                 (torch.bfloat16, "int8 input", xq, None, None),
+                 (torch.float32, "dynamic", x32, None, None),
+                 (torch.bfloat16, "int8 input, unaligned", unaligned(xq), "int8 input", None),
+                 (torch.bfloat16, "static, unaligned", unaligned(xb), "static", None),
+                 (torch.bfloat16, "static, NCHW memory",
+                  xb.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), "static", None),
+                 (torch.bfloat16, "static, pixel stride Ci + 16", wide[..., :ci], "static", None),
+                 (torch.bfloat16, "static, bias", xb, "static", bias)]
+        refs = {}
+        for dt, mode, xin, same_as, bs in cases:
             wt = w32.to(dt)
             scale = None if mode == "dynamic" else sx
-            got = quant.qconv2d(xin, wt, 1, k // 2, scale)
+            got = quant.qconv2d(xin, wt, 1, k // 2, scale, bias=bs)
             torch.cuda.synchronize()
-            ref = quant.qconv2d_plain(xin, wt, 1, k // 2, scale)
+            if same_as is None:
+                # the plain version on this very input; kept for the cases
+                # that feed the same values through another layout
+                ref = refs[(dt, mode)] = quant.qconv2d_plain(xin, wt, 1, k // 2, scale)
+            else:
+                ref = refs[(dt, same_as)]
+                if bs is not None:  # the order before the epilogue took it: a separate add
+                    ref = ref + bs.to(ref.dtype)
             err = (got.float() - ref.float()).abs().max().item()
             print(f"qconv2d {name} {tuple(xin.shape)}->{co} k={k} {dt} {mode}: "
                   f"max_abs_err={err:.3e} (tol 0)")
@@ -925,22 +984,42 @@ def check_int8_kernels(card: str, rng) -> list:
                 raise AssertionError(f"qconv2d {name} {dt} {mode}: {err}")
             worst = max(worst, err)
             del got, ref
-        xb = x32.to(torch.bfloat16)
-        wb = w32.to(torch.bfloat16)
-        kms = median_ms(lambda: quant.qconv2d(xb, wb, 1, k // 2, sx))
-        pms = median_ms(lambda: quant.qconv2d_plain(xb, wb, 1, k // 2, sx), reps=5, warmup=1)
+        del refs, wide
+        # timed as a QConv runs it: operands prepared once, bf16, static scale
+        ops = quant.s8_operands(quant.s8_weights(wb), sx, None, torch.bfloat16)
+        def conv():
+            return quant.qconv2d(xb, None, 1, k // 2, prepared=ops)
+
+        kms = median_ms(conv)  # one call between the events, as the earlier readings
+        sms = median_ms(conv, calls=10)  # launches in a row: the host runs ahead
         xc, wc = xb.permute(0, 3, 1, 2).contiguous(), wb.permute(3, 2, 0, 1).contiguous()
-        cms = median_ms(lambda: torch.nn.functional.conv2d(xc, wc, padding=k // 2))
-        perm = median_ms(lambda: xc.permute(0, 2, 3, 1).contiguous())
-        print(f"qconv2d {name} bf16 {tuple(xb.shape)}->{co} k={k}: kernel {kms:.4f} ms, plain "
-              f"(float64) {pms:.4f} ms, bf16 cuDNN conv (NCHW) {cms:.4f} ms, NCHW->NHWC "
-              f"permute of the input {perm:.4f} ms [{card}]")
+        cms = median_ms(lambda: torch.nn.functional.conv2d(xc, wc, padding=k // 2), calls=10)
+        xl, wl = xb.permute(0, 3, 1, 2), wc.contiguous(memory_format=torch.channels_last)
+        lms = median_ms(lambda: torch.nn.functional.conv2d(xl, wl, padding=k // 2), calls=10)
+        px = n * h * w
+        qbound = bound(px * ci * 2 + k * k * ci * co + px * co * 2, 2 * k * k * ci * co * px,
+                       "int8")
+        dev_ms = device_ms_by_kernel(conv)
+        shapes[name] = {"ms": sms, "single_call_ms": kms, "device_ms": sum(dev_ms.values()),
+                        **qbound, "cudnn_bf16_ms": min(cms, lms)}
+        print(f"qconv2d {name} bf16 {tuple(xb.shape)}->{co} k={k}: kernel {sms:.4f} ms (10 "
+              f"launches in a row; {kms:.4f} ms for one call between the events; device time "
+              f"{sum(dev_ms.values()):.4f} ms: { {k_: round(v, 4) for k_, v in dev_ms.items()} }), "
+              f"bound {qbound['bound_ms']:.4f} ms ({qbound['bound_by']}), bf16 cuDNN conv NCHW "
+              f"{cms:.4f} ms, channels-last {lms:.4f} ms [{card}]")
+        if name.startswith("decoder"):
+            # the stage-1 decoder hands conv0 the concatenation of the upsampled map and the
+            # skip, which lies in NCHW memory: read through its strides, no copy
+            xn = xb.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+            nms = median_ms(lambda: quant.qconv2d(xn, None, 1, k // 2, prepared=ops), calls=10)
+            shapes[name]["nchw_memory_ms"] = nms
+            print(f"qconv2d {name}: {nms:.4f} ms on the same values in NCHW memory [{card}]")
+            del xn
         if name == "decoder4/conv0":
-            timing = (kms, pms, cms)
-            px = n * h * w
-            qbound = bound(px * ci * 2 + 9 * ci * co * 2 + px * co * 2, 2 * 9 * ci * co * px,
-                           "int8")
-        del x32, w32, xq, xb, wb, xc, wc
+            pms = median_ms(lambda: quant.qconv2d_plain(xb, None, 1, k // 2, prepared=ops),
+                            reps=3, warmup=1)
+            timing = (sms, pms, min(cms, lms), qbound, kms)
+        del x32, w32, xq, xb, wb, xc, wc, xl, wl, ops
         torch.cuda.empty_cache()
 
     # ---- (b) s8_matmul: the probe and a 4096^3 GEMM ----------------------
@@ -949,24 +1028,39 @@ def check_int8_kernels(card: str, rng) -> list:
     torch.cuda.synchronize()
     if not bool((probe == 256).all()):
         raise AssertionError("s8_matmul 256x256 all-ones probe: not every entry is 256")
-    print("s8_matmul 256x256 all-ones probe: every entry 256")
+    pbound = bound(3 * 256 * 256 + 256 * 256 * 4, 2 * 256 ** 3, "int8")
+    print(f"s8_matmul 256x256 all-ones probe: every entry 256; "
+          f"{median_ms(lambda: quant.s8_matmul(ones, ones)):.4f} ms (bound "
+          f"{pbound['bound_ms']:.6f} ms by {pbound['bound_by']}) [{card}]")
     m = 4096
     a = torch.randint(-127, 128, (m, m), dtype=torch.int8, device=dev)
     b = torch.randint(-127, 128, (m, m), dtype=torch.int8, device=dev)
     got = quant.s8_matmul(a, b)
     torch.cuda.synchronize()
+    lib = torch._int_mm(a, b)  # the library's s8 GEMM: a yardstick here, never called by the port
     err = (got.to(torch.float64) - quant.s8_matmul_plain(a, b).to(torch.float64)).abs().max().item()
-    print(f"s8_matmul {m}^3: max_abs_err={err} (tol 0)")
-    if err != 0.0:
+    print(f"s8_matmul {m}^3: max_abs_err={err} (tol 0); equal to torch._int_mm: "
+          f"{bool(torch.equal(got, lib))}")
+    if err != 0.0 or not torch.equal(got, lib):
         raise AssertionError(f"s8_matmul {m}^3: {err}")
     worst = max(worst, err)
-    gms = median_ms(lambda: quant.s8_matmul(a, b))
+    packed = quant.pack_matmul_b(b)  # as a conv keeps its weights: packed once
+    gms = median_ms(lambda: quant.s8_matmul(a, b, packed), calls=10)
+    gms_one = median_ms(lambda: quant.s8_matmul(a, b, packed))
+    gms_pack = median_ms(lambda: quant.s8_matmul(a, b), calls=10)
     gpms = median_ms(lambda: quant.s8_matmul_plain(a, b), reps=5, warmup=1)
+    bt = b.t().contiguous().t()  # column-major b, the layout cuBLASLt's s8 GEMM reads
+    lms = min(median_ms(lambda: torch._int_mm(a, b), calls=10),
+              median_ms(lambda: torch._int_mm(a, bt), calls=10))
     tops = 2 * m ** 3 / (gms * 1e-3) / 1e12
+    gbound = bound(2 * m * m + 4 * m * m, 2 * m ** 3, "int8")
     print(f"s8_matmul {m}^3: kernel {gms:.4f} ms = {tops:.1f} TOPS "
           f"({100 * tops / INT8_PEAK_TOPS:.1f}% of the {INT8_PEAK_TOPS:.0f} TOPS dense int8 "
-          f"peak), plain (float64 GEMM) {gpms:.4f} ms [{card}]")
-    del a, b, got
+          f"peak; 10 launches in a row, as the library call beside it; {gms_one:.4f} ms for one "
+          f"call between the events; {gms_pack:.4f} ms when b is packed K-major at every call), bound "
+          f"{gbound['bound_ms']:.4f} ms ({gbound['bound_by']}), torch._int_mm {lms:.4f} ms "
+          f"(kernel / library {gms / lms:.2f}), plain (float64 GEMM) {gpms:.4f} ms [{card}]")
+    del a, b, bt, got, lib, packed
     results.append({"name": "qconv", "route": "cuda",
                     "source": "human_instance_segmentation_tpu_torch/csrc/qconv.cu",
                     "replaces": "scripts/exp_r4_probe.py:86",
@@ -974,8 +1068,12 @@ def check_int8_kernels(card: str, rng) -> list:
                     "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
                     # no PyTorch call runs an s8 conv on the card: the nearest
                     # library call is cuDNN's bf16 conv of the same shape
-                    "library_ms": timing[2], "library": "F.conv2d bf16 (cuDNN, NCHW), not s8",
-                    **qbound, "s8_matmul_4096_ms": gms, "s8_matmul_4096_tops": tops})
+                    "library_ms": timing[2],
+                    "library": "F.conv2d bf16 (cuDNN, best of NCHW and channels-last), not s8",
+                    **timing[3], "single_call_ms": timing[4], "shapes": shapes,
+                    "s8_matmul_4096_ms": gms,
+                    "s8_matmul_4096_tops": tops, "s8_matmul_4096_bound_ms": gbound["bound_ms"],
+                    "s8_matmul_4096_library_ms": lms, "s8_matmul_4096_library": "torch._int_mm"})
 
     # ---- (c) conv_ln_act, int8 form --------------------------------------
     n, h, w, c = HEAD_SHAPE
@@ -1006,14 +1104,30 @@ def check_int8_kernels(card: str, rng) -> list:
             raise AssertionError(f"conv_ln_act s8 k={k} res={res} {dt}: {err}")
         worst = max(worst, err)
         if (shape, k, res, dt) == (HEAD_SHAPE, 3, False, torch.bfloat16):  # the served form
-            kms = median_ms(lambda: cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w,
-                                                          xscale=xs))
+            # as the blocks run it: the int8 operands prepared once
+            ops = cuda_head.prepare_s8(wt, xs, b, g, be)
+            same = cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w, xscale=xs,
+                                         prepared=ops)
+            if not torch.equal(same, got):
+                raise AssertionError("conv_ln_act s8: prepared operands change the result")
+
+            def fused():
+                return cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w, xscale=xs,
+                                             prepared=ops)
+
+            kms = median_ms(fused)
+            each = median_ms(lambda: cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w,
+                                                           xscale=xs))
             pms = median_ms(lambda: cuda_head.conv_ln_act_plain(x, wt, b, g, be, xscale=xs))
             bms = median_ms(lambda: cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w))
             timing = (kms, pms)
-            print(f"conv_ln_act s8 bf16 k=3 {HEAD_SHAPE}->{c}: kernel {kms:.4f} ms, plain "
+            dev_ms = device_ms_by_kernel(fused)
+            print(f"conv_ln_act s8 bf16 k=3 {HEAD_SHAPE}->{c}: kernel {kms:.4f} ms "
+                  f"({each:.4f} ms when the weights are quantized at every call), plain "
                   f"{pms:.4f} ms, bf16 conv_ln_act kernel {bms:.4f} ms (median of "
-                  f"{TIMING_REPS}, CUDA events) [{card}]")
+                  f"{TIMING_REPS}, CUDA events); device time by kernel "
+                  f"{ {k_: round(v, 4) for k_, v in dev_ms.items()} } ms, the rest is the host "
+                  f"[{card}]")
     results.append({"name": "conv_ln_act_s8", "route": "cuda",
                     "source": "human_instance_segmentation_tpu_torch/csrc/conv_ln_act.cu",
                     "replaces": "human_instance_segmentation_tpu/ops/pallas_head.py:243",
@@ -1046,22 +1160,31 @@ def check_int8_calls(engine, images, rois) -> dict:
 
     from human_instance_segmentation_tpu_torch.ops import cuda_head, quant
 
-    real_q, real_c = quant.qconv2d, cuda_head.conv_ln_act
+    real_c = cuda_head.conv_ln_act
     seen = {"qconv": [0, 0.0], "conv_ln_act_s8": [0, 0.0]}
 
-    def qconv(x, w, stride=1, padding=0, static_scale=None, wq=None):
-        y = real_q(x, w, stride, padding, static_scale, wq)
-        ref = quant.qconv2d_plain(x, w, stride, padding, static_scale)  # weights quantized anew
-        err = (y.float() - ref.float()).abs().max().item()
+    def check_qconv(m, args, y):
+        x = args[0]
+        if not (m.runs_int8 or x.dtype == torch.int8):
+            return
+        # the plain version on the forward's own input, the weights quantized
+        # anew from the module's parameters, the bias added separately
+        dtype = m.weight.dtype if x.dtype == torch.int8 else x.dtype
+        ref = quant.qconv2d_plain(x.permute(0, 2, 3, 1), m.weight.to(dtype).permute(2, 3, 1, 0),
+                                  m.stride[0], m.padding[0], m.static_scale)
+        if m.bias is not None:
+            ref = ref + m.bias.to(ref.dtype)
+        err = (y.permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
         if y.dtype != ref.dtype or err != 0.0:
-            raise AssertionError(f"qconv2d {tuple(x.shape)}x{tuple(w.shape)} in the forward: {err}")
+            raise AssertionError(f"qconv2d {tuple(x.shape)} -> {m.out_channels} in the forward: "
+                                 f"{err}")
         seen["qconv"][0] += 1
-        return y
 
     def fused(*args, **kwargs):
         y = real_c(*args, **kwargs)
         if kwargs.get("xscale") is not None:
-            plain_kw = {k: v for k, v in kwargs.items() if k not in ("height", "width")}
+            plain_kw = {k: v for k, v in kwargs.items()
+                        if k not in ("height", "width", "prepared")}  # weights quantized anew
             ref = cuda_head.conv_ln_act_plain(*args, **plain_kw)
             diff = (y.float() - ref.float()).abs()
             atol, rtol = TOL_CONV[str(y.dtype).split(".")[1]]
@@ -1071,13 +1194,17 @@ def check_int8_calls(engine, images, rois) -> dict:
             seen["conv_ln_act_s8"][1] = max(seen["conv_ln_act_s8"][1], diff.max().item())
         return y
 
-    # the wrappers' own launch counters resolve to these names while patched
-    qconv.launches = fused.launches = 0
-    quant.qconv2d, cuda_head.conv_ln_act = qconv, fused
+    # the wrapper's own launch counter resolves to this name while patched
+    fused.launches = 0
+    hooks = [m.register_forward_hook(check_qconv) for m in engine.model.modules()
+             if isinstance(m, quant.QConv)]
+    cuda_head.conv_ln_act = fused
     try:
         engine(images, rois)
     finally:
-        quant.qconv2d, cuda_head.conv_ln_act = real_q, real_c
+        cuda_head.conv_ln_act = real_c
+        for hook in hooks:
+            hook.remove()
     torch.cuda.synchronize()
     return {k: tuple(v) for k, v in seen.items()}
 
@@ -1178,6 +1305,7 @@ def time_int8(served_bf16, served_int8, card: str, rng) -> None:
 
     from human_instance_segmentation_tpu_torch.inference import pad_rois
     from human_instance_segmentation_tpu_torch.models.blocks import set_head_fusion
+    from human_instance_segmentation_tpu_torch.ops import cuda_head, quant
     from human_instance_segmentation_tpu_torch.ops.quant import set_int8_serving
 
     batch = 32
@@ -1222,15 +1350,42 @@ def time_int8(served_bf16, served_int8, card: str, rng) -> None:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in events)
-    qconv = sum(e.self_device_time_total for e in events
-                if "conv_kernel" in e.key and ", 0>" in e.key)
-    fused = sum(e.self_device_time_total for e in events
-                if ("conv_kernel" in e.key and ", 1>" in e.key) or "ln_act_kernel" in e.key)
-    print(f"int8 stage 2 profile (3 calls): device total {total / 3e3:.3f} ms per call; qconv "
-          f"kernel {qconv / 3e3:.3f} ms ({100 * qconv / max(total, 1):.1f}%), conv_ln_act s8 "
-          f"{fused / 3e3:.3f} ms ({100 * fused / max(total, 1):.1f}%) [{card}]")
+    s8 = sum(e.self_device_time_total for e in events if "s8igemm" in e.key)
+    ln = sum(e.self_device_time_total for e in events if "ln_act_kernel" in e.key)
+    print(f"int8 stage 2 profile (3 calls): device total {total / 3e3:.3f} ms per call; s8 conv "
+          f"kernels (qconv2d and the fused unit's conv, staging included) {s8 / 3e3:.3f} ms "
+          f"({100 * s8 / max(total, 1):.1f}%), the fused unit's LayerNorm pass {ln / 3e3:.3f} ms "
+          f"({100 * ln / max(total, 1):.1f}%), {sum(e.count for e in events) // 3} kernels per "
+          f"call [{card}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 3e3:8.3f} ms/call  {e.count // 3:4d}x  {e.key[:90]}")
+
+    # the whole int8 forward: launches, kernels, device time, idle share
+    counters = {"qconv2d": quant.qconv2d, "conv_ln_act_s8": cuda_head.conv_ln_act_s8}
+    c0 = {k: f.launches for k, f in counters.items()}
+    q0 = quant.QConv.int8_calls
+    served_int8.forward(images_t, rois_t)
+    torch.cuda.synchronize()
+    counts = {k: f.launches - c0[k] for k, f in counters.items()}
+    counts["int8_calls"] = quant.QConv.int8_calls - q0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            served_int8.forward(images_t, rois_t)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 3e3
+    s8 = sum(e.self_device_time_total for e in events if "s8igemm" in e.key) / 3e3
+    for e in sorted((e for e in events if "s8igemm" in e.key),
+                    key=lambda e: -e.self_device_time_total):
+        print(f"  {e.self_device_time_total / 3e3:8.3f} ms/forward  {e.count // 3:4d}x  "
+              f"{e.key.replace('(anonymous namespace)::', '')[:100]}")
+    wall = statistics.median(fwd["int8"])
+    print(f"int8 forward profile (3 forwards): device busy {busy:.3f} ms per forward of "
+          f"{wall:.3f} ms wall ({100 * (1 - busy / wall):.1f}% idle), "
+          f"{sum(e.count for e in events) // 3} kernels per forward, s8 conv kernels {s8:.3f} ms; "
+          f"launches per forward: qconv2d.launches {counts['qconv2d']}, "
+          f"conv_ln_act_s8.launches {counts['conv_ln_act_s8']}, QConv.int8_calls "
+          f"{counts['int8_calls']} [{card}]")
 
 
 def serve_with_tail(card: str, rng) -> dict:
@@ -1665,6 +1820,13 @@ def main() -> None:
     for line in _build.build_log.splitlines():
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
+
+    from human_instance_segmentation_tpu_torch.ops import quant
+
+    for name, (_, _, _, ci, _, k) in QCONV_SHAPES.items():  # one layout, stated twice
+        if _build.library().s8_conv_packed_k(ci, k) != quant.packed_k(ci, k):
+            raise AssertionError(f"{name}: the wrapper and the kernel disagree on the packed "
+                                 "weight row")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -42,15 +42,18 @@
 //
 // The int8 form (conv_ln_act(xscale=...), pallas_head.py:178-187 and the
 // quantized branch of _kernel :103-106, :140-141) swaps stage (a) for the
-// s8 implicit-GEMM conv of s8_igemm.cuh: x is quantized once, into the
+// wide (wgmma) kernel of s8_igemm.cuh: x is quantized once, into the
 // staging buffer xq_ws, as round(x * inv) with inv = float32(1 / xscale)
-// (__fmul_rn, rintf, clip +-127), the weights arrive quantized per output
-// channel from the wrapper,
-// the tensor cores accumulate s8 x s8 in int32, and the epilogue writes
-// float(acc) * qscale[co] + b[co] (qscale = xscale * sw, each step rounded
-// once, as JAX's acc.astype(f32) * qscale + b) into the same float32
-// scratch. Stage (b) is unchanged. At the served shape the s8 conv does the
-// same 16.3 GFLOP-equivalent of work per call on the int8 tensor-core path.
+// (__fmul_rn, rintf, clip +-127); the weights arrive quantized per output
+// channel and packed K-major from the wrapper, which makes them once per
+// weight and scale (ops/cuda_head.py::prepare_s8); the tensor cores
+// accumulate s8 x s8 in int32, and the epilogue writes float(acc) *
+// qscale[co] + b[co] (qscale = xscale * sw, each step rounded once, as
+// JAX's acc.astype(f32) * qscale + b) from the accumulator registers into
+// the same float32 scratch. Stage (b) is unchanged. The 32 ROIs' 6,144
+// pixels are numbered across the batch, so the conv fills the card with
+// 64 x 96 tiles; at the served shape it is 16.3 GOP per call, 0.008 ms at
+// the int8 peak.
 //
 // Every launcher returns cudaGetLastError(); the Python wrapper raises on a
 // non-zero value.
@@ -61,9 +64,14 @@
 
 #include <cstdint>
 
-#include "s8_igemm.cuh"
-
 using namespace nvcuda;
+
+// The s8 conv core's entry point (csrc/qconv.cu on csrc/s8_igemm.cuh).
+extern "C" int s8_conv_launch(const void* x, long long sn, long long sc, long long sh,
+                              long long sw, int in_dtype, const void* wp, const void* qparam,
+                              int qmode, const void* scale, const void* bias, void* out,
+                              int out_dtype, void* xq_ws, int N, int H, int W, int Ci, int Co,
+                              int k, int pad, void* stream_ptr);
 
 namespace {
 
@@ -456,7 +464,8 @@ extern "C" int conv_ln_act_launch(const void* x, const void* w, const void* b, c
   return launch_ln_act(acc, gamma, beta, residual, out, N, P, Co, eps, relu, dtype, stream);
 }
 
-extern "C" int conv_ln_act_s8_launch(const void* x, const void* wq, const void* inv,
+extern "C" int conv_ln_act_s8_launch(const void* x, long long sn, long long sc, long long sh,
+                                     long long sw, const void* wp, const void* inv,
                                      const void* qscale, const void* b, const void* gamma,
                                      const void* beta, const void* residual, void* out,
                                      void* scratch, void* xq_ws, int N, int H, int W, int Ci,
@@ -465,10 +474,9 @@ extern "C" int conv_ln_act_s8_launch(const void* x, const void* wq, const void* 
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (N == 0) return 0;
   float* acc = static_cast<float*>(scratch);
-  cudaError_t err = s8igemm::launch<1>(
-      x, wq, static_cast<const float*>(inv), s8igemm::Q_MUL, static_cast<const float*>(qscale),
-      static_cast<const float*>(b), acc, xq_ws, N, H, W, Ci, Co, k, k / 2,
-      dtype == 1 ? s8igemm::IN_BF16 : s8igemm::IN_F32, s8igemm::OUT_F32, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // in dtype 0 f32 / 1 bf16 as here; qmode 1: round(x * inv); float32 out (0)
+  const int err = s8_conv_launch(x, sn, sc, sh, sw, dtype == 1 ? 1 : 0, wp, inv, 1, qscale, b, acc,
+                                 0, xq_ws, N, H, W, Ci, Co, k, k / 2, stream_ptr);
+  if (err != 0) return err;
   return launch_ln_act(acc, gamma, beta, residual, out, N, H * W, Co, eps, relu, dtype, stream);
 }

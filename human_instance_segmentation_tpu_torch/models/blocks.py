@@ -80,11 +80,25 @@ class _Fusable(nn.Module):
         self.fused_head = False
         self.use_kernel = True  # False: the fused unit's plain version
 
-    def _conv_ln_act(self, *args, **kwargs) -> torch.Tensor:
+    def _conv_ln_act(self, x: torch.Tensor, conv: QConv, norm: nn.Module, residual=None, *,
+                     xscale=None, **kwargs) -> torch.Tensor:
+        """The fused unit on NHWC x with ``conv``'s and ``norm``'s parameters.
+        Its int8 form gets the prepared operands that ``conv`` keeps until a
+        parameter or the scale changes, and the weight only as a view."""
+        prepared = None
+        if xscale is None:
+            w = _hwio(conv, x.dtype)
+        else:
+            w = conv.weight.permute(2, 3, 1, 0)
+            prepared = conv.cached(
+                "fused", (conv.weight, conv.bias, norm.weight, norm.bias), (x.dtype, xscale),
+                lambda: cuda_head.prepare_s8(w.detach().to(x.dtype), xscale, conv.bias,
+                                             norm.weight, norm.bias))
+        args = (x, w, conv.bias, norm.weight, norm.bias, residual)
         if self.use_kernel:
-            return cuda_head.conv_ln_act(*args, **kwargs)
+            return cuda_head.conv_ln_act(*args, xscale=xscale, prepared=prepared, **kwargs)
         kwargs.pop("height"), kwargs.pop("width")
-        return cuda_head.conv_ln_act_plain(*args, **kwargs)
+        return cuda_head.conv_ln_act_plain(*args, xscale=xscale, prepared=prepared, **kwargs)
 
     def _fusable(self, x: torch.Tensor) -> bool:
         if self.training or not self.fused_head or x.dtype == torch.int8:
@@ -115,10 +129,8 @@ class ConvNormAct(_Fusable):
             xs = _fused_xscale(self.conv, x, k)
             if xs is not _NO_FUSE:
                 _, _, h, w = x.shape
-                y = self._conv_ln_act(
-                    _nhwc(x), _hwio(self.conv, x.dtype), self.conv.bias,
-                    self.norm.weight, self.norm.bias,
-                    height=h, width=w, kernel=k, xscale=xs)
+                y = self._conv_ln_act(_nhwc(x), self.conv, self.norm, height=h, width=w,
+                                      kernel=k, xscale=xs)
                 return y.permute(0, 3, 1, 2)
         return self.act(self.norm(self.conv(x)))
 
@@ -142,12 +154,9 @@ class ResidualBlock(_Fusable):
             if xs1 is not _NO_FUSE and xs2 is not _NO_FUSE:
                 _, _, h, w = x.shape
                 xh = _nhwc(x)
-                y = self._conv_ln_act(
-                    xh, _hwio(self.conv1, x.dtype), self.conv1.bias, self.norm1.weight,
-                    self.norm1.bias, height=h, width=w, xscale=xs1)
-                y = self._conv_ln_act(
-                    y, _hwio(self.conv2, x.dtype), self.conv2.bias, self.norm2.weight,
-                    self.norm2.bias, residual=xh, height=h, width=w, xscale=xs2)
+                y = self._conv_ln_act(xh, self.conv1, self.norm1, height=h, width=w, xscale=xs1)
+                y = self._conv_ln_act(y, self.conv2, self.norm2, residual=xh, height=h, width=w,
+                                      xscale=xs2)
                 return y.permute(0, 3, 1, 2)
         h = self.act(self.norm1(self.conv1(x)))
         # single-use internal boundary: int8 flows into conv2 (serving)

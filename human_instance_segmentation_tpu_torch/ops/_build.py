@@ -45,16 +45,22 @@ SIGNATURES = {
     # dtype (0 f32, 1 bf16), stream
     "roi_align_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                          _I, _P],
-    # x, wq, inv (1,), qscale (Co,), b, gamma, beta, residual, out, scratch,
-    # int8 staging buffer, N, H, W, Ci, Co, k, eps, relu,
-    # dtype (0 f32, 1 bf16), stream
-    "conv_ln_act_s8_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _D, _I, _I, _P],
-    # x, wq, qparam (1,), qmode (0 divide, 1 multiply), scale (Co,), bias,
-    # out, int8 staging buffer, N, H, W, Ci, Co, k, pad,
-    # in dtype (0 f32, 1 bf16, 2 s8), out dtype (0 f32, 1 bf16, 2 s32), stream
-    "s8_conv_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # x and its element strides as (N, C, H, W), packed weights, inv (1,),
+    # qscale (Co,), b, gamma, beta, residual, out, scratch, int8 staging
+    # buffer, N, H, W, Ci, Co, k, eps, relu, dtype (0 f32, 1 bf16), stream
+    "conv_ln_act_s8_launch": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _D, _I, _I, _P],
+    # x and its element strides as (N, C, H, W), in dtype (0 f32, 1 bf16, 2 s8),
+    # packed weights (Co, packed k), qparam (1,), qmode (0 divide, 1 multiply),
+    # scale (Co,), bias or null, out (NHWC), out dtype (0 f32, 1 bf16, 2 s32),
+    # int8 staging buffer or null, N, H, W, Ci, Co, k, pad, stream
+    "s8_conv_launch": [_P, _L, _L, _L, _L, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I,
                        _I, _I, _I, _P],
+    # x, its strides, in dtype, Ci, Co, k -> 1 when s8_conv_launch needs the
+    # staging buffer (not a launcher)
+    "s8_conv_needs_staging": [_P, _L, _L, _L, _L, _I, _I, _I, _I],
+    # Ci, k -> bytes in one packed weight row (not a launcher)
+    "s8_conv_packed_k": [_I, _I],
     # x (P, H, W) f32, spatial (k, k) f32, out, P, H, W, k, 1 / (2 sigma_range^2), stream
     "bilateral_filter_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # mask (P, H, W) f32, out, P, H, W, blur_strength, threshold, stream
@@ -171,6 +177,17 @@ def library() -> ctypes.CDLL:
         lib.hist_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current CUDA stream on ``device``, for a
+    launcher's ``stream`` argument."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # no Stream object is built
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, name: str) -> None:

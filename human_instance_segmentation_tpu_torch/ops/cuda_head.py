@@ -8,10 +8,12 @@ same function in plain PyTorch: the path for CPU tensors and the oracle
 the kernel is held against.
 
 With ``xscale`` (a calibrated activation scale) the unit runs its int8
-form (pallas_head.py:178-187): weights quantized per output channel in the
-wrapper, activations quantized once by the kernel as ``round(x * float32(1
-/ xscale))``, s8 x s8 -> s32 on the tensor cores, ``float(acc) * (xscale *
-sw) + b`` into the float32 scratch, then the same LayerNorm epilogue.
+form (pallas_head.py:178-187): weights quantized per output channel and
+packed K-major (:func:`prepare_s8`; the blocks make them once per weight and
+scale and hand them in as ``prepared``), activations quantized once by the
+kernel as ``round(x * float32(1 / xscale))``, s8 x s8 -> s32 with wgmma
+(``csrc/s8_igemm.cuh``), ``float(acc) * (xscale * sw) + b`` into the float32
+scratch, then the same LayerNorm epilogue.
 
 The gate constants are the JAX package's (pallas_head.py:39-58): the
 fused unit serves only tiny-spatial, high-channel maps (the EnhancedUNet
@@ -21,13 +23,14 @@ bottleneck, 16x12 at 384 channels in the flagship). Do not widen them.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .quant import quantize_weight, s8_conv_plain, staging_buffer
+from .quant import (nchw_strides, pack_weight_kmajor, quantize_weight, s8_conv_plain,
+                    staging_buffer)
 
 _MIN_FUSED_CH = 256
 _MAX_FUSED_PIXELS = 512
@@ -41,13 +44,31 @@ def fusable_shape(h: int, w: int, ci: int, co: int) -> bool:
     return h * w <= _MAX_FUSED_PIXELS
 
 
-def _s8_operands(w: torch.Tensor, xscale: float):
-    """(int8 weights, float32 qscale = xscale * sw, float32 1 / xscale) as
-    the JAX wrapper makes them (pallas_head.py:179-184)."""
+class FusedS8Operands(NamedTuple):
+    """What the int8 form needs besides x and the residual; depends only on
+    the parameters and the calibrated scale."""
+
+    wq: torch.Tensor      # int8 HWIO codes (the plain version's operand)
+    packed: torch.Tensor  # pack_weight_kmajor(wq) (the kernel's operand)
+    qscale: torch.Tensor  # (Co,) float32 xscale * sw
+    inv: torch.Tensor     # (1,) float32(1 / xscale)
+    b: torch.Tensor       # float32 conv bias, LayerNorm weight and bias
+    gamma: torch.Tensor
+    beta: torch.Tensor
+
+
+def prepare_s8(w: torch.Tensor, xscale: float, b: torch.Tensor, gamma: torch.Tensor,
+               beta: torch.Tensor) -> FusedS8Operands:
+    """The int8 form's operands as the JAX wrapper makes them
+    (pallas_head.py:179-184): w (k, k, Ci, Co) in the activations' dtype
+    (any strides), quantized per output channel; ``qscale = xscale * sw``."""
     wq, sw = quantize_weight(w)
-    qscale = torch.full((1,), xscale, dtype=torch.float32, device=w.device) * sw
+    wq = wq.contiguous()
+    qscale = (torch.full((1,), xscale, dtype=torch.float32, device=w.device) * sw).contiguous()
     inv = torch.full((1,), 1.0 / xscale, dtype=torch.float32, device=w.device)
-    return wq, qscale, inv
+    b, gamma, beta = (t.detach().to(device=w.device, dtype=torch.float32).contiguous()
+                      for t in (b, gamma, beta))
+    return FusedS8Operands(wq, pack_weight_kmajor(wq), qscale, inv, b, gamma, beta)
 
 
 def conv_ln_act_plain(
@@ -62,12 +83,15 @@ def conv_ln_act_plain(
     eps: float = 1e-5,
     act: str = "relu",
     xscale: Optional[float] = None,
+    prepared: Optional[FusedS8Operands] = None,
 ) -> torch.Tensor:
     """SAME conv + bias, LayerNorm2d over all of (H, W, C) per sample,
     affine, residual, activation; every step in float32, cast to x's dtype
     at the end (the Pallas kernel's arithmetic). With ``xscale`` the conv is
     the int8 form: ``round(x * (1 / xscale))`` clipped to +-127, per-channel
-    int8 weights, an exact integer conv, ``float(acc) * qscale + b``.
+    int8 weights, an exact integer conv, ``float(acc) * qscale + b``;
+    ``prepared`` (:func:`prepare_s8` of the same w, xscale, b, gamma, beta,
+    made earlier) stands for those five, which are then not read.
 
     The LayerNorm statistics are the kernel's: float64 sums rounded to
     float32 once (order-independent), ``rstd = 1 / sqrt(var + eps)`` in
@@ -80,10 +104,11 @@ def conv_ln_act_plain(
     """
     f32, f64 = torch.float32, torch.float64
     if xscale is not None:
-        wq, qscale, inv = _s8_operands(w, xscale)
-        xq = torch.round(x.to(f32) * inv).clamp(-127.0, 127.0).to(torch.int8)
-        acc = s8_conv_plain(xq, wq, padding=kernel // 2)
-        y = acc.to(f32) * qscale + b.to(f32)
+        ops = prepared if prepared is not None else prepare_s8(w, xscale, b, gamma, beta)
+        xq = torch.round(x.to(f32) * ops.inv).clamp(-127.0, 127.0).to(torch.int8)
+        acc = s8_conv_plain(xq, ops.wq, padding=kernel // 2)
+        y = acc.to(f32) * ops.qscale + ops.b
+        gamma, beta = ops.gamma, ops.beta
     else:
         xc = x.to(f32).permute(0, 3, 1, 2)
         wc = w.to(f32).permute(3, 2, 0, 1)
@@ -115,13 +140,17 @@ def conv_ln_act(
     eps: float = 1e-5,
     act: str = "relu",
     xscale: Optional[float] = None,
+    prepared: Optional[FusedS8Operands] = None,
 ) -> torch.Tensor:
     """Fused SAME conv (k in {1, 3}) + LayerNorm2d + optional residual + act.
 
     Same contract as the JAX wrapper: x (N, H, W, Ci); w (k, k, Ci, Co) in
     x's dtype; b/gamma/beta (Co,); residual (N, H, W, Co) added after the
     norm, before the activation; ``xscale`` switches to the int8 form.
-    Returns (N, H, W, Co) in x's dtype.
+    Returns (N, H, W, Co) in x's dtype. With ``xscale``, ``prepared``
+    (:func:`prepare_s8` of the same w, xscale, b, gamma, beta, made once by
+    the caller) spares quantizing the weights at every call; w is then only
+    checked for its shape and may be any view.
 
     A CPU tensor takes :func:`conv_ln_act_plain`. A CUDA tensor launches
     the kernel (:func:`conv_ln_act_s8` for the int8 form) or raises.
@@ -146,26 +175,27 @@ def conv_ln_act(
 
     if x.device.type == "cpu":
         return conv_ln_act_plain(x, w, b, gamma, beta, residual, kernel=kernel, eps=eps, act=act,
-                                 xscale=xscale)
+                                 xscale=xscale, prepared=prepared)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv_ln_act: no kernel for device {x.device}")
 
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv_ln_act kernel takes float32 or bfloat16, got {x.dtype}")
-    operands = [x, w] + ([residual] if residual is not None else [])
+    s8 = xscale is not None
+    operands = [x] + ([] if s8 and prepared is not None else [w]) \
+        + ([residual] if residual is not None else [])
     for t in operands:
         if t.device != x.device or t.dtype != x.dtype:
             raise TypeError("x, w and residual must share x's device and dtype")
         if not t.is_contiguous():
             raise ValueError("x, w and residual must be contiguous (NHWC / HWIO)")
-    params = [p.to(device=x.device, dtype=torch.float32).contiguous() for p in (b, gamma, beta)]
     out = torch.empty((n, h, wd, co), device=x.device, dtype=x.dtype)
     scratch = torch.empty((n, h * wd, co), device=x.device, dtype=torch.float32)
-    if xscale is not None:
-        wq, qscale, inv = _s8_operands(w, xscale)
-        conv_ln_act_s8(x, wq, qscale, inv, params, residual, out, scratch, kernel=kernel, eps=eps,
-                       act=act)
+    if s8:
+        ops = prepared if prepared is not None else prepare_s8(w, xscale, b, gamma, beta)
+        conv_ln_act_s8(x, ops, residual, out, scratch, kernel=kernel, eps=eps, act=act)
         return out
+    params = [p.to(device=x.device, dtype=torch.float32).contiguous() for p in (b, gamma, beta)]
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.conv_ln_act_launch(
@@ -181,19 +211,22 @@ def conv_ln_act(
 conv_ln_act.launches = 0
 
 
-def conv_ln_act_s8(x, wq, qscale, inv, params, residual, out, scratch, *, kernel, eps, act):
+def conv_ln_act_s8(x, ops: FusedS8Operands, residual, out, scratch, *, kernel, eps, act):
     """Launch the int8 form (``conv_ln_act_s8_launch``) on checked CUDA
-    operands: wq (k, k, Ci, Co) int8, qscale (Co,) and inv (1,) float32,
-    params [b, gamma, beta] float32; writes ``out``."""
+    operands: x (N, H, W, Ci) float, the prepared int8 operands; writes
+    ``out``."""
     n, h, wd, ci = x.shape
-    co = wq.shape[-1]
+    co = ops.packed.shape[0]
+    for t in ops:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("conv_ln_act_s8: prepared operands must be contiguous on x's device")
     ws = staging_buffer(x)
     err = _build.library().conv_ln_act_s8_launch(
-        x.data_ptr(), wq.data_ptr(), inv.data_ptr(), qscale.data_ptr(), params[0].data_ptr(),
-        params[1].data_ptr(), params[2].data_ptr(),
-        residual.data_ptr() if residual is not None else None, out.data_ptr(),
-        scratch.data_ptr(), ws.data_ptr(), n, h, wd, ci, co, kernel, float(eps),
-        int(act == "relu"), _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), *nchw_strides(x.permute(0, 3, 1, 2)), ops.packed.data_ptr(),
+        ops.inv.data_ptr(), ops.qscale.data_ptr(), ops.b.data_ptr(), ops.gamma.data_ptr(),
+        ops.beta.data_ptr(), residual.data_ptr() if residual is not None else None,
+        out.data_ptr(), scratch.data_ptr(), ws.data_ptr(), n, h, wd, ci, co, kernel, float(eps),
+        int(act == "relu"), _DTYPES[x.dtype], _build.current_stream(x.device))
     conv_ln_act_s8.launches += 1
     _build.check(err, "conv_ln_act_s8")
 

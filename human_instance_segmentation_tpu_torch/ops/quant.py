@@ -14,12 +14,18 @@ writes them onto every QConv of a model, keyed by the module's path
 JAX module path), and :func:`calibration` records each eligible QConv's
 input abs-max, denied or not.
 
-The s8 convolution is ``csrc/qconv.cu`` (one pass that quantizes a float
-input, then an implicit GEMM on the tensor cores); :func:`qconv2d_plain` is
-the same function in plain PyTorch, the path for CPU tensors and the oracle
-the kernel is held against. Its integer convolution is exact: it accumulates in
-float64, where every partial sum of s8 x s8 products is an integer far below
-2^53 (float32 is not exact: 9 * 384 * 127^2 > 2^24).
+The s8 convolution is ``csrc/qconv.cu`` on ``csrc/s8_igemm.cuh``: wgmma for
+more than 32 output channels (a float input is quantized once into an int8
+buffer first; an aligned int8 input is read where it lies), one launch that
+quantizes its input tile into shared memory for narrower outputs. The kernel
+reads x through its strides and takes the int8 weights packed K-major
+(:func:`pack_weight_kmajor`); :class:`QConv` keeps them, the scale tensors and
+the bias (:class:`S8Operands`) until a weight or a scale changes, so a
+static-scale int8 forward is the kernel launches and their ``torch.empty``.
+:func:`qconv2d_plain` is the same function in plain PyTorch, the path for CPU
+tensors and the oracle the kernel is held against. Its integer convolution is
+exact: it accumulates in float64, where every partial sum of s8 x s8 products
+is an integer far below 2^53 (float32 is not exact: 9 * 384 * 127^2 > 2^24).
 
 Rounding follows JAX bit for bit: ``qconv2d`` divides by the scale
 (``round(x / s)``), the producer-side :func:`..s2d.quantize_static` and the
@@ -32,7 +38,7 @@ the reciprocal, which is not the same rounding.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -97,99 +103,256 @@ def s8_conv_plain(xq: torch.Tensor, wq: torch.Tensor, padding: int = 0,
     return y.to(torch.int32).permute(0, 2, 3, 1).contiguous()
 
 
-QWeight = Tuple[torch.Tensor, torch.Tensor]  # quantize_weight's (int8 HWIO, scales)
+def packed_k(ci: int, k: int) -> int:
+    """Bytes in one packed weight row: k * k taps of Ci rounded up to 16
+    codes, the row rounded up to 128 (``csrc/s8_igemm.cuh::packed_k``)."""
+    return -(-(k * k * (-(-ci // 16) * 16)) // 128) * 128
 
 
-def _prepare(x: torch.Tensor, w: torch.Tensor, static_scale: Optional[float],
-             wq: Optional[QWeight]):
-    """(activation scale tensor, out dtype, int8 weights, sx * sw) as
-    qconv2d defines them (quant.py:197-218)."""
+def pack_weight_kmajor(wq: torch.Tensor) -> torch.Tensor:
+    """int8 HWIO weights (k, k, Ci, Co) -> (Co, packed_k(Ci, k)) int8, the
+    kernel's K-major B operand: row co holds, tap after tap, that tap's Ci
+    codes and zero codes up to a multiple of 16; zero codes fill the row."""
+    k, k2, ci, co = wq.shape
+    if k != k2:
+        raise ValueError("the s8 kernel takes square kernels")
+    cp = -(-ci // 16) * 16
+    rows = F.pad(wq.permute(3, 0, 1, 2).reshape(co, k * k, ci), (0, cp - ci))
+    rows = rows.reshape(co, k * k * cp)
+    return F.pad(rows, (0, packed_k(ci, k) - rows.shape[1])).contiguous()
+
+
+def unpack_weight_kmajor(packed: torch.Tensor, k: int, ci: int) -> torch.Tensor:
+    """The HWIO weights :func:`pack_weight_kmajor` was given."""
+    co = packed.shape[0]
+    cp = -(-ci // 16) * 16
+    taps = packed[:, :k * k * cp].reshape(co, k, k, cp)[..., :ci]
+    return taps.permute(1, 2, 3, 0).contiguous()
+
+
+class S8Weights(NamedTuple):
+    """What depends on the weight alone."""
+
+    wq: torch.Tensor      # int8 HWIO, quantize_weight's codes (the plain version's operand)
+    sw: torch.Tensor      # (Co,) float32 weight scales
+    packed: torch.Tensor  # pack_weight_kmajor(wq) (the kernel's operand)
+
+
+class S8Operands(NamedTuple):
+    """Everything of an s8 conv that depends only on the weight, the bias,
+    the output dtype and the static scale: made once, kept by :class:`QConv`."""
+
+    wq: torch.Tensor
+    sw: torch.Tensor
+    packed: torch.Tensor
+    sx: Optional[torch.Tensor]      # (1,) float32 static activation scale; None: dynamic
+    scale: Optional[torch.Tensor]   # (Co,) float32 sx * sw; None: dynamic
+    bias: Optional[torch.Tensor]    # (Co,) in the output dtype (the plain version adds it)
+    bias32: Optional[torch.Tensor]  # the same values widened to float32 (the kernel adds them)
+
+
+def s8_weights(w: torch.Tensor) -> S8Weights:
+    """Quantize and pack HWIO float weights."""
+    wq, sw = quantize_weight(w)
+    wq = wq.contiguous()
+    return S8Weights(wq, sw.contiguous(), pack_weight_kmajor(wq))
+
+
+def s8_operands(weights: S8Weights, static_scale: Optional[Scale] = None,
+                bias: Optional[torch.Tensor] = None,
+                out_dtype: torch.dtype = torch.float32) -> S8Operands:
+    """The prepared operands of :func:`qconv2d` for these weights."""
+    device = weights.wq.device
+    sx = scale = bias_d = bias32 = None
+    if static_scale is not None:
+        sx = _scalar(static_scale, device)
+        scale = (sx * weights.sw).contiguous()
+    if bias is not None:
+        bias_d = bias.detach().to(device=device, dtype=out_dtype).contiguous()
+        bias32 = bias_d.to(torch.float32)
+    return S8Operands(weights.wq, weights.sw, weights.packed, sx, scale, bias_d, bias32)
+
+
+def _scales(x: torch.Tensor, ops: S8Operands) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(activation scale, sx * sw): the prepared static ones, else dynamic."""
+    if ops.sx is not None:
+        return ops.sx, ops.scale
     if x.dtype == torch.int8:
-        if static_scale is None:
-            raise ValueError("an int8 input needs its producer's static scale")
-        sx = _scalar(static_scale, x.device)
-        out_dtype = w.dtype
-    else:
-        sx = _scalar(static_scale, x.device) if static_scale is not None else dynamic_scale(x)
-        out_dtype = x.dtype
-    wq, sw = wq if wq is not None else quantize_weight(w.to(x.device).contiguous())
-    return sx, out_dtype, wq, sx * sw
+        raise ValueError("an int8 input needs its producer's static scale")
+    sx = dynamic_scale(x)
+    return sx, (sx * ops.sw).contiguous()
 
 
-def qconv2d_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
+def _out_dtype(x: torch.Tensor, w: Optional[torch.Tensor],
+               out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """x's dtype; for an int8 x the named one, else w's."""
+    if out_dtype is not None:
+        return out_dtype
+    if x.dtype != torch.int8:
+        return x.dtype
+    if w is None:
+        raise ValueError("an int8 input with prepared operands needs out_dtype")
+    return w.dtype
+
+
+def _operands_for(x, w, static_scale, prepared, bias, out_dtype) -> S8Operands:
+    if prepared is not None:
+        return prepared
+    if x.dtype == torch.int8 and static_scale is None:
+        raise ValueError("an int8 input needs its producer's static scale")
+    return s8_operands(s8_weights(w.to(x.device)), static_scale, bias, out_dtype)
+
+
+def qconv2d_plain(x: torch.Tensor, w: Optional[torch.Tensor], stride: int = 1, padding: int = 0,
                   static_scale: Optional[float] = None,
-                  wq: Optional[QWeight] = None) -> torch.Tensor:
-    """:func:`qconv2d` in plain PyTorch (any device)."""
-    sx, out_dtype, wq, scale = _prepare(x, w, static_scale, wq)
+                  prepared: Optional[S8Operands] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`qconv2d` in plain PyTorch (any device, any strides of x)."""
+    out_dtype = _out_dtype(x, w, out_dtype)
+    ops = _operands_for(x, w, static_scale, prepared, bias, out_dtype)
+    sx, scale = _scales(x, ops)
     xq = x if x.dtype == torch.int8 else quantize_symmetric(x, sx)
-    acc = s8_conv_plain(xq, wq, padding=padding, stride=stride)
-    return (acc.to(torch.float32) * scale).to(out_dtype)
+    acc = s8_conv_plain(xq, ops.wq, padding=padding, stride=stride)
+    y = (acc.to(torch.float32) * scale).to(out_dtype)
+    if ops.bias is not None:
+        y = y + ops.bias
+    return y
 
 
 def staging_buffer(x: torch.Tensor) -> torch.Tensor:
-    """The int8 buffer the s8 kernel quantizes (or copies) x (N, H, W, Ci)
-    into once before its conv: N*H*W rows of Ci rounded up to 16 codes
-    (``csrc/s8_igemm.cuh``)."""
+    """The int8 buffer the wgmma kernel's first pass quantizes (or copies) x
+    (N, H, W, Ci) into: N*H*W rows of Ci rounded up to 16 codes
+    (``csrc/s8_igemm.cuh``). The one-launch kernel for narrow outputs and an
+    aligned int8 input do without it."""
     n, h, w, ci = x.shape
     return torch.empty(n * h * w * (-(-ci // 16) * 16), dtype=torch.int8, device=x.device)
 
 
-def _launch(x: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, scale: Optional[torch.Tensor],
-            out: torch.Tensor, pad: int, name: str) -> None:
-    for t in (x, wq, out):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous (NHWC / HWIO)")
-        if t.device != x.device:
-            raise ValueError(f"{name}: operands must share x's device")
-    n, h, w, ci = x.shape
-    k = wq.shape[0]
-    ws = staging_buffer(x)
-    err = _build.library().s8_conv_launch(
-        x.data_ptr(), wq.data_ptr(), sx.data_ptr(), _Q_DIV,
-        scale.data_ptr() if scale is not None else None, None, out.data_ptr(), ws.data_ptr(),
-        n, h, w, ci, wq.shape[-1], k, pad,
-        _IN_DTYPES[x.dtype], _OUT_DTYPES.get(out.dtype, _OUT_S32),
-        torch.cuda.current_stream(x.device).cuda_stream)
+def nchw_strides(x: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Element strides of x (N, C, H, W), 0 for an extent of 1."""
+    return tuple(st if size > 1 else 0 for st, size in zip(x.stride(), x.shape))
+
+
+_NARROW: Dict[Tuple[int, int, int], bool] = {}  # (Ci, Co, k) -> the one-launch kernel takes it
+
+
+def _needs_staging(lib, x: torch.Tensor, strides, ci: int, co: int, k: int) -> bool:
+    """Whether the launch needs :func:`staging_buffer` (``csrc/s8_igemm.cuh::
+    needs_staging``; a launch that needs one and gets none is refused)."""
+    narrow = _NARROW.get((ci, co, k))
+    if narrow is None:
+        # a float input needs staging exactly when the wgmma kernel takes the shape
+        narrow = _NARROW[(ci, co, k)] = not lib.s8_conv_needs_staging(
+            None, 0, 1, 0, 0, _IN_DTYPES[torch.float32], ci, co, k)
+    if narrow:
+        return False
+    if x.dtype != torch.int8 or ci % 16:
+        return True
+    sn, sc, sh, sw = strides
+    return sc != 1 or (x.data_ptr() | sn | sh | sw) % 16 != 0
+
+
+def _launch(x: torch.Tensor, packed: torch.Tensor, k: int, sx: Optional[torch.Tensor],
+            scale: Optional[torch.Tensor], bias32: Optional[torch.Tensor], out: torch.Tensor,
+            pad: int, name: str) -> None:
+    """Launch ``s8_conv_launch`` on x viewed (N, Ci, H, W) in any strides,
+    packed weights (Co, packed_k) and a contiguous NHWC ``out``. The scales
+    and the bias are float32, contiguous, on x's device (:func:`s8_operands`
+    makes them so)."""
+    n, ci, h, w = x.shape
+    co, kp = packed.shape
+    if packed.device != x.device or packed.dtype != torch.int8 or kp != packed_k(ci, k) \
+            or not packed.is_contiguous():
+        raise ValueError(f"{name}: packed weights must be contiguous int8 ({co}, "
+                         f"{packed_k(ci, k)}) on {x.device}, got {packed.dtype} "
+                         f"{tuple(packed.shape)} on {packed.device}")
+    lib = _build.library()
+    strides = x.stride() if min(x.shape) > 1 else nchw_strides(x)
+    ws = staging_buffer(x.permute(0, 2, 3, 1)) if _needs_staging(lib, x, strides, ci, co, k) \
+        else None
+    err = lib.s8_conv_launch(
+        x.data_ptr(), *strides, _IN_DTYPES[x.dtype], packed.data_ptr(),
+        sx.data_ptr() if sx is not None else None, _Q_DIV,
+        scale.data_ptr() if scale is not None else None,
+        bias32.data_ptr() if bias32 is not None else None,
+        out.data_ptr(), _OUT_DTYPES.get(out.dtype, _OUT_S32),
+        ws.data_ptr() if ws is not None else None,
+        n, h, w, ci, co, k, pad, _build.current_stream(x.device))
     _build.check(err, name)
 
 
-def qconv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0,
-            static_scale: Optional[float] = None,
-            wq: Optional[QWeight] = None) -> torch.Tensor:
-    """Quantized NHWC conv (quant.py:180): x (N, H, W, Ci) float, or int8
-    already quantized by its producer with ``static_scale``; w (kh, kw, Ci,
-    Co) float. Activation scale ``static_scale`` if given, else the dynamic
-    abs-max; weight scales per output channel (``wq``, when given, is
-    ``quantize_weight(w)`` made earlier). Returns ``float(acc) * (sx *
-    sw)`` in x's dtype (in w's dtype for int8 x).
-
-    A CPU tensor takes :func:`qconv2d_plain`. A CUDA tensor launches
-    ``csrc/qconv.cu`` (stride 1, square kernel, symmetric padding) or raises.
-    """
-    if x.dim() != 4 or w.dim() != 4 or w.shape[2] != x.shape[3]:
-        raise ValueError(f"x (N, H, W, Ci) and w (kh, kw, Ci, Co) disagree: "
-                         f"{tuple(x.shape)}, {tuple(w.shape)}")
-    if x.device.type == "cpu":
-        return qconv2d_plain(x, w, stride, padding, static_scale, wq)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"qconv2d: no kernel for device {x.device}")
+def _qconv_cuda(x: torch.Tensor, ops: S8Operands, stride: int, padding: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel on a CUDA x viewed (N, Ci, H, W); returns NHWC."""
     if x.dtype not in _IN_DTYPES:
         raise TypeError(f"qconv2d kernel takes float32, bfloat16 or int8 input, got {x.dtype}")
-    if stride != 1 or w.shape[0] != w.shape[1]:
+    if stride != 1:
         raise ValueError("qconv2d kernel takes stride 1 and a square kernel")
-    sx, out_dtype, wq, scale = _prepare(x, w, static_scale, wq)
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"qconv2d kernel writes float32 or bfloat16, got {out_dtype}")
-    n, h, wd, _ = x.shape
-    k = w.shape[0]
-    ho, wo = h + 2 * padding - k + 1, wd + 2 * padding - k + 1
-    out = torch.empty((n, ho, wo, w.shape[-1]), device=x.device, dtype=out_dtype)
-    _launch(x.contiguous(), wq, sx, scale.contiguous(), out, padding, "qconv2d")
+    sx, scale = (ops.sx, ops.scale) if ops.sx is not None else _scales(x, ops)
+    n, _, h, wd = x.shape
+    k = ops.wq.shape[0]
+    out = torch.empty((n, h + 2 * padding - k + 1, wd + 2 * padding - k + 1, ops.packed.shape[0]),
+                      device=x.device, dtype=out_dtype)
+    _launch(x, ops.packed, k, sx, scale, ops.bias32, out, padding, "qconv2d")
     qconv2d.launches += 1
     return out
 
 
+def qconv2d(x: torch.Tensor, w: Optional[torch.Tensor], stride: int = 1, padding: int = 0,
+            static_scale: Optional[float] = None,
+            prepared: Optional[S8Operands] = None,
+            bias: Optional[torch.Tensor] = None,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Quantized NHWC conv (quant.py:180): x (N, H, W, Ci) float, or int8
+    already quantized by its producer with ``static_scale``; w (kh, kw, Ci,
+    Co) float. Activation scale ``static_scale`` if given, else the dynamic
+    abs-max; weight scales per output channel. Returns ``float(acc) * (sx *
+    sw)`` in x's dtype (in w's dtype, or ``out_dtype``, for int8 x), plus
+    ``bias`` (Co,) added in that dtype when given.
+
+    ``prepared`` (:func:`s8_operands`, made once) stands for w,
+    ``static_scale`` and ``bias``, which are then not read. x may have any
+    strides (an NCHW tensor permuted to NHWC comes in without a copy).
+
+    A CPU tensor takes :func:`qconv2d_plain`. A CUDA tensor launches
+    ``csrc/qconv.cu`` (stride 1, square kernel, symmetric padding) or raises.
+    """
+    ci = prepared.wq.shape[2] if prepared is not None else (w.shape[2] if w.dim() == 4 else -1)
+    if x.dim() != 4 or ci != x.shape[3]:
+        raise ValueError(f"x (N, H, W, Ci) and w (kh, kw, Ci, Co) disagree: {tuple(x.shape)}, "
+                         f"{tuple(prepared.wq.shape if prepared is not None else w.shape)}")
+    if x.device.type == "cpu":
+        return qconv2d_plain(x, w, stride, padding, static_scale, prepared, bias, out_dtype)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"qconv2d: no kernel for device {x.device}")
+    if prepared is None and w.shape[0] != w.shape[1]:
+        raise ValueError("qconv2d kernel takes stride 1 and a square kernel")
+    out_dtype = _out_dtype(x, w, out_dtype)
+    ops = _operands_for(x, w, static_scale, prepared, bias, out_dtype)
+    return _qconv_cuda(x.permute(0, 3, 1, 2), ops, stride, padding, out_dtype)
+
+
 qconv2d.launches = 0
+
+
+def qconv2d_nchw(x: torch.Tensor, ops: S8Operands, stride: int = 1, padding: int = 0,
+                 out_dtype: Optional[torch.dtype] = None, kernel: bool = True) -> torch.Tensor:
+    """:func:`qconv2d` for the modules: x (N, Ci, H, W) as it lies in memory
+    (channels-last or contiguous, no copy is made), prepared operands; returns
+    (N, Co, Ho, Wo) in channels-last memory. ``kernel`` False computes the
+    plain version on any device."""
+    out_dtype = _out_dtype(x, None, out_dtype)
+    if x.device.type == "cpu" or not kernel:
+        y = qconv2d_plain(x.permute(0, 2, 3, 1), None, stride, padding, prepared=ops,
+                          out_dtype=out_dtype)
+    elif x.device.type == "cuda":
+        y = _qconv_cuda(x, ops, stride, padding, out_dtype)
+    else:
+        raise RuntimeError(f"qconv2d: no kernel for device {x.device}")
+    return y.permute(0, 3, 1, 2)
 
 
 def s8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -197,10 +360,20 @@ def s8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
 
 
-def s8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def pack_matmul_b(b: torch.Tensor) -> torch.Tensor:
+    """(K, N) int8 -> the kernel's K-major operand (N, packed_k(K, 1)): b
+    transposed, each row zero-padded (8-bit wgmma reads both operands with
+    K contiguous)."""
+    return pack_weight_kmajor(b.reshape(1, 1, *b.shape))
+
+
+def s8_matmul(a: torch.Tensor, b: torch.Tensor,
+              packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """s8 x s8 -> s32 GEMM through the qconv kernel's main loop (a 1x1 conv
-    over M pixels, no epilogue). A CPU tensor takes :func:`s8_matmul_plain`;
-    a CUDA tensor launches the kernel or raises."""
+    over M pixels, no float epilogue). ``packed`` is ``pack_matmul_b(b)``
+    made earlier (a conv packs its weights once; without it b is packed at
+    every call). A CPU tensor takes :func:`s8_matmul_plain`; a CUDA tensor
+    launches the kernel or raises."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"need (M, K) and (K, N), got {tuple(a.shape)}, {tuple(b.shape)}")
     if a.dtype != torch.int8 or b.dtype != torch.int8:
@@ -209,11 +382,12 @@ def s8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return s8_matmul_plain(a, b)
     if a.device.type != "cuda":
         raise RuntimeError(f"s8_matmul: no kernel for device {a.device}")
-    m, kdim = a.shape
+    m = a.shape[0]
     out = torch.empty((1, 1, m, b.shape[1]), device=a.device, dtype=torch.int32)
-    one = torch.ones(1, device=a.device, dtype=torch.float32)
-    _launch(a.contiguous().reshape(1, 1, m, kdim), b.contiguous().reshape(1, 1, kdim, -1), one,
-            None, out, 0, "s8_matmul")
+    if packed is None:
+        packed = pack_matmul_b(b)
+    # a as a one-row image of M pixels with K channels, viewed (1, K, 1, M)
+    _launch(a.t().unsqueeze(0).unsqueeze(2), packed, 1, None, None, None, out, 0, "s8_matmul")
     s8_matmul.launches += 1
     return out.reshape(m, -1)
 
@@ -235,9 +409,11 @@ class QConv(nn.Conv2d):
     Dense, stride-1 or not, groups 1. The int8 path is skipped for
     contractions ``kh * kw * Ci < 48``. An int8 input (quantized by its
     producer with this conv's calibrated scale) always takes the int8 path.
-    The serving fields are set by :func:`set_int8_serving`. The int8
-    weights are made once and kept until the weight's storage, version or
-    dtype changes, as JAX quantizes them once per trace.
+    The serving fields are set by :func:`set_int8_serving`. The packed int8
+    weights, the scale tensors and the bias are made once and kept until a
+    parameter's storage, version or dtype or the static scale changes
+    (:meth:`cached`), as JAX quantizes them once per trace. x comes in as it
+    lies in memory and the output is channels-last: no copy on either side.
     """
 
     int8_calls = 0  # int8 forwards of every QConv, for launch-count checks
@@ -251,7 +427,7 @@ class QConv(nn.Conv2d):
         self.static_scale: Optional[float] = None
         self.use_kernel = True
         self.calib_amax: Optional[list] = None
-        self._wq: Optional[tuple] = None  # (key, weight kept alive, QWeight)
+        self._cache: dict = {}  # slot -> (key, tensors kept alive, value); see cached()
 
     @property
     def eligible(self) -> bool:
@@ -263,20 +439,39 @@ class QConv(nn.Conv2d):
         """Whether a float input takes the int8 path."""
         return self.serving and self.eligible and not self.denied
 
-    def quantized_weight(self, dtype: torch.dtype) -> QWeight:
-        """``quantize_weight`` of the HWIO weight cast to ``dtype`` (JAX
-        casts it to the input dtype first, quant.py:280-281)."""
-        w = self.weight
-        if w.is_inference():  # no version counter: in-place changes go unseen
-            return quantize_weight(w.to(dtype).permute(2, 3, 1, 0).contiguous())
-        key = (dtype, w.device, w.data_ptr(), w._version)
-        if self._wq is None or self._wq[0] != key:
-            # the detached weight shares the version counter and holds the
-            # storage, so no other tensor can take its address meanwhile
+    def cached(self, slot: str, tensors: Sequence[Optional[torch.Tensor]], extras: tuple,
+               build: Callable[[], object]):
+        """``build()``, made once per state of ``tensors`` (device, storage,
+        version counter, dtype) and ``extras`` and kept under ``slot`` until
+        one of them changes. An inference-mode tensor has no version counter
+        (an in-place change would go unseen), so with one nothing is kept."""
+        live = [t for t in tensors if t is not None]
+        if any(t.is_inference() for t in live):
+            return build()
+        key = (extras, tuple((t.device, t.data_ptr(), t._version, t.dtype) for t in live))
+        hit = self._cache.get(slot)
+        if hit is None or hit[0] != key:
+            # the detached tensors share the version counters and hold the
+            # storages, so no other tensor can take their addresses meanwhile
             with torch.inference_mode(False), torch.no_grad():
-                hwio = w.detach().to(dtype).permute(2, 3, 1, 0).contiguous()
-                self._wq = (key, w.detach(), quantize_weight(hwio))
-        return self._wq[2]
+                hit = (key, [t.detach() for t in live], build())
+            self._cache[slot] = hit
+        return hit[2]
+
+    def quantized_weight(self, dtype: torch.dtype) -> S8Weights:
+        """The int8 codes, scales and K-major pack of the HWIO weight cast
+        to ``dtype`` (JAX casts it to the input dtype first, quant.py:280-281)."""
+        return self.cached(
+            "weights", (self.weight,), (dtype,),
+            lambda: s8_weights(self.weight.detach().to(dtype).permute(2, 3, 1, 0).contiguous()))
+
+    def prepared(self, dtype: torch.dtype) -> S8Operands:
+        """The conv's :class:`S8Operands` for activations of ``dtype``: weights,
+        ``sx``, ``sx * sw`` and the bias, rebuilt when the weight, the bias,
+        the static scale or the dtype changes."""
+        return self.cached(
+            "operands", (self.weight, self.bias), (dtype, self.static_scale),
+            lambda: s8_operands(self.quantized_weight(dtype), self.static_scale, self.bias, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pre = x.dtype == torch.int8
@@ -288,15 +483,9 @@ class QConv(nn.Conv2d):
                 or self.stride[0] != self.stride[1]:
             raise ValueError("QConv int8 path takes symmetric zero padding and square strides")
         dtype = self.weight.dtype if pre else x.dtype
-        w = self.weight.to(dtype).permute(2, 3, 1, 0)
-        xh = x.permute(0, 2, 3, 1).contiguous()
-        fn = qconv2d if self.use_kernel else qconv2d_plain
-        y = fn(xh, w, self.stride[0], self.padding[0], self.static_scale,
-               self.quantized_weight(dtype))
+        y = qconv2d_nchw(x, self.prepared(dtype), self.stride[0], self.padding[0], dtype,
+                         self.use_kernel)
         QConv.int8_calls += 1
-        y = y.permute(0, 3, 1, 2)
-        if self.bias is not None:
-            y = y + self.bias.to(y.dtype)[:, None, None]
         return y
 
 
