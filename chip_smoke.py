@@ -130,10 +130,15 @@ SFU_PER_S = 132 * 16 * (PEAK_OPS["f32"] / (132 * 128 * 2))
 # output (B, 240, 320, 32) -> 16 channels -> (B, 480, 640) logits
 TAIL_SHAPE = (32, 240, 320, 32, 16)
 # tail, float32: the JAX package's gate for its Pallas tail
-# (tests/test_pallas_tail.py). bfloat16: kernel and plain version round the
-# same float32 logit once, so they differ by at most one bf16 ulp (2^-7
-# relative) where the float32 sums straddle a rounding boundary.
-TOL_TAIL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-5, 2.0 ** -7)}
+# (tests/test_pallas_tail.py). bfloat16: kernel and plain version compute the
+# same bf16 upsampled input (equal float32 ops) and round at the same three
+# places, but their float32 conv sums differ in order (tensor cores against
+# cuDNN), so a value of y0 or y1 near a bf16 rounding boundary can land one
+# ulp away. One ulp of y1 (2^-7 |y1|, |y1| <= ~4 here) through one head weight
+# (|kh| <= ~0.3 at these weights' LeCun scale) moves a logit by ~1e-2, a y0
+# ulp through conv1 and the head by less; allow two such flips near one
+# pixel (atol 2e-2), and the logit's own rounding (one ulp, 2^-7 relative).
+TOL_TAIL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2.0 ** -7)}
 TOL_BILATERAL = 1e-5
 BINARY_SHAPE = (32, 480, 640, 1)
 
@@ -448,15 +453,23 @@ def check_tail_and_filters(card: str, rng) -> list:
             raise AssertionError(f"tail {shape} {dt} {layout}: {err}")
         if dt == torch.float32:
             worst = max(worst, err)
+        if dt == torch.bfloat16:
+            ulps = int((diff > 2.0 ** -8 * ref.float().abs()).sum())
+            print(f"tail {shape} bf16 {layout}: {int((diff > 0).sum())} of {diff.numel()} logits "
+                  f"differ, {ulps} by more than half an ulp")
         if (shape, dt, layout) == (TAIL_SHAPE, torch.bfloat16, "nchw"):  # the served form
             xn = x.permute(0, 3, 1, 2)
             chain = unfused_tail_chain(xn, *ops)
             cdiff = (chain().float() - ref.float()).abs().max().item()
-            kms = median_ms(lambda: cuda_tail.tail(x, *ops))
+            packed = cuda_tail.pack_tail_weights(*ops)  # as the UNet keeps them
+            kms = median_ms(lambda: cuda_tail.tail(x, *ops, packed=packed))
+            kms10 = median_ms(lambda: cuda_tail.tail(x, *ops, packed=packed), calls=10)
+            pack_ms = median_ms(lambda: cuda_tail.tail(x, *ops))
             pms = median_ms(lambda: cuda_tail.tail_plain(x, *ops), reps=5, warmup=1)
             cms = median_ms(chain)
             timing = (kms, pms, cms)
-            print(f"tail bf16 {TAIL_SHAPE}: kernel {kms:.4f} ms, plain (float32 chain) "
+            print(f"tail bf16 {TAIL_SHAPE}: kernel {kms:.4f} ms with kept weights ({kms10:.4f} "
+                  f"ms ten launches in a row; {pack_ms:.4f} ms packing them per call), plain "
                   f"{pms:.4f} ms, unfused bf16 chain of the model {cms:.4f} ms (its max abs "
                   f"distance from the plain version {cdiff:.3e}) (median of {TIMING_REPS}, CUDA "
                   f"events) [{card}]")
@@ -562,6 +575,14 @@ MBCONV_RAGGED = [
 # or of `d * se` moves y by |w| * 2^-8 |operand| (a few 1e-3), and y's own
 # rounding by one ulp (2^-8 |y| relative to the midpoint, 2^-7 |y| at worst).
 TOL_MBCONV = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
+# the mean of d over a block's kept positions (pass 1's result, the
+# squeeze-excite input), absolute. float32: summation order only. bfloat16:
+# where the kernel's expand sums (tensor cores) and cuDNN's straddle a bf16
+# rounding boundary, one value of `a` lands one ulp (up to 2^-7 |a|) away and
+# moves the k*k values of d it feeds by |wdw| times that; over the 1,200 kept
+# positions of the smallest served map (30 x 40) that is up to about 1e-5 per
+# such value at these weights (1.2e-5 measured in one run), so allow ten.
+TOL_MBCONV_MEAN = {"float32": 1e-5, "bfloat16": 1e-4}
 
 
 def mbconv_operands(rng, ci: int, expand: int, k: int, co: int, dtype, dev):
@@ -678,12 +699,12 @@ def check_mbconv_and_tail_q(card: str, rng) -> list:
         atol, rtol = TOL_MBCONV[name]
         layout = "channels-last" if fmt == cl else "NCHW"
         print(f"fused_mbconv {shape} e{expand} k{k} s{stride} -> {co} {name} {layout}: mean-of-d "
-              f"max_abs_err={serr:.3e} (atol 1e-5), y max_abs_err={err:.3e} (atol {atol}, rtol "
-              f"{rtol:.2e}), |ref| max {ref.float().abs().max().item():.2f}")
+              f"max_abs_err={serr:.3e} (atol {TOL_MBCONV_MEAN[name]}), y max_abs_err={err:.3e} "
+              f"(atol {atol}, rtol {rtol:.2e}), |ref| max {ref.float().abs().max().item():.2f}")
         if got.shape != ref.shape or got.dtype != dt or not torch.isfinite(got.float()).all() \
                 or not got.is_contiguous(memory_format=fmt):
             raise AssertionError(f"fused_mbconv {shape} {name}: bad output")
-        if serr > 1e-5 or not bool((diff <= atol + rtol * ref.float().abs()).all()):
+        if serr > TOL_MBCONV_MEAN[name] or not bool((diff <= atol + rtol * ref.float().abs()).all()):
             raise AssertionError(f"fused_mbconv {shape} k{k} s{stride} {name}: {serr}, {err}")
         if dt == torch.float32:
             worst["sums"] = max(worst["sums"], serr)
@@ -1029,9 +1050,13 @@ def check_int8_kernels(card: str, rng) -> list:
     if not bool((probe == 256).all()):
         raise AssertionError("s8_matmul 256x256 all-ones probe: not every entry is 256")
     pbound = bound(3 * 256 * 256 + 256 * 256 * 4, 2 * 256 ** 3, "int8")
-    print(f"s8_matmul 256x256 all-ones probe: every entry 256; "
-          f"{median_ms(lambda: quant.s8_matmul(ones, ones)):.4f} ms (bound "
-          f"{pbound['bound_ms']:.6f} ms by {pbound['bound_by']}) [{card}]")
+    probe_ms = median_ms(lambda: quant.s8_matmul(ones, ones))
+    probe_plain_ms = median_ms(lambda: quant.s8_matmul_plain(ones, ones))
+    probe_lib_ms = median_ms(lambda: torch._int_mm(ones, ones))
+    print(f"s8_matmul 256x256 all-ones probe: every entry 256; {probe_ms:.4f} ms, plain (float64 "
+          f"GEMM) {probe_plain_ms:.4f} ms, torch._int_mm {probe_lib_ms:.4f} ms (one call "
+          f"between the events each), bound {pbound['bound_ms']:.6f} ms by "
+          f"{pbound['bound_by']} [{card}]")
     m = 4096
     a = torch.randint(-127, 128, (m, m), dtype=torch.int8, device=dev)
     b = torch.randint(-127, 128, (m, m), dtype=torch.int8, device=dev)
@@ -1073,7 +1098,10 @@ def check_int8_kernels(card: str, rng) -> list:
                     **timing[3], "single_call_ms": timing[4], "shapes": shapes,
                     "s8_matmul_4096_ms": gms,
                     "s8_matmul_4096_tops": tops, "s8_matmul_4096_bound_ms": gbound["bound_ms"],
-                    "s8_matmul_4096_library_ms": lms, "s8_matmul_4096_library": "torch._int_mm"})
+                    "s8_matmul_4096_library_ms": lms, "s8_matmul_4096_library": "torch._int_mm",
+                    "probe_256_ms": probe_ms, "probe_256_plain_ms": probe_plain_ms,
+                    "probe_256_library_ms": probe_lib_ms,
+                    "probe_256_bound_ms": pbound["bound_ms"]})
 
     # ---- (c) conv_ln_act, int8 form --------------------------------------
     n, h, w, c = HEAD_SHAPE
@@ -1597,7 +1625,8 @@ def binary_mask_mode(card: str, rng) -> dict:
                 torch.cuda.synchronize()
             events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
             busy = sum(e.self_device_time_total for e in events) / 3e3
-            tail_ms = sum(e.self_device_time_total for e in events if "tail_kernel" in e.key) / 3e3
+            tail_ms = sum(e.self_device_time_total for e in events
+                          if "tail_kernel" in e.key or "tail_bf16_kernel" in e.key) / 3e3
             wall = statistics.median(times["kernels"])
             print(f"binary mode batch {batch} bf16, kernels, profile of 3 batches: device busy "
                   f"{busy:.3f} ms per batch of {wall:.3f} ms wall ({100 * (1 - busy / wall):.1f}% "
@@ -1791,9 +1820,10 @@ def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
         print(f"profile of 3 forwards, {key[0]}, encoder_fused_blocks={key[1]}: device busy "
               f"{busy:.3f} ms per forward of {wall:.3f} ms wall ({100 * (1 - busy / wall):.1f}% "
               f"idle), {sum(ev.count for ev in events) // 3} kernels per forward; mbconv kernels "
-              f"{part('mbconv_kernel'):.3f} ms, tail_q kernels (int8 map + quantize) "
-              f"{part('tail_q_kernel', 'quantize_kernel'):.3f} ms, float tail kernel "
-              f"{part('tail_kernel'):.3f} ms, s8 conv kernels {part('s8igemm'):.3f} ms "
+              f"{part('mbconv_kernel', 'mbconv_bf16_kernel'):.3f} ms, tail_q kernels (int8 map + "
+              f"quantize) {part('tail_q_kernel', 'quantize_kernel'):.3f} ms, float tail kernel "
+              f"{part('tail_kernel', 'tail_bf16_kernel'):.3f} ms, s8 conv kernels "
+              f"{part('s8igemm'):.3f} ms "
               f"[{card}]")
     return total
 
@@ -1817,9 +1847,14 @@ def main() -> None:
     _build.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
+    entry = ""
     for line in _build.build_log.splitlines():
+        found = re.search(r"entry function '(\w+)'", line)
+        if found:  # the mangled name: the kernel's name and template arguments are readable
+            kernel = re.search(r"\d+([a-z_0-9]+kernel\w*?)(?:EvP|Ev)", found.group(1))
+            entry = kernel.group(1) if kernel else found.group(1)[:60]
         if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+            print(f"  ptxas {entry}:", line.strip())
 
     from human_instance_segmentation_tpu_torch.ops import quant
 

@@ -8,39 +8,67 @@
 // (_tail_kernel :138-255). That kernel takes its input in space-to-depth
 // form, runs per-phase matmuls with one-hot permutations and recomputes the
 // outer six rows and columns outside the kernel. None of that comes along:
-// this kernel reads the plain decoder output (any strides, so an NCHW
-// tensor viewed as NHWC needs no copy), clamps the upsample at the image
-// edge itself and zero-pads each conv's full-resolution input by global
+// these kernels read the plain decoder output (any strides, so an NCHW
+// tensor viewed as NHWC needs no copy), clamp the upsample at the image
+// edge themselves and zero-pad each conv's full-resolution input by global
 // coordinate, so one launch gives the whole map.
 //
 // Arithmetic (the plain version, ops/cuda_tail.py::tail_plain, does the
-// same): inputs and weights are read in their dtype (float32 or bfloat16)
-// and widened; everything in between is float32 (upsample with separate
-// multiplies and adds, rows first; conv sums; BN as one scale and shift per
-// channel, folded by the wrapper); the logit is rounded once to the input's
-// dtype on store.
+// same). BN is one float32 scale and shift per channel (folded by the
+// wrapper), applied to the float32 conv sum as a multiply, then an add, then
+// the ReLU; the upsample is computed in float32, rows first, each weight a
+// separate multiply and add, so it is equal to the plain version's bit for
+// bit.
+//   float32 (tail_kernel): everything between input and logit is float32.
+//   bfloat16 (tail_bf16_kernel): each conv multiplies bf16 operands with
+//   float32 sums; the upsampled input, conv0's and conv1's outputs after BN
+//   and ReLU are rounded to bf16 (the JAX kernel's rule, with BN kept as a
+//   float32 epilogue instead of being folded into the weights before they
+//   are rounded). Both round the logit once on store.
 //
-// Design: one block per TH x TW output tile. Shared memory holds the
+// Bound: operations. 2 * 9 * (Ci*C + C*C + C) FLOP per output pixel (14,112
+// at Ci 32, C 16) against 2*Ci/4 + 2 bytes (bf16): 0.14 ms for a batch of 32
+// at 480x640 on the bf16 tensor cores.
+//
+// float32 design: one block per TH x TW output tile. Shared memory holds the
 // upsampled input with a 3-pixel halo for IC input channels at a time as
 // channel planes (the input channels are walked in chunks, the conv0 sums
 // stay in registers), then conv0's output with a 2-pixel halo, conv1's with
 // a 1-pixel halo, and the weights. A thread owns PX vertically adjacent
-// pixels of one column and OC output channels: PX + 2 shared-memory loads of
-// a column feed 3 taps x PX pixels x OC FMAs, the weights come as broadcast
-// float4 loads. The kernel is bound by latency more than by issue slots:
-// PX = 2 with 384 threads (24 warps an SM) ran 20% faster than PX = 4 with
-// 192 on the H100. Channel counts are padded to OC by the wrapper (zero
-// weights), so Ci and C are free; the launcher refuses what does not fit
-// shared memory.
+// pixels of one column and OC output channels on the float32 units.
 //
-// Bound: operations. 2 * 9 * (Ci*C + C*C + C) FLOP per output pixel
-// (14,112 at Ci 32, C 16) against 2*Ci/4 + 2 bytes (bf16); this kernel runs
-// them on the float32 units, not the tensor cores.
+// bfloat16 design: each 3x3 conv is an implicit GEMM on the tensor cores
+// (mma.sync m16n8k16, fragments by ldmatrix): M = the pixels of the conv's
+// output region, flattened; K = 9 taps x 16-channel groups; N = 16 output
+// channels (8 for the head, whose seven extra columns are zero weights). A
+// warp owns two 16-pixel M tiles and all N. Activations lie pixel-major with
+// the channels fastest and 16 bytes of padding per pixel (so the eight rows
+// of an ldmatrix fall into different bank groups): a K step is one tap's 16
+// channels of 16 consecutive output pixels, read at the tap's shifted pixel.
+// Per 24 x 16 output tile a block of 8 warps stages the half-resolution
+// source cells as bf16 planes, upsamples them into bf16 (the taps clamped
+// into the image, zero outside it), runs conv0 over
+// the 28 x 20 region conv1 needs, conv1 over 26 x 18 (into the upsample's
+// buffer) and the head. 106 KB of shared memory, two blocks per SM; each
+// block loads the weights once and walks tiles, and on the served NCHW
+// memory the next tile's source cells arrive by cp.async while it computes
+// the current one.
+//
+// Why the upsample is computed and not composed into conv0 (a half-resolution
+// 3x3 conv with N = 4 x 16, as the JAX kernel and tail_q.cu do): the rule
+// above rounds the upsampled input, which composing would skip, and the
+// product is the same size either way (9 Ci x 16 multiply-adds per output
+// pixel). What composing would save is the upsample's arithmetic; switched
+// off in scripts/profile_torch_kernels.py it was 0.62 of 2.02 ms before the
+// 2 x 2 pixel pairing below cut its cell reads by four, against a kernel that
+// must then clamp its taps by coordinate at every border tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -57,11 +85,6 @@ constexpr int Y1G = (Y1H + PX - 1) / PX;         // conv1 row groups (the last m
 static_assert(Y0H % PX == 0 && TH % PX == 0, "row groups");
 static_assert(Y1G * PX + 2 <= Y0H_ALLOC, "conv1 reads stay inside y0");
 static_assert((Y0H / PX) * Y0W <= THREADS && Y1G * Y1W <= THREADS, "one item per thread");
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // One axis of the 2x half-pixel upsample at full-resolution index g of a
 // source of n: the two source indices and weights, in the plain version's
@@ -112,12 +135,11 @@ __device__ __forceinline__ void conv_accumulate(float (&acc)[PX][OC], const floa
 // w0: (9, Cip, Cp) float32, Cip a multiple of IC and Cp of OC, zero beyond
 // the real channels; st0/st1: (2, Cp) scale then shift; w1: (9, Cp, Cp);
 // wh: (9, Cp); bh: (1,) float32; out: (B, 2h, 2w) contiguous.
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-tail_kernel(const T* __restrict__ x, long long sb, long long sh, long long sw, long long sc,
+tail_kernel(const float* __restrict__ x, long long sb, long long sh, long long sw, long long sc,
             const float* __restrict__ w0, const float* __restrict__ st0,
             const float* __restrict__ w1, const float* __restrict__ st1,
-            const float* __restrict__ wh, const float* __restrict__ bh, T* __restrict__ out,
+            const float* __restrict__ wh, const float* __restrict__ bh, float* __restrict__ out,
             int h, int w, int Ci, int Cip, int Cp) {
   extern __shared__ __align__(16) float smem[];
   const int H = 2 * h, W = 2 * w;
@@ -134,7 +156,7 @@ tail_kernel(const T* __restrict__ x, long long sb, long long sh, long long sw, l
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  const T* xb = x + (long long)b * sb;
+  const float* xb = x + (long long)b * sb;
 
   for (int i = tid; i < 9 * Cp * Cp; i += THREADS) w1s[i] = w1[i];
   for (int i = tid; i < 9 * Cp; i += THREADS) whs[i] = wh[i];
@@ -170,11 +192,11 @@ tail_kernel(const T* __restrict__ x, long long sb, long long sh, long long sw, l
           float wy0, wy1, wx0, wx1;
           up_taps(gy, h, i0, i1, wy0, wy1);
           up_taps(gx, w, j0, j1, wx0, wx1);
-          const T* xc = xb + (long long)ci * sc;
-          const float a = __fadd_rn(__fmul_rn(wy0, to_f(xc[i0 * sh + j0 * sw])),
-                                    __fmul_rn(wy1, to_f(xc[i1 * sh + j0 * sw])));
-          const float d = __fadd_rn(__fmul_rn(wy0, to_f(xc[i0 * sh + j1 * sw])),
-                                    __fmul_rn(wy1, to_f(xc[i1 * sh + j1 * sw])));
+          const float* xc = xb + (long long)ci * sc;
+          const float a = __fadd_rn(__fmul_rn(wy0, xc[i0 * sh + j0 * sw]),
+                                    __fmul_rn(wy1, xc[i1 * sh + j0 * sw]));
+          const float d = __fadd_rn(__fmul_rn(wy0, xc[i0 * sh + j1 * sw]),
+                                    __fmul_rn(wy1, xc[i1 * sh + j1 * sw]));
           val = __fadd_rn(__fmul_rn(wx0, a), __fmul_rn(wx1, d));
         }
         u[cl * (UH * UW) + px] = val;
@@ -255,7 +277,7 @@ tail_kernel(const T* __restrict__ x, long long sb, long long sh, long long sw, l
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const int gy = ty0 + rg * PX + p;
-      if (gy < H && gx < W) store(out + ((long long)b * H + gy) * W + gx, acc[p] + bias);
+      if (gy < H && gx < W) out[((long long)b * H + gy) * W + gx] = acc[p] + bias;
     }
   }
 }
@@ -267,44 +289,460 @@ size_t tail_smem_bytes(int Cp) {
                           9 * (size_t)Cp + 4 * (size_t)Cp);
 }
 
-template <typename T>
-int launch(const void* x, long long sb, long long sh, long long sw, long long sc, const float* w0,
+int launch(const float* x, long long sb, long long sh, long long sw, long long sc, const float* w0,
            const float* st0, const float* w1, const float* st1, const float* wh,
-           const float* bh, void* out, int B, int h, int w, int Ci, int Cip, int Cp,
+           const float* bh, float* out, int B, int h, int w, int Ci, int Cip, int Cp,
            cudaStream_t stream) {
   const size_t smem = tail_smem_bytes(Cp);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(tail_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(tail_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((2 * w + TW - 1) / TW, (2 * h + TH - 1) / TH, B);
-  tail_kernel<T><<<grid, THREADS, smem, stream>>>(static_cast<const T*>(x), sb, sh, sw, sc, w0,
-                                                  st0, w1, st1, wh, bh, static_cast<T*>(out), h,
-                                                  w, Ci, Cip, Cp);
+  tail_kernel<<<grid, THREADS, smem, stream>>>(x, sb, sh, sw, sc, w0, st0, w1, st1, wh, bh, out, h,
+                                                w, Ci, Cip, Cp);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bfloat16 route on the tensor cores ------------------------------------
+
+namespace bf {
+
+using namespace hist_mma;
+
+constexpr int TH = 24, TW = 16;                   // output tile (full resolution)
+constexpr int THREADS = 256, WARPS = THREADS / 32;
+constexpr int MT = 2;                             // 16-pixel M tiles per warp and step
+constexpr int UH = TH + 6, UW = TW + 6;           // upsampled input, halo 3
+constexpr int Y0H = TH + 4, Y0W = TW + 4;         // conv0 output, halo 2
+constexpr int Y1H = TH + 2, Y1W = TW + 2;         // conv1 output, halo 1
+constexpr int SH = TH / 2 + 4, SW = TW / 2 + 4;   // half-resolution source cells
+// bf16 per channel plane of the staged cells: rows stay 4-byte aligned, and
+// 97 words (odd) keep channel-fastest stores free of bank conflicts
+constexpr int SPLANE = SH * SW + 2;
+// bytes per weight row (one K step's 16 bf16); rows n with bit 2 set hold
+// their two 16-byte halves swapped, so the eight rows of an ldmatrix fall
+// into different bank groups without padding
+constexpr int WROW = 32;
+
+// bytes per pixel of an activation buffer with g groups of 16 channels: the
+// 16 bytes of padding make it an odd multiple of 16 (conflict-free ldmatrix)
+__host__ __device__ constexpr int pix_bytes(int g) { return 32 * g + 16; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+struct Layout {  // byte offsets into dynamic shared memory
+  int fp, w0, w1, wh, u, y0, cells, total;
+};
+
+// fp: s0, t0, s1, t1 (Cp each), bh, padding; w0 [9 G0][Cp] rows, w1 [9
+// G1][Cp], wh [9 G1][8] (WROW bytes each); u: the upsampled input, later
+// conv1's output; y0: conv0's output; cells: the half-resolution source
+// cells [Cip][SPLANE] bf16, the next tile's arriving while a tile computes
+__host__ __device__ constexpr Layout layout(int g0, int g1) {
+  Layout L{};
+  int o = 0;
+  L.fp = o; o += (4 * 16 * g1 + 4) * 4;
+  L.w0 = o; o += 9 * g0 * 16 * g1 * WROW;
+  L.w1 = o; o += 9 * g1 * 16 * g1 * WROW;
+  L.wh = o; o += 9 * g1 * 8 * WROW;
+  L.u = o;  o += imax(UH * UW * pix_bytes(g0), Y1H * Y1W * pix_bytes(g1));
+  L.y0 = o; o += Y0H * Y0W * pix_bytes(g1);
+  L.cells = o; o += (16 * g0 * SPLANE * 2 + 15) / 16 * 16;
+  L.total = o;
+  return L;
+}
+
+// acc[mt][nt] = the (16 x 8) tile (M tile m0 / 16 + mt, N tile nt) of a 3x3
+// conv as a product. src: bf16 activations pixel-major, pix_bytes(G) per
+// pixel, srcw pixels a row; output pixel m of the outw-wide region reads the
+// 3x3 window whose top-left pixel is m's row and column (rows past M read the
+// last pixel; the caller drops them). wsm: [9 G][8 NT] rows of WROW bytes, K step
+// (dy * 3 + dx) * G + cg holding, in row n, the weights of channels 16 cg ...
+// 16 cg + 15 of tap (dy, dx) for output n.
+template <int G, int NT, bool ON = true>  // ON false: zero sums (profiling builds only)
+__device__ __forceinline__ void conv3x3(float (&acc)[MT][NT][4], uint32_t src, int srcw, int outw,
+                                        int M, int m0, uint32_t wsm, int lane) {
+  constexpr int PB = pix_bytes(G);
+  const int q = lane >> 3, r = lane & 7;
+  uint32_t a_base[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int m = min(m0 + 16 * mt + r + 8 * (q & 1), M - 1);
+    a_base[mt] = src + ((m / outw) * srcw + m % outw) * PB + (q >> 1) * 16;
+  }
+  const uint32_t b_base = wsm + ((q >> 1) * 8 + r) * WROW + (((q & 1) ^ ((r >> 2) & 1)) * 16);
+  __syncwarp();  // the epilogue before diverges; ldmatrix and mma.sync need the whole warp
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
+  if (!ON) return;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+#pragma unroll
+    for (int cg = 0; cg < G; ++cg) {
+      const int ks = tap * G + cg;
+      const uint32_t aoff = ((tap / 3) * srcw + tap % 3) * PB + cg * 32;
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], a_base[mt] + aoff);
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        const uint32_t baddr = b_base + (ks * 8 * NT + nt * 8) * WROW;
+        if (nt + 1 < NT) {
+          uint32_t b[4];
+          ldsm_x4(b, baddr);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
+            mma_bf16(acc[mt][nt + 1], a[mt], b[2], b[3]);
+          }
+        } else {
+          uint32_t b[2];
+          ldsm_x2(b, baddr);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
+        }
+      }
+    }
+  }
+}
+
+// BN (multiply, then add), ReLU, rounded to bf16; zero outside the image (the
+// next conv's padding). The region starts at global (gy0, gx0) and is outw
+// wide; dst is pixel-major with pix_bytes(NT / 2) per pixel.
+template <int NT>
+__device__ __forceinline__ void store_bn_relu(const float (&acc)[MT][NT][4], unsigned char* dst,
+                                              int M, int m0, int outw, int gy0, int gx0, int H,
+                                              int W, const float* scale, const float* shift,
+                                              int lane) {
+  constexpr int PB = pix_bytes(NT / 2);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + 16 * mt + g + 8 * half;
+      if (m >= M) continue;
+      const int r = m / outw, c = m - r * outw;
+      const int gy = gy0 + r, gx = gx0 + c;
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int o = nt * 8 + 2 * t;
+        const float* a = acc[mt][nt] + 2 * half;
+        const float v0 = fmaxf(__fadd_rn(__fmul_rn(a[0], scale[o]), shift[o]), 0.0f);
+        const float v1 = fmaxf(__fadd_rn(__fmul_rn(a[1], scale[o + 1]), shift[o + 1]), 0.0f);
+        *reinterpret_cast<uint32_t*>(dst + m * PB + o * 2) = inside ? pack_bf16x2(v0, v1) : 0u;
+      }
+    }
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// x: logical (B, h, w, Ci) bf16 with element strides sb, sh, sw, sc; w0, w1,
+// wh, fp as layout() lists them (ops/cuda_tail.py::pack_tail_weights lays
+// them out in device memory; fp's padding is not read); out (B, 2h, 2w).
+// Cip = 16 G0 >= Ci, Cp = 16 G1 >= C; padded channels have zero weights,
+// scales and shifts. A block loads the weights once and walks the output
+// tiles blockIdx.x, + gridDim.x, ... With `async` (channel planes whose
+// column pairs are 4-byte aligned: the served NCHW memory) the next tile's
+// source cells are copied with cp.async while the block computes the
+// current one; otherwise each tile loads them when it starts.
+template <int G0, int G1>
+__global__ void __launch_bounds__(THREADS, 2)
+tail_bf16_kernel(const __nv_bfloat16* __restrict__ x, long long sb, long long sh, long long sw,
+                 long long sc, const __nv_bfloat16* __restrict__ w0,
+                 const __nv_bfloat16* __restrict__ w1, const __nv_bfloat16* __restrict__ wh,
+                 const float* __restrict__ fp, __nv_bfloat16* __restrict__ out, int B, int h,
+                 int w, int Ci, int async) {
+  constexpr int Cip = 16 * G0, Cp = 16 * G1;
+  constexpr Layout L = layout(G0, G1);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* fps = reinterpret_cast<float*>(smem + L.fp);
+  unsigned char* us = smem + L.u;
+  unsigned char* y0s = smem + L.y0;
+  __nv_bfloat16* cells = reinterpret_cast<__nv_bfloat16*>(smem + L.cells);
+
+  const int H = 2 * h, W = 2 * w;
+  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const int ntiles = tiles_x * tiles_y * B;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  for (int i = tid; i < 4 * Cp + 1; i += THREADS) fps[i] = fp[i];
+  {
+    constexpr int n0 = (L.w1 - L.w0) / 16, n1 = (L.wh - L.w1) / 16;
+    const uint4* src0 = reinterpret_cast<const uint4*>(w0);
+    const uint4* src1 = reinterpret_cast<const uint4*>(w1);
+    const uint4* srch = reinterpret_cast<const uint4*>(wh);
+    uint4* dst = reinterpret_cast<uint4*>(smem + L.w0);  // w0, w1, wh lie back to back
+    batched_copy<8>((L.u - L.w0) / 16, THREADS, [&](int i) {
+      return i < n0 ? src0[i] : i < n0 + n1 ? src1[i - n0] : srch[i - n0 - n1];
+    }, [&](int i, uint4 v) { dst[i] = v; });
+  }
+  const float* s0 = fps;
+  const float* t0 = fps + Cp;
+  const float* s1 = fps + 2 * Cp;
+  const float* t1 = fps + 3 * Cp;
+
+  // The source cells of a tile: rows ty0 / 2 - 2 ... (SH), columns tx0 / 2 -
+  // 2 ... (SW), channels < Ci; cells outside the image are not loaded (the
+  // upsample clamps its taps into the image, which is its edge rule).
+  auto corner = [&](int tile, int& b, int& ty0, int& tx0) {
+    b = tile / (tiles_x * tiles_y);
+    const int rest = tile - b * tiles_x * tiles_y;
+    ty0 = (rest / tiles_x) * TH;
+    tx0 = (rest % tiles_x) * TW;
+  };
+  auto prefetch = [&](int tile) {  // channel planes, two columns per 4-byte copy
+    int b, ty0, tx0;
+    corner(tile, b, ty0, tx0);
+    const __nv_bfloat16* xb = x + b * sb;
+    const uint32_t base = smem_addr(cells);
+    for (int i = tid; i < Ci * SH * (SW / 2); i += THREADS) {
+      const int c = i / (SH * (SW / 2)), rest = i - c * (SH * (SW / 2));
+      const int r = rest / (SW / 2), k = rest - r * (SW / 2);
+      const int gi = ty0 / 2 - 2 + r, gj = tx0 / 2 - 2 + 2 * k;
+      if (gi >= 0 && gi < h && gj >= 0 && gj < w && !skip(1))
+        cp_async4(base + (c * SPLANE + r * SW + 2 * k) * 2, xb + c * sc + gi * sh + gj);
+    }
+    cp_async_commit();
+  };
+
+  if (async && (int)blockIdx.x < ntiles) prefetch(blockIdx.x);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    int b, ty0, tx0;  // ty0, tx0 even
+    corner(tile, b, ty0, tx0);
+    const int si0 = ty0 / 2 - 2, sj0 = tx0 / 2 - 2;
+    if (async) {
+      cp_async_wait_all();
+    } else {  // sc == 1 (channels innermost): neighbouring threads, neighbouring channels
+      const __nv_bfloat16* xb = x + b * sb;
+      auto where = [&](int i, int& c, int& p) {
+        if (sc == 1) {
+          c = i % Cip; p = i / Cip;
+        } else {
+          p = i % (SH * SW); c = i / (SH * SW);
+        }
+      };
+      batched_copy<8>(Cip * SH * SW, THREADS, [&](int i) {
+        int c, p;
+        where(i, c, p);
+        const int gi = min(max(si0 + p / SW, 0), h - 1), gj = min(max(sj0 + p % SW, 0), w - 1);
+        return (c < Ci && !skip(1)) ? xb[gi * sh + gj * sw + c * sc] : __float2bfloat16_rn(0.0f);
+      }, [&](int i, __nv_bfloat16 v) {
+        int c, p;
+        where(i, c, p);
+        cells[c * SPLANE + p] = v;
+      });
+    }
+    __syncthreads();  // the cells are in; the last tile's head is done with u
+
+    // ---- upsample into u, 2 x 2 pixels at a time. u starts at an odd row and
+    // column (ty0 - 3, tx0 - 3), so the pixels 2k + 1 and 2k + 2 of a pair both
+    // interpolate between cells i and i + 1 (0.75, 0.25 and 0.25, 0.75), the
+    // cell indices clamped into the image (the edge rule); rows first, each
+    // weight a separate multiply and add, as the plain version does. Zero
+    // outside the image (conv0's padding) and past Ci. A thread writes 8
+    // channels of the four pixels.
+    {
+      constexpr int PB = pix_bytes(G0), BH = UH / 2, BW = UW / 2;
+      static_assert(UH % 2 == 0 && UW % 2 == 0, "pixel pairs");
+      for (int it = tid; it < BH * BW * (Cip / 8); it += THREADS) {
+        const int q = it % (BH * BW), c8 = it / (BH * BW);
+        const int br = q / BW, bc = q - br * BW;
+        const int gy = ty0 - 3 + 2 * br, gx = tx0 - 3 + 2 * bc;  // odd
+        const int ra = max(gy >> 1, 0) - si0, rb = min((gy >> 1) + 1, h - 1) - si0;
+        const int ca = max(gx >> 1, 0) - sj0, cb = min((gx >> 1) + 1, w - 1) - sj0;
+        bool inside[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int y = gy + (k >> 1), xx = gx + (k & 1);
+          inside[k] = y >= 0 && y < H && xx >= 0 && xx < W && 8 * c8 < Ci && !skip(2);
+        }
+        uint32_t words[4][4];  // [pixel (row-major in the 2 x 2)][channel pair]
+        if (inside[0] || inside[1] || inside[2] || inside[3]) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float val[4][2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = c8 * 8 + 2 * k + e;
+              const __nv_bfloat16* cs = cells + c * SPLANE;
+              const float c00 = __bfloat162float(cs[ra * SW + ca]);
+              const float c01 = __bfloat162float(cs[ra * SW + cb]);
+              const float c10 = __bfloat162float(cs[rb * SW + ca]);
+              const float c11 = __bfloat162float(cs[rb * SW + cb]);
+              // rows: the odd pixel row (0.75, 0.25), the even one (0.25, 0.75)
+              const float ta = __fadd_rn(__fmul_rn(0.75f, c00), __fmul_rn(0.25f, c10));
+              const float tb = __fadd_rn(__fmul_rn(0.75f, c01), __fmul_rn(0.25f, c11));
+              const float ba = __fadd_rn(__fmul_rn(0.25f, c00), __fmul_rn(0.75f, c10));
+              const float bb = __fadd_rn(__fmul_rn(0.25f, c01), __fmul_rn(0.75f, c11));
+              const bool real = c < Ci;
+              val[0][e] = real ? __fadd_rn(__fmul_rn(0.75f, ta), __fmul_rn(0.25f, tb)) : 0.0f;
+              val[1][e] = real ? __fadd_rn(__fmul_rn(0.25f, ta), __fmul_rn(0.75f, tb)) : 0.0f;
+              val[2][e] = real ? __fadd_rn(__fmul_rn(0.75f, ba), __fmul_rn(0.25f, bb)) : 0.0f;
+              val[3][e] = real ? __fadd_rn(__fmul_rn(0.25f, ba), __fmul_rn(0.75f, bb)) : 0.0f;
+            }
+#pragma unroll
+            for (int px = 0; px < 4; ++px) words[px][k] = pack_bf16x2(val[px][0], val[px][1]);
+          }
+        }
+#pragma unroll
+        for (int px = 0; px < 4; ++px) {
+          const uint4 v = inside[px] ? make_uint4(words[px][0], words[px][1], words[px][2],
+                                                  words[px][3])
+                                     : make_uint4(0u, 0u, 0u, 0u);
+          const int p = (2 * br + (px >> 1)) * UW + 2 * bc + (px & 1);
+          *reinterpret_cast<uint4*>(us + p * PB + c8 * 16) = v;
+        }
+      }
+    }
+    __syncthreads();  // u complete; the cells are no longer read
+    if (async && tile + (int)gridDim.x < ntiles) prefetch(tile + gridDim.x);
+
+    // ---- conv0 over u -> y0 (28 x 20 region from (ty0 - 2, tx0 - 2))
+    {
+      constexpr int M = Y0H * Y0W, NT = 2 * G1;
+      for (int m0 = warp * 16 * MT; m0 < M; m0 += WARPS * 16 * MT) {
+        float acc[MT][NT][4];
+        conv3x3<G0, NT, !skip(4)>(acc, smem_addr(us), UW, Y0W, M, m0, smem_addr(smem + L.w0),
+                                  lane);
+        store_bn_relu<NT>(acc, y0s, M, m0, Y0W, ty0 - 2, tx0 - 2, H, W, s0, t0, lane);
+      }
+    }
+    __syncthreads();  // y0 complete; u is no longer read: y1 takes its place
+
+    // ---- conv1 over y0 -> y1 (26 x 18 region from (ty0 - 1, tx0 - 1))
+    {
+      constexpr int M = Y1H * Y1W, NT = 2 * G1;
+      for (int m0 = warp * 16 * MT; m0 < M; m0 += WARPS * 16 * MT) {
+        float acc[MT][NT][4];
+        conv3x3<G1, NT, !skip(8)>(acc, smem_addr(y0s), Y0W, Y1W, M, m0, smem_addr(smem + L.w1),
+                                  lane);
+        store_bn_relu<NT>(acc, us, M, m0, Y1W, ty0 - 1, tx0 - 1, H, W, s1, t1, lane);
+      }
+    }
+    __syncthreads();
+
+    // ---- seg head over y1: column 0 of the 8-wide product is the logit; an
+    // M tile is one 16-pixel row of the output tile
+    {
+      constexpr int M = TH * TW;
+      const int g = lane >> 2, t = lane & 3;
+      const float bh = fps[4 * Cp];
+      for (int m0 = warp * 16 * MT; m0 < M; m0 += WARPS * 16 * MT) {
+        float acc[MT][1][4];
+        conv3x3<G1, 1, !skip(16)>(acc, smem_addr(us), Y1W, TW, M, m0, smem_addr(smem + L.wh),
+                                  lane);
+        if (t == 0) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int m = m0 + 16 * mt + g + 8 * half;
+              const int gy = ty0 + m / TW, gx = tx0 + m % TW;
+              if (m < M && gy < H && gx < W)
+                out[((size_t)b * H + gy) * W + gx] =
+                    __float2bfloat16_rn(__fadd_rn(acc[mt][0][2 * half], bh));
+            }
+        }
+      }
+    }
+  }
+}
+
+template <int G0, int G1>
+int launch(const void* x, long long sb, long long sh, long long sw, long long sc, const void* w0,
+           const void* w1, const void* wh, const void* fp, void* out, int B, int h, int w,
+           int Ci, cudaStream_t stream) {
+  constexpr Layout L = layout(G0, G1);
+  if (L.total > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(tail_bf16_kernel<G0, G1>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tail_bf16_kernel<G0, G1>,
+                                                           THREADS, L.total)) != cudaSuccess)
+    return static_cast<int>(err);
+  const long long ntiles = (long long)((2 * w + TW - 1) / TW) * ((2 * h + TH - 1) / TH) * B;
+  const int blocks = (int)(ntiles < (long long)sms * per_sm ? ntiles : (long long)sms * per_sm);
+  // cp.async moves 4-byte column pairs of a channel plane: they must be aligned
+  const int async = sc != 1 && sw == 1 && sh % 2 == 0 && sc % 2 == 0 && sb % 2 == 0 && w % 2 == 0 &&
+                    reinterpret_cast<std::uintptr_t>(x) % 4 == 0;
+  tail_bf16_kernel<G0, G1><<<blocks, THREADS, L.total, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), sb, sh, sw, sc, static_cast<const __nv_bfloat16*>(w0),
+      static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(wh),
+      static_cast<const float*>(fp), static_cast<__nv_bfloat16*>(out), B, h, w, Ci, async);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G0>
+int launch_g1(int g1, const void* x, long long sb, long long sh, long long sw, long long sc,
+              const void* w0, const void* w1, const void* wh, const void* fp, void* out, int B,
+              int h, int w, int Ci, cudaStream_t stream) {
+  if (g1 == 1) return launch<G0, 1>(x, sb, sh, sw, sc, w0, w1, wh, fp, out, B, h, w, Ci, stream);
+  if (g1 == 2) return launch<G0, 2>(x, sb, sh, sw, sc, w0, w1, wh, fp, out, B, h, w, Ci, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace bf
+
 }  // namespace
 
-// Shared memory the kernel needs at padded width Cp, for the wrapper's check.
+// Shared memory the float32 kernel needs at padded width Cp, for the wrapper's check.
 extern "C" int tail_smem_bytes_for(int Cp) { return (int)tail_smem_bytes(Cp); }
 
+// float32: x and its element strides (batch, row, column, channel), the
+// weights padded to Cip / Cp as ops/cuda_tail.py::tail lays them out.
 extern "C" int tail_launch(const void* x, long long sb, long long sh, long long sw, long long sc,
                            const void* w0, const void* st0, const void* w1, const void* st1,
                            const void* wh, const void* bh, void* out, int B, int h, int w, int Ci,
-                           int Cip, int Cp, int dtype, void* stream_ptr) {
+                           int Cip, int Cp, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if ((size_t)B * h * w == 0) return 0;
   if (Cip % IC != 0 || Cp % OC != 0 || Cip < Ci) return static_cast<int>(cudaErrorInvalidValue);
-  const float* f0 = static_cast<const float*>(w0);
-  const float* s0 = static_cast<const float*>(st0);
-  const float* f1 = static_cast<const float*>(w1);
-  const float* s1 = static_cast<const float*>(st1);
-  const float* fh = static_cast<const float*>(wh);
-  const float* fb = static_cast<const float*>(bh);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, sb, sh, sw, sc, f0, s0, f1, s1, fh, fb, out, B, h, w, Ci, Cip,
-                                 Cp, stream);
-  return launch<float>(x, sb, sh, sw, sc, f0, s0, f1, s1, fh, fb, out, B, h, w, Ci, Cip, Cp,
-                       stream);
+  return launch(static_cast<const float*>(x), sb, sh, sw, sc, static_cast<const float*>(w0),
+                static_cast<const float*>(st0), static_cast<const float*>(w1),
+                static_cast<const float*>(st1), static_cast<const float*>(wh),
+                static_cast<const float*>(bh), static_cast<float*>(out), B, h, w, Ci, Cip, Cp,
+                stream);
+}
+
+// Shared memory the bfloat16 kernel needs with g0 and g1 16-channel groups (not a launcher).
+extern "C" int tail_bf16_smem_bytes_for(int g0, int g1) { return bf::layout(g0, g1).total; }
+
+// bfloat16: x and its element strides (batch, row, column, channel); w0, w1,
+// wh, fp as ops/cuda_tail.py::pack_tail_weights lays them out; g0 = Cip / 16
+// in 1..4, g1 = Cp / 16 in 1..2, within the shared memory of a block
+// (tail_bf16_smem_bytes_for).
+extern "C" int tail_bf16_launch(const void* x, long long sb, long long sh, long long sw,
+                                long long sc, const void* w0, const void* w1, const void* wh,
+                                const void* fp, void* out, int B, int h, int w, int Ci, int g0,
+                                int g1, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if ((size_t)B * h * w == 0) return 0;
+  if (Ci > 16 * g0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (g0) {
+#define HIST_TAIL_LAUNCH(G0_) \
+  return bf::launch_g1<G0_>(g1, x, sb, sh, sw, sc, w0, w1, wh, fp, out, B, h, w, Ci, stream)
+    case 1: HIST_TAIL_LAUNCH(1);
+    case 2: HIST_TAIL_LAUNCH(2);
+    case 3: HIST_TAIL_LAUNCH(3);
+    case 4: HIST_TAIL_LAUNCH(4);
+#undef HIST_TAIL_LAUNCH
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -22,6 +22,7 @@ there is no CUDA, and the engine serves on its model's device.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -93,12 +94,14 @@ def deployed_outputs(
 class InferenceEngine:
     """Bucketed inference for the flagship model on one device.
 
-    ``dtype`` is float32 or bfloat16: the model's weights and the images are
-    cast to it (LayerNorm2d statistics stay float32). ``fused_head=True``
-    routes the stage-2 conv + LayerNorm2d + ReLU units that pass the JAX
-    package's gate through the fused CUDA kernel; the flag is set on the
-    model at every call, as JAX's ``head_fusion()`` context is entered at
-    every trace.
+    The engine serves its own copy of ``model`` (``engine.model``), cast to
+    ``dtype`` (float32 or bfloat16; LayerNorm2d statistics stay float32) on
+    ``device`` and in eval mode: the caller's model keeps its dtype, device,
+    mode and serving switches, as the JAX engine leaves ``params`` alone.
+    ``fused_head=True`` routes the stage-2 conv + LayerNorm2d + ReLU units
+    that pass the JAX package's gate through the fused CUDA kernel; the flag
+    is set on the copy at every call, as JAX's ``head_fusion()`` context is
+    entered at every trace.
 
     ``quantize="int8"`` runs every eligible, not denied :class:`QConv` in
     s8 x s8 -> s32 (``int8_deny`` path substrings stay in ``dtype``; the
@@ -135,7 +138,7 @@ class InferenceEngine:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         dev = (resolve_device(device) if device is not None
                else next(model.parameters()).device)
-        self.model = model.to(device=dev, dtype=dtype).eval()
+        self.model = copy.deepcopy(model).to(device=dev, dtype=dtype).eval()
         self.device = dev
         self.dtype = dtype
         self.dilation_pixels = dilation_pixels

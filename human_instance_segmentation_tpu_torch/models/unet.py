@@ -91,7 +91,7 @@ class PeopleSegmentationUNet(nn.Module):
         self.tail_scales: Optional[Tuple[float, float, float]] = None
         # {(sub-path, tag): [abs-max, ...]} while ops.quant.calibration records
         self.calib_tags: Optional[Dict[Tuple[str, str], list]] = None
-        self._tail_q = None  # (key, weights kept alive, packed operands)
+        self._tail_packed = None  # (key, weights kept alive, packed operands)
         self.normalize_mean = tuple(normalize_mean)
         self.normalize_std = tuple(normalize_std)
         self.encoder = EfficientNetEncoder(encoder_variant, fused_blocks=encoder_fused_blocks)
@@ -137,19 +137,24 @@ class PeopleSegmentationUNet(nn.Module):
             return "int8"
         return "float"
 
-    def _tail_q_operands(self, operands, dtype: torch.dtype):
-        """The s8 tail's packed kernel operands, made once and kept until a
-        weight, a BN statistic or a scale changes."""
+    def _tail_operands(self, operands, dtype: torch.dtype, form: str):
+        """The fused tail's packed kernel operands (the s8 tail's for
+        ``"int8"``, the bf16 tail's for ``"float"``), made once and kept until
+        a weight, a BN statistic or a scale changes."""
         tensors = [operands[0], *operands[1], operands[2], *operands[3], *operands[4:]]
         if any(t.is_inference() for t in tensors):
             return None
-        key = (dtype, self.tail_scales,
+        key = (form, dtype, self.tail_scales if form == "int8" else None,
                tuple((t.device, t.data_ptr(), t._version) for t in tensors))
-        if self._tail_q is None or self._tail_q[0] != key:
+        if self._tail_packed is None or self._tail_packed[0] != key:
             with torch.inference_mode(False), torch.no_grad():
-                wq = cuda_tail.build_tail_weights_q(*operands, *self.tail_scales)
-                self._tail_q = (key, tensors, cuda_tail.pack_tail_weights_q(wq))
-        return self._tail_q[2]
+                if form == "int8":
+                    wq = cuda_tail.build_tail_weights_q(*operands, *self.tail_scales)
+                    packed = cuda_tail.pack_tail_weights_q(wq)
+                else:
+                    packed = cuda_tail.pack_tail_weights(*operands)
+                self._tail_packed = (key, tensors, packed)
+        return self._tail_packed[2]
 
     def _fused_tail(self, h: torch.Tensor, form: str) -> torch.Tensor:
         """Decoder output (B, Ci, h, w) -> dense logits (B, 2h, 2w)."""
@@ -167,10 +172,13 @@ class PeopleSegmentationUNet(nn.Module):
         if form == "int8":
             if not self.tail_use_kernel:
                 return cuda_tail.tail_q_plain(x, *operands, *self.tail_scales)
-            packed = self._tail_q_operands(operands, h.dtype) if h.is_cuda else None
+            packed = self._tail_operands(operands, h.dtype, form) if h.is_cuda else None
             return cuda_tail.tail_q(x, *operands, *self.tail_scales, packed=packed)
-        fn = cuda_tail.tail if self.tail_use_kernel else cuda_tail.tail_plain
-        return fn(x, *operands)
+        if not self.tail_use_kernel:
+            return cuda_tail.tail_plain(x, *operands)
+        if h.is_cuda and h.dtype == torch.bfloat16:
+            return cuda_tail.tail(x, *operands, packed=self._tail_operands(operands, h.dtype, form))
+        return cuda_tail.tail(x, *operands)
 
     def forward(self, images: torch.Tensor, raw: bool = False):
         """Logits (B, classes, H, W). With ``raw=True`` returns ``(form,

@@ -29,6 +29,10 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Extra ``-D`` definitions (``NAME=VALUE``) of the build, empty for serving:
+# scripts/profile_torch_kernels.py sets ``HIST_SKIP`` to build variants of the
+# kernels with parts switched off, each under its own hashed name.
+DEFINES: tuple = ()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,14 +69,18 @@ SIGNATURES = {
     "bilateral_filter_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # mask (P, H, W) f32, out, P, H, W, blur_strength, threshold, stream
     "edge_smooth_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
-    # x and its element strides (batch, row, column, channel), w0 (9, Cip, Cp),
+    # float32: x and its element strides (batch, row, column, channel), w0 (9, Cip, Cp),
     # scale/shift 0 (2, Cp), w1 (9, Cp, Cp), scale/shift 1, head weights (9, Cp),
-    # head bias (1,), out (B, 2h, 2w), B, h, w, Ci, Cip, Cp,
-    # dtype (0 f32, 1 bf16), stream
-    "tail_launch": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                    _I, _P],
-    # Cp -> bytes of shared memory the tail kernel needs (not a launcher)
+    # head bias (1,), out (B, 2h, 2w), B, h, w, Ci, Cip, Cp, stream
+    "tail_launch": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # Cp -> bytes of shared memory the float32 tail kernel needs (not a launcher)
     "tail_smem_bytes_for": [_I],
+    # bfloat16: x and its element strides (batch, row, column, channel), w0, w1, wh, fp as
+    # ops/cuda_tail.pack_tail_weights lays them out, out (B, 2h, 2w), B, h, w, Ci,
+    # Cip / 16, Cp / 16, stream
+    "tail_bf16_launch": [_P, _L, _L, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # Cip / 16, Cp / 16 -> bytes of shared memory the bf16 tail kernel needs (not a launcher)
+    "tail_bf16_smem_bytes_for": [_I, _I],
     # x and its element strides (batch, channel, row, column), we, be, wdw (k*k, Cm), bdw,
     # se (B, Cm), wp, bp, out and its strides, partial (B, tiles, Cm) f32, B, Ci, Cm, Co, H, W,
     # k, stride, residual, apply (0 sums pass, 1 apply pass), dtype (0 f32, 1 bf16), stream
@@ -80,8 +88,9 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # Ci, Co, k, stride, sizeof(T), expand, apply -> bytes of shared memory (not a launcher)
     "mbconv_smem_bytes_for": [_I, _I, _I, _I, _I, _I, _I],
-    # Ho, Wo -> tiles per image, the middle extent of partial (not a launcher)
-    "mbconv_tiles_for": [_I, _I],
+    # Ho, Wo, stride, sizeof(T) -> tiles per image of pass 1, the middle extent of partial
+    # (not a launcher)
+    "mbconv_tiles_for": [_I, _I, _I, _I],
     # x and its element strides (batch, row, column, channel), xq (B, h, w, Ci) int8,
     # float32(1 / s_x), B, h, w, Ci, dtype (0 f32, 1 bf16), stream
     "tail_q_quantize_launch": [_P, _L, _L, _L, _L, _P, _F, _I, _I, _I, _I, _I, _P],
@@ -94,6 +103,7 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_defines: tuple = ()
 build_seconds: Optional[float] = None
 build_log: str = ""
 
@@ -118,12 +128,16 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _flags():
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in DEFINES))
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
     for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags()).encode())
     return BUILD_DIR / f"libhist_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -142,7 +156,7 @@ def build() -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    procs = [subprocess.Popen([nvcc, *_flags(), "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
     logs = [proc.communicate()[0] for proc in procs]
@@ -165,9 +179,10 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
-    if _lib is None:
+    """The loaded kernel library, built on first use (and again after
+    :data:`DEFINES` changes)."""
+    global _lib, _lib_defines
+    if _lib is None or _lib_defines != DEFINES:
         lib = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
@@ -175,7 +190,7 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.hist_cuda_error_string.argtypes = [ctypes.c_int]
         lib.hist_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib, _lib_defines = lib, DEFINES
     return _lib
 
 

@@ -15,7 +15,11 @@ pads (0, 1), k5 pads (1, 2)); odd extents are refused.
 The CUDA kernel is ``csrc/mbconv.cu``, two launches: :func:`mbconv_sums`
 (per image and channel sums of ``d``) and :func:`mbconv_apply` (recompute
 ``d``, scale, project); the small squeeze-excite products between them are
-plain float32 tensor ops, as the JAX package leaves them to XLA.
+plain float32 tensor ops, as the JAX package leaves them to XLA. In
+bfloat16 the kernel runs both 1x1 products on the tensor cores and its SiLU
+as ``x / (1 + exp(-x))`` with the fast exponential and division, which stays
+within the bf16 tolerance; float32 keeps full-precision ``expf`` and the
+true division on the float32 units.
 ``*_plain`` are the same functions in plain PyTorch: the path for CPU
 tensors and the oracle the kernels are held against.
 
@@ -198,7 +202,7 @@ def mbconv_sums(x, we, be, wdw, bdw, kernel: int = 3, stride: int = 1) -> torch.
     if x.device.type != "cuda":
         raise RuntimeError(f"mbconv_sums: no kernel for device {x.device}")
     b, _, h, w = x.shape
-    tiles = _build.library().mbconv_tiles_for(h // stride, w // stride)
+    tiles = _build.library().mbconv_tiles_for(h // stride, w // stride, stride, x.element_size())
     partial = torch.empty((b, tiles, cm), dtype=torch.float32, device=x.device)
     _launch(x, we, be, wdw.reshape(kernel * kernel, cm), bdw, None, None, None, None, partial,
             (ci, cm, 0), kernel, stride, False, False, "mbconv_sums")

@@ -15,14 +15,24 @@ Layout: ``x`` is the logical NHWC ``(B, h, w, Ci)`` decoder output with any
 strides; the kernel reads through them, so the NCHW tensor of the port's
 modules is passed as ``x.permute(0, 2, 3, 1)`` without a copy.
 
-Rounding rule (kernel and plain version alike): the input, the conv
-weights and the BN parameters are taken in their dtype (float32 or
-bfloat16) and widened to float32; BN (eval, eps 1e-5) is folded to one
-float32 scale and shift per channel, applied to the float32 conv sum;
-every intermediate stays float32; the logit is rounded once to ``x``'s
-dtype. In bfloat16 this is closer to the float32 result than the unfused
-chain the model runs with ``pallas_tail=False``, which rounds to bfloat16
-after the upsample, each conv and each BN.
+Rounding rule (kernel and plain version alike). BN (eval, eps 1e-5) is one
+float32 scale and shift per channel (:func:`fold_bn`), applied to the
+float32 conv sum as a multiply, then an add, then the ReLU; the head's bias
+is a float32 add. The 2x upsample is computed in float32 from the widened
+input, rows first, each weight a separate multiply and add.
+
+- float32 ``x``: the conv weights are widened to float32 whatever their
+  dtype; every intermediate stays float32; the logit is rounded once to
+  ``x``'s dtype.
+- bfloat16 ``x``: each conv multiplies bfloat16 operands with float32 sums
+  (the weights are rounded to bfloat16 if they come in float32), and three
+  activations are rounded to bfloat16: the upsampled input of conv0,
+  conv0's output after BN and ReLU, and conv1's output after BN and ReLU.
+  The logit is rounded once. This is the rule of the JAX kernel
+  (``pallas_tail.py``: bf16 operands, float32 accumulators, each stage's
+  output rounded), with BN kept as a float32 epilogue instead of being
+  folded into the weights before they are rounded, and the upsample
+  computed and rounded instead of being composed into conv0's weights.
 
 Int8 form (:func:`tail_q`, counterpart of ``ops/pallas_tail_q.py::
 tail_with_borders_q``; kernel ``csrc/tail_q.cu``, plain version
@@ -54,6 +64,7 @@ from its plain version.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -65,8 +76,9 @@ from .s2d import quantize_static
 from .sampling import upsample_2x_bilinear
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_IC = 8    # csrc/tail.cu: input channels per chunk
-_OC = 16   # csrc/tail.cu: output channels per thread
+_IC = 8    # csrc/tail.cu, float32 kernel: input channels per chunk
+_OC = 16   # csrc/tail.cu, float32 kernel: output channels per thread
+_G0_MAX, _G1_MAX = 4, 2  # csrc/tail.cu, bf16 kernel: 16-channel groups of Ci and C
 _SMEM_LIMIT = 227 * 1024
 BN_EPS = 1e-5
 
@@ -75,8 +87,8 @@ BatchNormParams = Sequence[torch.Tensor]  # (scale, bias, mean, var), each (C,)
 BORDER = 6   # outer rows and columns of the int8 map that are float
 _STRIP = 8   # input rows and columns whose float tail covers the border
 
-__all__ = ["tail", "tail_plain", "fold_bn", "tail_q", "tail_q_plain", "build_tail_weights_q",
-           "pack_tail_weights_q", "compose_up_conv", "TailWeightsQ"]
+__all__ = ["tail", "tail_plain", "fold_bn", "pack_tail_weights", "tail_q", "tail_q_plain",
+           "build_tail_weights_q", "pack_tail_weights_q", "compose_up_conv", "TailWeightsQ"]
 
 
 def fold_bn(bn: BatchNormParams, eps: float = BN_EPS) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -118,12 +130,19 @@ def tail_plain(x: torch.Tensor, k0: torch.Tensor, bn0: BatchNormParams, k1: torc
     HWIO; bn0/bn1 (scale, bias, mean, var); bh (1,) -> (B, 2h, 2w) logits in
     x's dtype, by the module's rounding rule."""
     _check(x, k0, bn0, k1, bn1, kh, bh)
+    f32 = torch.float32
+    if x.dtype == torch.bfloat16:
+        def rnd(t):  # one of the bf16 rule's rounding points
+            return t.to(torch.bfloat16).to(f32)
+    else:
+        def rnd(t):
+            return t
     s0, t0 = fold_bn(bn0)
     s1, t1 = fold_bn(bn1)
-    y = upsample_2x_bilinear(x.to(torch.float32).permute(0, 3, 1, 2), axes=(2, 3))
-    y = F.relu(_conv(y, k0) * s0[:, None, None] + t0[:, None, None])
-    y = F.relu(_conv(y, k1) * s1[:, None, None] + t1[:, None, None])
-    y = _conv(y, kh)[:, 0] + bh.to(torch.float32).reshape(())
+    y = rnd(upsample_2x_bilinear(x.to(f32).permute(0, 3, 1, 2), axes=(2, 3)))
+    y = rnd(F.relu(_conv(y, rnd(k0)) * s0[:, None, None] + t0[:, None, None]))
+    y = rnd(F.relu(_conv(y, rnd(k1)) * s1[:, None, None] + t1[:, None, None]))
+    y = _conv(y, rnd(kh))[:, 0] + bh.to(f32).reshape(())
     return y.to(x.dtype)
 
 
@@ -133,10 +152,45 @@ def _pad_to(t: torch.Tensor, shape) -> torch.Tensor:
     return out
 
 
+def _pack_conv_bf16(k: torch.Tensor, groups: int, rows: int) -> torch.Tensor:
+    """(3, 3, Cin, N) HWIO -> [9 groups][rows][16] bf16 as ``csrc/tail.cu``'s
+    ``conv3x3`` reads it: K step ``(dy * 3 + dx) * groups + cg``, row ``n``,
+    the weights of channels ``16 cg ...`` of tap (dy, dx) for output n, the
+    two halves of 8 swapped in rows with ``n & 4`` (the kernel's bank
+    swizzle); zero past Cin and N."""
+    cin, n = k.shape[2], k.shape[3]
+    t = torch.zeros((3, 3, groups * 16, rows), dtype=torch.bfloat16, device=k.device)
+    t[:, :, :cin, :n] = k
+    out = t.reshape(9, groups, 16, rows).transpose(2, 3).reshape(9 * groups, rows // 8, 2, 4, 2, 8)
+    # row n = 8 a + 4 s + r: for s = 1 the two halves swap (no host sync, no mask)
+    out = torch.stack([out[:, :, 0], out[:, :, 1].flip(3)], dim=2)
+    return out.reshape(9 * groups, rows, 16)
+
+
+def pack_tail_weights(k0: torch.Tensor, bn0: BatchNormParams, k1: torch.Tensor,
+                      bn1: BatchNormParams, kh: torch.Tensor, bh: torch.Tensor):
+    """The bf16 kernel's operands, made once and handed to :func:`tail` as
+    ``packed``: (w0, w1, wh) bf16 as :func:`_pack_conv_bf16` lays them out
+    (the weights rounded to bf16, Ci and C padded to 16-channel groups, the
+    head's N padded to 8), and fp float32 ``s0 | t0 | s1 | t1`` (Cp each),
+    ``bh``, three zeros."""
+    ci, c = k0.shape[2], k0.shape[3]
+    g0, g1 = -(-ci // 16), -(-c // 16)
+    cp = 16 * g1
+    fp = torch.zeros(4 * cp + 4, dtype=torch.float32, device=k0.device)
+    for i, v in enumerate((*fold_bn(bn0), *fold_bn(bn1))):
+        fp[i * cp:i * cp + c] = v
+    fp[4 * cp] = bh.to(torch.float32).reshape(())
+    return (_pack_conv_bf16(k0, g0, cp), _pack_conv_bf16(k1, g1, cp), _pack_conv_bf16(kh, g1, 8),
+            fp)
+
+
 def tail(x: torch.Tensor, k0: torch.Tensor, bn0: BatchNormParams, k1: torch.Tensor,
-         bn1: BatchNormParams, kh: torch.Tensor, bh: torch.Tensor) -> torch.Tensor:
+         bn1: BatchNormParams, kh: torch.Tensor, bh: torch.Tensor, packed=None) -> torch.Tensor:
     """:func:`tail_plain`'s function. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises. ``x`` may have any strides."""
+    CUDA tensor launches the kernel or raises. ``x`` may have any strides.
+    ``packed``: :func:`pack_tail_weights`'s result for these weights, made
+    earlier (bfloat16 only; built here when None)."""
     ci, c = _check(x, k0, bn0, k1, bn1, kh, bh)
     if x.device.type == "cpu":
         return tail_plain(x, k0, bn0, k1, bn1, kh, bh)
@@ -145,26 +199,45 @@ def tail(x: torch.Tensor, k0: torch.Tensor, bn0: BatchNormParams, k1: torch.Tens
     if x.dtype not in _DTYPES:
         raise TypeError(f"tail kernel takes float32 or bfloat16, got {x.dtype}")
     b, h, w, _ = x.shape
-    cip = -(-ci // _IC) * _IC
-    cp = -(-c // _OC) * _OC
     lib = _build.library()
-    need = lib.tail_smem_bytes_for(cp)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"tail: C={c} needs {need} bytes of shared memory per block, more than "
-                         f"the {_SMEM_LIMIT} a block can have")
-    # float32 operands, zero beyond the real channels: padded channels come
-    # out as relu(0 * 0 + 0) = 0 and meet zero weights downstream
-    w0 = _pad_to(k0.reshape(9, ci, c), (9, cip, cp))
-    w1 = _pad_to(k1.reshape(9, c, c), (9, cp, cp))
-    wh = _pad_to(kh.reshape(9, c), (9, cp))
-    st0 = _pad_to(torch.stack(fold_bn(bn0)), (2, cp))
-    st1 = _pad_to(torch.stack(fold_bn(bn1)), (2, cp))
-    bias = bh.to(torch.float32).reshape(1).contiguous()
     out = torch.empty((b, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.tail_launch(x.data_ptr(), *x.stride(), w0.data_ptr(), st0.data_ptr(),
-                          w1.data_ptr(), st1.data_ptr(), wh.data_ptr(), bias.data_ptr(),
-                          out.data_ptr(), b, h, w, ci, cip, cp, _DTYPES[x.dtype], stream)
+    if x.dtype == torch.bfloat16:
+        g0, g1 = -(-ci // 16), -(-c // 16)
+        need = lib.tail_bf16_smem_bytes_for(g0, g1) if g0 <= _G0_MAX and g1 <= _G1_MAX else None
+        if need is None or need > _SMEM_LIMIT:
+            raise ValueError(f"tail: the bf16 kernel takes Ci <= {16 * _G0_MAX} and C <= "
+                             f"{16 * _G1_MAX} within {_SMEM_LIMIT} bytes of shared memory, got "
+                             f"Ci={ci}, C={c}")
+        if packed is None:
+            packed = pack_tail_weights(k0, bn0, k1, bn1, kh, bh)
+        cp = 16 * g1
+        want = ((9 * g0, cp, 16), (9 * g1, cp, 16), (9 * g1, 8, 16), (4 * cp + 4,))
+        dtypes = (torch.bfloat16,) * 3 + (torch.float32,)
+        if tuple((tuple(t.shape), t.dtype) for t in packed) != tuple(zip(want, dtypes)) or any(
+                t.device != x.device or not t.is_contiguous() for t in packed):
+            raise ValueError(f"tail: packed operands must be contiguous bf16 weights and float32 "
+                             f"parameters on x's device with shapes {want}")
+        err = lib.tail_bf16_launch(x.data_ptr(), *x.stride(), *(t.data_ptr() for t in packed),
+                                   out.data_ptr(), b, h, w, ci, g0, g1, stream)
+    else:
+        cip = -(-ci // _IC) * _IC
+        cp = -(-c // _OC) * _OC
+        need = lib.tail_smem_bytes_for(cp)
+        if need > _SMEM_LIMIT:
+            raise ValueError(f"tail: C={c} needs {need} bytes of shared memory per block, more "
+                             f"than the {_SMEM_LIMIT} a block can have")
+        # float32 operands, zero beyond the real channels: padded channels
+        # come out as relu(0 * 0 + 0) = 0 and meet zero weights downstream
+        w0 = _pad_to(k0.reshape(9, ci, c), (9, cip, cp))
+        w1 = _pad_to(k1.reshape(9, c, c), (9, cp, cp))
+        wh = _pad_to(kh.reshape(9, c), (9, cp))
+        st0 = _pad_to(torch.stack(fold_bn(bn0)), (2, cp))
+        st1 = _pad_to(torch.stack(fold_bn(bn1)), (2, cp))
+        bias = bh.to(torch.float32).reshape(1).contiguous()
+        err = lib.tail_launch(x.data_ptr(), *x.stride(), w0.data_ptr(), st0.data_ptr(),
+                              w1.data_ptr(), st1.data_ptr(), wh.data_ptr(), bias.data_ptr(),
+                              out.data_ptr(), b, h, w, ci, cip, cp, stream)
     tail.launches += 1
     _build.check(err, "tail")
     return out
@@ -388,7 +461,10 @@ def tail_q(x: torch.Tensor, k0, bn0, k1, bn1, kh, bh, s_x: float, s_mid: float, 
                             stream)
     tail_q.launches += 1
     _build.check(err, "tail_q")
-    _write_border(out, xq, s_x, tail, (k0, bn0, k1, bn1, kh, bh))
+    strip_tail = tail
+    if edge == torch.bfloat16:  # both strip launches share one packing of the weights
+        strip_tail = functools.partial(tail, packed=pack_tail_weights(k0, bn0, k1, bn1, kh, bh))
+    _write_border(out, xq, s_x, strip_tail, (k0, bn0, k1, bn1, kh, bh))
     return out
 
 

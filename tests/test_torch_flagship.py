@@ -91,8 +91,8 @@ def test_slice_matches_jax_fused_head(pair, monkeypatch):
     inst, binary = engine(images, ROIS)
     assert sorted(calls) == [1] + [3] * 7  # res2 x2 + proj + bottleneck x5
     calls.clear()
-    with torch.no_grad():
-        logits, aux = port(torch.from_numpy(images), torch.from_numpy(rois_p))
+    with torch.no_grad():  # the engine's own copy, with its serving switches
+        logits, aux = engine.model(torch.from_numpy(images), torch.from_numpy(rois_p))
 
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=1e-4, rtol=1e-4)
     assert set(aux) == set(jaux)
@@ -156,3 +156,36 @@ def test_entry_points_default_to_the_gpu():
         create_flagship(variant="tiny", **TINY)
     port = create_flagship(variant="tiny", device="cpu", **TINY)
     assert InferenceEngine(port).device.type == "cpu"
+
+
+def test_engine_leaves_the_callers_model_alone():
+    """Two engines over one model, bfloat16 (int8, fused head) first and
+    float32 second: the caller's parameters keep their dtype and values, its
+    mode and serving switches stay as they were, and the float32 engine
+    serves exactly what a float32 engine over a fresh copy of the same
+    weights serves (it used to serve the bf16-rounded weights)."""
+    port = create_flagship(variant="tiny", device="cpu", seed=0, pallas_tail=True,
+                           encoder_fused_blocks=2, **TINY).train()
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    images = np.random.default_rng(9).random((2, 64, 96, 3), dtype=np.float32)
+    bf16 = InferenceEngine(port, device="cpu", dilation_pixels=1, dtype=torch.bfloat16,
+                           fused_head=True, quantize="int8", kernels=False)
+    bf16.forward(torch.from_numpy(images), torch.from_numpy(pad_rois(ROIS, 4)))  # dynamic scales
+    assert next(bf16.model.parameters()).dtype == torch.bfloat16 and bf16.model is not port
+    assert any(getattr(m, "serving", False) for m in bf16.model.modules())
+    inst, binary = InferenceEngine(port, device="cpu", dilation_pixels=1)(images, ROIS)
+
+    after = port.state_dict()
+    assert port.training and after.keys() == before.keys()
+    for key, value in before.items():
+        assert after[key].dtype == value.dtype and torch.equal(after[key], value), key
+    assert not any(getattr(m, "serving", False) or getattr(m, "fused_head", False)
+                   or getattr(m, "use_kernel", True) is False for m in port.modules())
+    assert port.pretrained_unet.tail_use_kernel and port.pretrained_unet.tail_scales is None
+
+    fresh = create_flagship(variant="tiny", device="cpu", seed=1, pallas_tail=True,
+                            encoder_fused_blocks=2, **TINY)
+    fresh.load_state_dict(before)
+    inst_f, binary_f = InferenceEngine(fresh, device="cpu", dilation_pixels=1)(images, ROIS)
+    np.testing.assert_array_equal(binary, binary_f)
+    np.testing.assert_array_equal(inst, inst_f)

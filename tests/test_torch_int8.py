@@ -117,10 +117,10 @@ def test_int8_slice_matches_jax(tiny, monkeypatch):
     before = quant.QConv.int8_calls
     inst, binary = engine(images, ROIS)
     assert sorted(calls) == sorted(jcalls)
-    qconvs = [m for m in tiny["port"].modules() if isinstance(m, quant.QConv)]
+    qconvs = [m for m in engine.model.modules() if isinstance(m, quant.QConv)]
     # every QConv marked int8 ran int8, except the convs the fused units own
     assert quant.QConv.int8_calls - before == sum(m.runs_int8 for m in qconvs) - n_fused
-    assert all(m.denied for n, m in tiny["port"].named_modules()
+    assert all(m.denied for n, m in engine.model.named_modules()
                if isinstance(m, quant.QConv) and ".encoder." in n)
     assert inst.shape == (3, 32, 24, 1) and binary.shape == (2, 64, 96, 1)
 

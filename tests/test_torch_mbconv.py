@@ -303,9 +303,12 @@ def test_flagship_serves_encoder_fused_blocks():
     assert fused.state_dict().keys() == plain.state_dict().keys()
     engine = InferenceEngine(fused, device="cpu", dilation_pixels=1, kernels=False)
     inst, binary = engine(images, rois)
-    assert not any(m.use_kernel for m in blocks)
-    inst_k, binary_k = InferenceEngine(fused, device="cpu", dilation_pixels=1)(images, rois)
-    assert all(m.use_kernel for m in blocks)
+    served = [m for m in engine.model.pretrained_unet.encoder.modules() if isinstance(m, MBConv)]
+    assert not any(m.use_kernel for m in served) and all(m.use_kernel for m in blocks)
+    engine_k = InferenceEngine(fused, device="cpu", dilation_pixels=1)
+    inst_k, binary_k = engine_k(images, rois)
+    assert all(m.use_kernel for m in engine_k.model.pretrained_unet.encoder.modules()
+               if isinstance(m, MBConv))
     inst_p, binary_p = InferenceEngine(plain, device="cpu", dilation_pixels=1)(images, rois)
     np.testing.assert_allclose(binary, binary_p, atol=1e-5)
     np.testing.assert_array_equal(binary, binary_k)

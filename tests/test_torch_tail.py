@@ -26,6 +26,7 @@ from human_instance_segmentation_tpu.ops.s2d import space_to_depth
 from human_instance_segmentation_tpu_torch.inference import InferenceEngine, create_flagship
 from human_instance_segmentation_tpu_torch.models.unet import PeopleSegmentationUNet
 from human_instance_segmentation_tpu_torch.ops import cuda_tail, quant
+from human_instance_segmentation_tpu_torch.ops.sampling import upsample_2x_bilinear
 from human_instance_segmentation_tpu_torch.weights import load_jax_params
 
 ATOL, RTOL = 2e-5, 1e-5  # tests/test_pallas_tail.py:42
@@ -99,18 +100,96 @@ def test_tail_ragged_shapes_match_reference(rng, shape):
 
 
 def test_tail_bf16_rounding_rule(rng):
-    """bfloat16 operands are widened, everything between is float32 and the
-    logit is rounded once: the bf16 result is the rounded float32 result of
-    the same (bf16-valued) operands, bit for bit."""
+    """bfloat16: each conv multiplies bf16 operands with float32 sums, BN is a
+    float32 multiply and add, and three activations are rounded to bf16 (the
+    upsampled input, conv0's and conv1's outputs after BN and ReLU); the
+    logit is rounded once. The bf16 result is, bit for bit, a float32
+    computation that rounds at those points; rounding only the logit gives
+    another result."""
     x = rng.standard_normal((2, 6, 10, 8)).astype(np.float32)
-    ops16 = _torch_ops(_weights(rng, 8, 8), torch.bfloat16)
+    k0, bn0, k1, bn1, kh, bh = _torch_ops(_weights(rng, 8, 8), torch.bfloat16)
     x16 = torch.from_numpy(x).to(torch.bfloat16)
-    widened = tuple(tuple(v.float() for v in o) if isinstance(o, tuple) else o.float()
-                    for o in ops16)
-    out = cuda_tail.tail(x16, *ops16)
-    ref = cuda_tail.tail_plain(x16.float(), *widened)
+    out = cuda_tail.tail(x16, k0, bn0, k1, bn1, kh, bh)
     assert out.dtype == torch.bfloat16
-    assert torch.equal(out, ref.to(torch.bfloat16))
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float()
+
+    def conv(y, k):
+        return torch.nn.functional.conv2d(y, k.float().permute(3, 2, 0, 1), padding=1)
+
+    def bn_relu(y, bn):
+        scale, bias, mean, var = (v.float() for v in bn)
+        s = scale * torch.rsqrt(var + 1e-5)
+        return torch.relu(y * s[:, None, None] + (bias - mean * s)[:, None, None])
+
+    u = rnd(upsample_2x_bilinear(x16.float().permute(0, 3, 1, 2), axes=(2, 3)))
+    y0 = rnd(bn_relu(conv(u, k0), bn0))
+    y1 = rnd(bn_relu(conv(y0, k1), bn1))
+    want = (conv(y1, kh)[:, 0] + bh.float()).to(torch.bfloat16)
+    assert torch.equal(out, want)
+    widened = tuple(tuple(v.float() for v in o) if isinstance(o, tuple) else o.float()
+                    for o in (k0, bn0, k1, bn1, kh, bh))
+    assert not torch.equal(out, cuda_tail.tail_plain(x16.float(), *widened).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("hc,wc,ci,c", [(2 * TR, 24, 8, 8), (3 * TR, 16, 32, 16)])
+def test_tail_bf16_matches_pallas_in_bf16(rng, hc, wc, ci, c):
+    """The bf16 plain tail against the JAX package's ``tail_with_borders`` in
+    bfloat16 (Pallas interpreted, XLA border strips): within 4 bf16 ulps of
+    the largest logit (the ulp of its binade). Both round the logit once and
+    y0 and y1 at the same stages, but from sums of other operands: JAX
+    rounds the weights after composing the upsample into conv0 and folding
+    BN in, and computes its border strips with bf16 XLA ops; the port rounds
+    the upsampled input and keeps BN in float32. Over these seeded inputs
+    the two lie 1-2.6 ulps apart (measured), and the port is the nearer of
+    the two to the float32 tail."""
+    x = rng.standard_normal((2, 2 * hc, 2 * wc, ci)).astype(np.float32)
+    ops = _weights(rng, ci, c)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    jops = jax.tree.map(lambda v: v.astype(jnp.bfloat16), _jax_ops(ops))
+    pallas = np.asarray(tail_with_borders(space_to_depth(xb, 2), *jops, interpret=True)
+                        .astype(jnp.float32))
+    with jax.default_matmul_precision("highest"):
+        f32 = np.asarray(tail_reference(jnp.asarray(x), *_jax_ops(ops)))
+    out = cuda_tail.tail(torch.from_numpy(x).to(torch.bfloat16),
+                         *_torch_ops(ops, torch.bfloat16))
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == pallas.shape
+    out = out.float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(pallas).max())) - 7)
+    assert np.abs(out - pallas).max() <= 4 * ulp
+    assert np.abs(out - f32).max() <= np.abs(pallas - f32).max()
+
+
+@pytest.mark.parametrize("ci,c", [(5, 12), (32, 16), (40, 20)])
+def test_tail_bf16_kernel_operands_layout(rng, ci, c):
+    """``pack_tail_weights`` lays the bf16 kernel's operands out as
+    ``csrc/tail.cu`` reads them: K step (dy * 3 + dx) * groups + cg, row n,
+    the bf16 weights of channels 16 cg ... for output n, the two halves of 8
+    swapped in rows with n & 4 (the kernel's bank swizzle), zero past the
+    real channels; fp holds BN0's and BN1's scale and shift per padded
+    channel, then the head's bias."""
+    k0, bn0, k1, bn1, kh, bh = _torch_ops(_weights(rng, ci, c))
+    w0, w1, wh, fp = cuda_tail.pack_tail_weights(k0, bn0, k1, bn1, kh, bh)
+    g0, g1 = -(-ci // 16), -(-c // 16)
+    cp = 16 * g1
+    assert w0.shape == (9 * g0, cp, 16) and w1.shape == (9 * g1, cp, 16)
+    assert wh.shape == (9 * g1, 8, 16) and fp.shape == (4 * cp + 4,)
+    assert {w0.dtype, w1.dtype, wh.dtype, fp.dtype} == {torch.bfloat16, torch.float32}
+    for packed, k, groups, rows in ((w0, k0, g0, cp), (w1, k1, g1, cp), (wh, kh, g1, 8)):
+        assert packed.is_contiguous()
+        unswizzled = packed.clone()
+        for n in range(rows):
+            if n & 4:
+                unswizzled[:, n] = torch.cat([packed[:, n, 8:], packed[:, n, :8]], dim=1)
+        # [tap][cg][n][channel in group] -> HWIO
+        back = unswizzled.reshape(3, 3, groups, rows, 16).permute(0, 1, 2, 4, 3)
+        back = back.reshape(3, 3, 16 * groups, rows)
+        assert torch.equal(back[:, :, :k.shape[2], :k.shape[3]], k.to(torch.bfloat16))
+        assert not back[:, :, k.shape[2]:].any() and not back[:, :, :, k.shape[3]:].any()
+    for i, v in enumerate((*cuda_tail.fold_bn(bn0), *cuda_tail.fold_bn(bn1))):
+        assert torch.equal(fp[i * cp:i * cp + c], v) and not fp[i * cp + c:(i + 1) * cp].any()
+    assert fp[4 * cp] == bh[0] and not fp[4 * cp + 1:].any()
 
 
 @pytest.mark.parametrize("bad", ["rank", "k0", "k1", "head", "bn"])
@@ -281,7 +360,8 @@ def test_flagship_dense_branch_matches_its_plain_branch(flagship_pair):
     # kernels=False reaches the tail's plain version through the engine
     engine = InferenceEngine(port, device="cpu", dilation_pixels=1, kernels=False)
     engine(images, ROIS)
-    assert port.pretrained_unet.tail_use_kernel is False
+    assert engine.model.pretrained_unet.tail_use_kernel is False
+    assert port.pretrained_unet.tail_use_kernel is True  # the caller's model is left alone
 
 
 def test_calibration_pass_takes_the_unfused_stage(flagship_pair):
