@@ -8,7 +8,9 @@ package beside the script; it imports nothing of JAX. Phases:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: compile the CUDA kernels (``ops/_build.py``) and time it;
 3. kernels: each kernel against its plain PyTorch version at main-path
-   shapes (TF32 off), with the stated tolerances, and timed;
+   shapes (TF32 off), with the stated tolerances, and timed (the bf16
+   ``conv_ln_act`` as one call and ten in a row, split by kernel, and it
+   must run on wgmma at the served shape);
 4. slice: the B0 flagship served through ``InferenceEngine(bf16,
    fused_head=True)`` for three request shapes, launch counts asserted per
    forward, outputs held against the same weights served with
@@ -52,7 +54,9 @@ package beside the script; it imports nothing of JAX. Phases:
     shapes the B0 encoder gives them at batch 32 and at ragged ones, and
     ``tail_q`` against ``tail_q_plain`` (interior equal, float border within
     the float tail's tolerance) for float and int8 inputs, timed beside the
-    plain versions and the chains the model would run without them;
+    plain versions and the chains the model would run without them; a served
+    ``tail_q`` call must allocate only its output and launch only its own
+    kernel (profiler listing), with the SM clock and power sampled;
 13. the slice that runs both (:func:`serve_fused_encoder_and_tail_q`):
     ``create_flagship(pallas_tail=True, encoder_fused_blocks=N)`` for N = 3
     and 6, served in bf16 without quantization and with ``quantize="int8"``,
@@ -172,6 +176,33 @@ def median_ms(fn, reps: int = TIMING_REPS, warmup: int = 3, calls: int = 1) -> f
     return statistics.median(times)
 
 
+def clocks_under(fn, calls: int = 100) -> str:
+    """The SM clock and power draw (``nvidia-smi``, sampled every 100 ms)
+    while ``calls`` launches of ``fn`` run back to back: the lowest and
+    highest clock and the highest draw."""
+    import torch
+
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.2)
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = [[float(v) for v in line.split(",")] for line in out.strip().splitlines()
+            if line.count(",") == 1]
+    if not rows:
+        return "clocks not read"
+    clocks = [r[0] for r in rows]
+    return (f"SM clock {min(clocks):.0f}-{max(clocks):.0f} MHz, power draw up to "
+            f"{max(r[1] for r in rows):.1f} W over {len(rows)} samples")
+
+
 def device_ms_by_kernel(fn, reps: int = 10) -> dict:
     """Device time per call of ``fn`` by kernel (``torch.profiler``), keyed by
     the kernel's short name."""
@@ -186,11 +217,15 @@ def device_ms_by_kernel(fn, reps: int = 10) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type.name == "CUDA":
+        if e.device_type.name == "CUDA" and e.count:
             key = e.key.replace("(anonymous namespace)::", "").replace("void ", "")
             found = re.search(r"([A-Za-z_]\w*)\s*[<(]", key)
             name = found.group(1) if found else e.key[:40]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+            # per launch times launches per call: a long process's later
+            # profiles can miss some of their events, and then the total over
+            # reps would read short
+            per_call = max(1, round(e.count / reps))
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / e.count * per_call / 1e3
     return out
 
 
@@ -264,18 +299,36 @@ def check_kernels(card: str, rng) -> list:
             raise AssertionError(f"conv_ln_act k={k} res={res} {dt}: {err}")
         worst = max(worst, err)
         if (shape, k, res, dt) == (HEAD_SHAPE, 3, False, torch.bfloat16):  # the served form
-            kms = median_ms(lambda: cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w))
+            # as the blocks run it: the operands prepared once, the weight a view
+            ops = cuda_head.prepare_bf16(wt, b, g, be)
+            view = wt.permute(3, 2, 1, 0).contiguous().permute(3, 2, 1, 0)
+
+            def served():
+                return cuda_head.conv_ln_act(x, view, b, g, be, height=h, width=w, prepared=ops)
+
+            if not torch.equal(served(), got):
+                raise AssertionError("conv_ln_act bf16: prepared operands change the result")
+            split = device_ms_by_kernel(served)
+            if "conv_bf16_wgmma_kernel" not in split:
+                raise AssertionError(f"conv_ln_act bf16: the served shape did not run on wgmma: "
+                                     f"{split}")
+            kms = median_ms(served)
+            kms10 = median_ms(served, calls=10)
+            each = median_ms(lambda: cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w))
             pms = median_ms(lambda: cuda_head.conv_ln_act_plain(x, wt, b, g, be))
             cms = median_ms(unfused_chain(x, wt, b, g, be))
-            timing = (kms, pms, cms)
-            print(f"conv_ln_act bf16 k=3 {HEAD_SHAPE}->{c}: kernel {kms:.4f} ms, plain "
-                  f"{pms:.4f} ms, unfused bf16 chain {cms:.4f} ms (median of {TIMING_REPS}, "
-                  f"CUDA events) [{card}]")
+            timing = (kms, pms, cms, kms10)
+            print(f"conv_ln_act bf16 k=3 {HEAD_SHAPE}->{c}: kernel {kms:.4f} ms with prepared "
+                  f"operands ({kms10:.4f} ms ten launches in a row; {each:.4f} ms preparing them "
+                  f"at every call), plain {pms:.4f} ms, unfused bf16 chain {cms:.4f} ms (median "
+                  f"of {TIMING_REPS}, CUDA events); device ms by kernel "
+                  f"{ {k_: round(v, 4) for k_, v in split.items()} } [{card}]")
     results.append({"name": "conv_ln_act", "route": "cuda",
                     "source": "human_instance_segmentation_tpu_torch/csrc/conv_ln_act.cu",
                     "replaces": "human_instance_segmentation_tpu/ops/pallas_head.py:243",
                     "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
-                    "library_ms": None, "chain_ms": timing[2], **head_bound("bf16")})
+                    "library_ms": None, "chain_ms": timing[2], "ms_10": timing[3],
+                    **head_bound("bf16")})
 
     # ---- roi_align ------------------------------------------------------
     nroi = n
@@ -796,19 +849,41 @@ def check_mbconv_and_tail_q(card: str, rng) -> list:
             worst = max(worst, diff.max().item())
         if (shape, dt, kind) == (TAIL_SHAPE, torch.bfloat16, "nchw"):  # the served form
             wq = cuda_tail.build_tail_weights_q(*ops, sx, sm, sh)
-            packed = cuda_tail.pack_tail_weights_q(wq)
-            kms = median_ms(lambda: cuda_tail.tail_q(x, *ops, sx, sm, sh, packed=packed))
+            packed = cuda_tail.pack_tail_weights_q(wq, ops, dt)
+
+            def served():
+                return cuda_tail.tail_q(x, *ops, sx, sm, sh, packed=packed)
+
+            # a served call allocates its output and nothing else (no int8
+            # copy of x), and launches only the tail's own kernels
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            y = served()
+            torch.cuda.synchronize()
+            extra = torch.cuda.max_memory_allocated() - base
+            if extra > y.numel() * y.element_size() + (1 << 20):
+                raise AssertionError(f"tail_q allocated {extra} bytes beyond its output")
+            del y
+            listing = device_ms_by_kernel(served)
+            if len(listing) > 2 or any("tail" not in k for k in listing):
+                raise AssertionError(f"tail_q: device ops besides its kernels: {listing}")
+            kms = median_ms(served)
+            kms10 = median_ms(served, calls=10)
             bms = median_ms(lambda: cuda_tail.tail_q(x, *ops, sx, sm, sh))
             pms = median_ms(lambda: cuda_tail.tail_q_plain(x, *ops, sx, sm, sh), reps=3, warmup=1)
             fms = median_ms(lambda: cuda_tail.tail(x, *ops))
             cms = median_ms(unfused_tail_chain(x.permute(0, 3, 1, 2), *ops,
                                                int8_scales=(sx, sm)))
-            timing = (kms, pms, cms, fms)
-            print(f"tail_q bf16 {TAIL_SHAPE}: kernels (quantize, int8 map, two float strips) "
-                  f"{kms:.4f} ms with kept weights, {bms:.4f} ms building them per call, plain "
+            timing = (kms, pms, cms, fms, kms10)
+            clocks = clocks_under(served)
+            print(f"tail_q bf16 {TAIL_SHAPE}: kernel {kms:.4f} ms with kept weights ({kms10:.4f} "
+                  f"ms ten launches in a row), {bms:.4f} ms building them per call, plain "
                   f"(float64 convs) {pms:.4f} ms, float tail kernel {fms:.4f} ms, unfused int8 "
                   f"decoder stage + bf16 seg head of the model {cms:.4f} ms (median of "
-                  f"{TIMING_REPS}, CUDA events) [{card}]")
+                  f"{TIMING_REPS}, CUDA events); a served call allocates {extra} bytes (its "
+                  f"output {x.shape[0] * 4 * x.shape[1] * x.shape[2] * 2}); device ms by kernel "
+                  f"{ {k_: round(v, 4) for k_, v in listing.items()} }; {clocks} [{card}]")
         del x, xin, got, ref, flt, diff
         torch.cuda.empty_cache()
     px = b * 2 * h * 2 * w
@@ -818,7 +893,7 @@ def check_mbconv_and_tail_q(card: str, rng) -> list:
                     "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
                     "library_ms": timing[2],
                     "library": "chain: unfused int8 decoder stage (qconv2d) + bf16 seg head",
-                    "chain_ms": timing[2], "float_tail_ms": timing[3],
+                    "chain_ms": timing[2], "float_tail_ms": timing[3], "ms_10": timing[4],
                     **bound(2 * b * h * w * ci + 2 * px, 2 * 9 * (ci * c + c * c + c) * px, "int8")})
     return results
 
@@ -935,9 +1010,28 @@ def time_forwards(served, plain, card: str, rng) -> None:
                                      reps=TIMING_REPS // 2))
     for name, ms in times.items():
         med = statistics.median(ms)
+        busy, kernels, _ = forward_profile(engines[name], images_t, rois_t)
         print(f"forward batch {batch} x 1 roi, bf16, {name} path: {med:.3f} ms/batch, "
               f"{batch / med * 1e3:.1f} img/s (median of per-round medians {ms}, "
-              f"{TIMING_REPS // 2} forwards each, CUDA events) [{card}]")
+              f"{TIMING_REPS // 2} forwards each, CUDA events); device busy {busy:.3f} ms "
+              f"({100 * (1 - busy / med):.1f}% idle), {kernels} kernels per forward [{card}]")
+
+
+def forward_profile(engine, images_t, rois_t, reps: int = 3):
+    """Device time per forward (``torch.profiler``): busy ms, kernels, and
+    the CUDA events of ``reps`` forwards."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.forward(images_t, rois_t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            engine.forward(images_t, rois_t)
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA"]
+    busy = sum(ev.self_device_time_total for ev in events) / (reps * 1e3)
+    return busy, sum(ev.count for ev in events) // reps, events
 
 
 def unaligned(t):
@@ -1143,24 +1237,35 @@ def check_int8_kernels(card: str, rng) -> list:
                 return cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w, xscale=xs,
                                              prepared=ops)
 
+            bf16_ops = cuda_head.prepare_bf16(wt, b, g, be)
+
+            def bf16_form():
+                return cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w,
+                                             prepared=bf16_ops)
+
             kms = median_ms(fused)
+            kms10 = median_ms(fused, calls=10)
             each = median_ms(lambda: cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w,
                                                            xscale=xs))
             pms = median_ms(lambda: cuda_head.conv_ln_act_plain(x, wt, b, g, be, xscale=xs))
-            bms = median_ms(lambda: cuda_head.conv_ln_act(x, wt, b, g, be, height=h, width=w))
-            timing = (kms, pms)
+            bms = median_ms(bf16_form)
+            bms10 = median_ms(bf16_form, calls=10)
+            timing = (kms, pms, kms10)
             dev_ms = device_ms_by_kernel(fused)
+            bdev_ms = device_ms_by_kernel(bf16_form)
             print(f"conv_ln_act s8 bf16 k=3 {HEAD_SHAPE}->{c}: kernel {kms:.4f} ms "
-                  f"({each:.4f} ms when the weights are quantized at every call), plain "
-                  f"{pms:.4f} ms, bf16 conv_ln_act kernel {bms:.4f} ms (median of "
-                  f"{TIMING_REPS}, CUDA events); device time by kernel "
-                  f"{ {k_: round(v, 4) for k_, v in dev_ms.items()} } ms, the rest is the host "
+                  f"({kms10:.4f} ms ten launches in a row; {each:.4f} ms when the weights are "
+                  f"quantized at every call), plain {pms:.4f} ms; the bf16 conv_ln_act kernel "
+                  f"with prepared operands in the same run {bms:.4f} ms ({bms10:.4f} ten in a "
+                  f"row) (median of {TIMING_REPS}, CUDA events); device time by kernel: s8 "
+                  f"{ {k_: round(v, 4) for k_, v in dev_ms.items()} } ms, bf16 "
+                  f"{ {k_: round(v, 4) for k_, v in bdev_ms.items()} } ms, the rest is the host "
                   f"[{card}]")
     results.append({"name": "conv_ln_act_s8", "route": "cuda",
                     "source": "human_instance_segmentation_tpu_torch/csrc/conv_ln_act.cu",
                     "replaces": "human_instance_segmentation_tpu/ops/pallas_head.py:243",
                     "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
-                    "library_ms": None, **head_bound("int8")})
+                    "library_ms": None, "ms_10": timing[2], **head_bound("int8")})
     return results
 
 
@@ -1645,8 +1750,8 @@ def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
 
     Launch counts are asserted per forward: N ``mbconv_sums`` and N
     ``mbconv_apply``, 5 ``conv_ln_act`` (or its s8 form), 2 ``roi_align``;
-    without quantization 1 ``tail``; with int8 1 ``tail_q`` (whose float border
-    strips are 2 launches of ``tail``) and one ``qconv`` per int8-marked QConv
+    without quantization 1 ``tail``; with int8 1 ``tail_q`` (its float border
+    inside, no ``tail``) and one ``qconv`` per int8-marked QConv
     outside the fused units and outside the last decoder stage, whose two
     convs the tail absorbed. Outputs are held against the same weights and
     scales served with ``kernels=False`` and ``pallas_roi_align=False`` in
@@ -1705,7 +1810,7 @@ def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
                       f"{d}; QConvs marked int8 {marked} (one forward)")
                 want = {"mbconv_sums": n, "mbconv_apply": n, "roi_align": 2}
                 if quantize:
-                    want.update({"tail_q": 1, "tail": 2, "conv_ln_act": 0, "conv_ln_act_s8": 5,
+                    want.update({"tail_q": 1, "tail": 0, "conv_ln_act": 0, "conv_ln_act_s8": 5,
                                  "qconv": marked - 5 - 2})
                 else:
                     want.update({"tail_q": 0, "tail": 1, "conv_ln_act": 5, "conv_ln_act_s8": 0,
@@ -1769,8 +1874,11 @@ def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
     rois_t = torch.tensor(pad_rois(rois, batch), device="cuda")
     timed[("bf16", 0)] = engine(0, torch.bfloat16, None)
     timed[("int8", 0)] = engine(0, torch.bfloat16, "int8")
+    # the int8 forward without the s8 tail: its last decoder stage and the seg
+    # head as the unfused modules (two qconv and a bf16 conv)
+    timed[("int8 no tail", 0)] = engine(0, torch.bfloat16, "int8", tail=False)
     for (mode, n), e in timed.items():
-        if mode == "int8":
+        if mode.startswith("int8"):
             e.calibrate(images, rois)
     torch.cuda.empty_cache()
     order = sorted(timed, key=lambda k: (k[0], k[1]))
@@ -1780,7 +1888,8 @@ def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
                                     reps=TIMING_REPS // 2))
     for key in order:
         med = statistics.median(times[key])
-        print(f"forward batch {batch} x 1 roi, {key[0]}, fused head, pallas_tail, "
+        print(f"forward batch {batch} x 1 roi, {key[0]}, fused head, "
+              f"{'no tail' if 'no tail' in key[0] else 'pallas_tail'}, "
               f"encoder_fused_blocks={key[1]}: {med:.3f} ms/batch, {batch / med * 1e3:.1f} img/s "
               f"(per-round medians {times[key]}, {TIMING_REPS // 2} forwards each, CUDA events) "
               f"[{card}]")
@@ -1799,18 +1908,8 @@ def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
                       for n, v in enc_ms.items()) + f" [{card}]")
 
     # where a forward's device time goes, with and without the two kernels
-    from torch.profiler import ProfilerActivity, profile
-
-    for key in (("bf16", 0), ("bf16", 6), ("int8", 0), ("int8", 6)):
-        e = timed[key]
-        e.forward(images_t, rois_t)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                e.forward(images_t, rois_t)
-            torch.cuda.synchronize()
-        events = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA"]
-        busy = sum(ev.self_device_time_total for ev in events) / 3e3
+    for key in (("bf16", 0), ("bf16", 6), ("int8", 0), ("int8", 6), ("int8 no tail", 0)):
+        busy, _, events = forward_profile(timed[key], images_t, rois_t)
 
         def part(*names):
             return sum(ev.self_device_time_total for ev in events
@@ -1820,11 +1919,12 @@ def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
         print(f"profile of 3 forwards, {key[0]}, encoder_fused_blocks={key[1]}: device busy "
               f"{busy:.3f} ms per forward of {wall:.3f} ms wall ({100 * (1 - busy / wall):.1f}% "
               f"idle), {sum(ev.count for ev in events) // 3} kernels per forward; mbconv kernels "
-              f"{part('mbconv_kernel', 'mbconv_bf16_kernel'):.3f} ms, tail_q kernels (int8 map + "
-              f"quantize) {part('tail_q_kernel', 'quantize_kernel'):.3f} ms, float tail kernel "
+              f"{part('mbconv_kernel', 'mbconv_bf16_kernel'):.3f} ms, tail_q kernel (int8 map and "
+              f"float border) {part('tail_q_kernel'):.3f} ms, float tail kernel "
               f"{part('tail_kernel', 'tail_bf16_kernel'):.3f} ms, s8 conv kernels "
-              f"{part('s8igemm'):.3f} ms "
-              f"[{card}]")
+              f"{part('s8igemm'):.3f} ms, bf16 fused-unit conv (wgmma) "
+              f"{part('conv_bf16_wgmma_kernel'):.3f} ms, LayerNorm passes "
+              f"{part('ln_act_kernel'):.3f} ms [{card}]")
     return total
 
 

@@ -26,11 +26,13 @@
 
 #include <cstdint>
 
-// HIST_SKIP switches parts of the bf16 kernels off, for
+// HIST_SKIP switches parts of the hand-written kernels off, for
 // scripts/profile_torch_kernels.py only (every served build has 0): bits 1-16
 // the tail's source loads, upsample, conv0, conv1 and head products; bits
 // 32-512 the MBConv's input loads, expand product, depthwise taps, project
-// product and SiLUs.
+// product and SiLUs; bits 1024-65536 the int8 tail's (csrc/tail_q.cu) input
+// staging, conv0, conv1 and head products, float border, requantizing
+// epilogues, and the epilogues' wait for the products.
 #ifndef HIST_SKIP
 #define HIST_SKIP 0
 #endif

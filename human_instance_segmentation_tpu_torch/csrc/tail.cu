@@ -69,8 +69,11 @@
 #include <cstdint>
 
 #include "mma_bf16.cuh"
+#include "tail_parts.cuh"
 
 namespace {
+
+using namespace tail_parts;
 
 constexpr int TH = 16, TW = 32;       // output tile
 constexpr int THREADS = 384;
@@ -85,18 +88,6 @@ constexpr int Y1G = (Y1H + PX - 1) / PX;         // conv1 row groups (the last m
 static_assert(Y0H % PX == 0 && TH % PX == 0, "row groups");
 static_assert(Y1G * PX + 2 <= Y0H_ALLOC, "conv1 reads stay inside y0");
 static_assert((Y0H / PX) * Y0W <= THREADS && Y1G * Y1W <= THREADS, "one item per thread");
-
-// One axis of the 2x half-pixel upsample at full-resolution index g of a
-// source of n: the two source indices and weights, in the plain version's
-// operand order (even: 0.25 * prev + 0.75 * cur; odd: 0.75 * cur + 0.25 * next).
-__device__ __forceinline__ void up_taps(int g, int n, int& i0, int& i1, float& w0, float& w1) {
-  const int i = g >> 1;
-  if (g & 1) {
-    i0 = i; i1 = min(i + 1, n - 1); w0 = 0.75f; w1 = 0.25f;
-  } else {
-    i0 = max(i - 1, 0); i1 = i; w0 = 0.25f; w1 = 0.75f;
-  }
-}
 
 // acc[p][o] += sum over ci < nci, 3x3 taps of src[ci][(row0 + p + dy) * srcw + col + dx]
 //                                            * wgt[((dy * 3 + dx) * nci + ci) * wstride + o]
@@ -135,9 +126,22 @@ __device__ __forceinline__ void conv_accumulate(float (&acc)[PX][OC], const floa
 // w0: (9, Cip, Cp) float32, Cip a multiple of IC and Cp of OC, zero beyond
 // the real channels; st0/st1: (2, Cp) scale then shift; w1: (9, Cp, Cp);
 // wh: (9, Cp); bh: (1,) float32; out: (B, 2h, 2w) contiguous.
+//
+// BORDER (the float border of the int8 tail, csrc/tail_q.cu): x is float32,
+// bf16 or int8 (Tin) and the tail runs on its dequantized values (tail_parts::
+// dequantized with inv = float32(1 / s_x) and sx); only the blocks whose tile
+// meets the outer BORDER_PX rows or columns of the map work, and they write
+// only those pixels.
+constexpr int BORDER_PX = 6;
+
+__device__ __forceinline__ bool in_border(int gy, int gx, int H, int W) {
+  return gy < BORDER_PX || gy >= H - BORDER_PX || gx < BORDER_PX || gx >= W - BORDER_PX;
+}
+
+template <typename Tin, bool BORDER>
 __global__ void __launch_bounds__(THREADS, 2)
-tail_kernel(const float* __restrict__ x, long long sb, long long sh, long long sw, long long sc,
-            const float* __restrict__ w0, const float* __restrict__ st0,
+tail_kernel(const Tin* __restrict__ x, long long sb, long long sh, long long sw, long long sc,
+            float inv, float sx, const float* __restrict__ w0, const float* __restrict__ st0,
             const float* __restrict__ w1, const float* __restrict__ st1,
             const float* __restrict__ wh, const float* __restrict__ bh, float* __restrict__ out,
             int h, int w, int Ci, int Cip, int Cp) {
@@ -156,7 +160,11 @@ tail_kernel(const float* __restrict__ x, long long sb, long long sh, long long s
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  const float* xb = x + (long long)b * sb;
+  if (BORDER && ty0 >= BORDER_PX && ty0 + TH <= H - BORDER_PX && tx0 >= BORDER_PX &&
+      tx0 + TW <= W - BORDER_PX)
+    return;  // an interior tile: the int8 map's
+  const Tin* xb = x + (long long)b * sb;
+  auto ld = [&](const Tin* p) { return BORDER ? dequantized(*p, inv, sx) : value_f(*p); };
 
   for (int i = tid; i < 9 * Cp * Cp; i += THREADS) w1s[i] = w1[i];
   for (int i = tid; i < 9 * Cp; i += THREADS) whs[i] = wh[i];
@@ -192,11 +200,11 @@ tail_kernel(const float* __restrict__ x, long long sb, long long sh, long long s
           float wy0, wy1, wx0, wx1;
           up_taps(gy, h, i0, i1, wy0, wy1);
           up_taps(gx, w, j0, j1, wx0, wx1);
-          const float* xc = xb + (long long)ci * sc;
-          const float a = __fadd_rn(__fmul_rn(wy0, xc[i0 * sh + j0 * sw]),
-                                    __fmul_rn(wy1, xc[i1 * sh + j0 * sw]));
-          const float d = __fadd_rn(__fmul_rn(wy0, xc[i0 * sh + j1 * sw]),
-                                    __fmul_rn(wy1, xc[i1 * sh + j1 * sw]));
+          const Tin* xc = xb + (long long)ci * sc;
+          const float a = __fadd_rn(__fmul_rn(wy0, ld(xc + i0 * sh + j0 * sw)),
+                                    __fmul_rn(wy1, ld(xc + i1 * sh + j0 * sw)));
+          const float d = __fadd_rn(__fmul_rn(wy0, ld(xc + i0 * sh + j1 * sw)),
+                                    __fmul_rn(wy1, ld(xc + i1 * sh + j1 * sw)));
           val = __fadd_rn(__fmul_rn(wx0, a), __fmul_rn(wx1, d));
         }
         u[cl * (UH * UW) + px] = val;
@@ -277,7 +285,8 @@ tail_kernel(const float* __restrict__ x, long long sb, long long sh, long long s
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const int gy = ty0 + rg * PX + p;
-      if (gy < H && gx < W) out[((long long)b * H + gy) * W + gx] = acc[p] + bias;
+      if (gy < H && gx < W && (!BORDER || in_border(gy, gx, H, W)))
+        out[((long long)b * H + gy) * W + gx] = acc[p] + bias;
     }
   }
 }
@@ -289,18 +298,21 @@ size_t tail_smem_bytes(int Cp) {
                           9 * (size_t)Cp + 4 * (size_t)Cp);
 }
 
-int launch(const float* x, long long sb, long long sh, long long sw, long long sc, const float* w0,
-           const float* st0, const float* w1, const float* st1, const float* wh,
-           const float* bh, float* out, int B, int h, int w, int Ci, int Cip, int Cp,
+template <typename Tin, bool BORDER>
+int launch(const void* x, long long sb, long long sh, long long sw, long long sc, float inv,
+           float sx, const void* w0, const void* st0, const void* w1, const void* st1,
+           const void* wh, const void* bh, void* out, int B, int h, int w, int Ci, int Cip, int Cp,
            cudaStream_t stream) {
   const size_t smem = tail_smem_bytes(Cp);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(tail_kernel,
+  cudaError_t err = cudaFuncSetAttribute(tail_kernel<Tin, BORDER>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((2 * w + TW - 1) / TW, (2 * h + TH - 1) / TH, B);
-  tail_kernel<<<grid, THREADS, smem, stream>>>(x, sb, sh, sw, sc, w0, st0, w1, st1, wh, bh, out, h,
-                                                w, Ci, Cip, Cp);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  tail_kernel<Tin, BORDER><<<grid, THREADS, smem, stream>>>(
+      static_cast<const Tin*>(x), sb, sh, sw, sc, inv, sx, f(w0), f(st0), f(w1), f(st1), f(wh),
+      f(bh), static_cast<float*>(out), h, w, Ci, Cip, Cp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,7 +324,6 @@ using namespace hist_mma;
 
 constexpr int TH = 24, TW = 16;                   // output tile (full resolution)
 constexpr int THREADS = 256, WARPS = THREADS / 32;
-constexpr int MT = 2;                             // 16-pixel M tiles per warp and step
 constexpr int UH = TH + 6, UW = TW + 6;           // upsampled input, halo 3
 constexpr int Y0H = TH + 4, Y0W = TW + 4;         // conv0 output, halo 2
 constexpr int Y1H = TH + 2, Y1W = TW + 2;         // conv1 output, halo 1
@@ -320,14 +331,6 @@ constexpr int SH = TH / 2 + 4, SW = TW / 2 + 4;   // half-resolution source cell
 // bf16 per channel plane of the staged cells: rows stay 4-byte aligned, and
 // 97 words (odd) keep channel-fastest stores free of bank conflicts
 constexpr int SPLANE = SH * SW + 2;
-// bytes per weight row (one K step's 16 bf16); rows n with bit 2 set hold
-// their two 16-byte halves swapped, so the eight rows of an ldmatrix fall
-// into different bank groups without padding
-constexpr int WROW = 32;
-
-// bytes per pixel of an activation buffer with g groups of 16 channels: the
-// 16 bytes of padding make it an odd multiple of 16 (conflict-free ldmatrix)
-__host__ __device__ constexpr int pix_bytes(int g) { return 32 * g + 16; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 struct Layout {  // byte offsets into dynamic shared memory
@@ -350,94 +353,6 @@ __host__ __device__ constexpr Layout layout(int g0, int g1) {
   L.cells = o; o += (16 * g0 * SPLANE * 2 + 15) / 16 * 16;
   L.total = o;
   return L;
-}
-
-// acc[mt][nt] = the (16 x 8) tile (M tile m0 / 16 + mt, N tile nt) of a 3x3
-// conv as a product. src: bf16 activations pixel-major, pix_bytes(G) per
-// pixel, srcw pixels a row; output pixel m of the outw-wide region reads the
-// 3x3 window whose top-left pixel is m's row and column (rows past M read the
-// last pixel; the caller drops them). wsm: [9 G][8 NT] rows of WROW bytes, K step
-// (dy * 3 + dx) * G + cg holding, in row n, the weights of channels 16 cg ...
-// 16 cg + 15 of tap (dy, dx) for output n.
-template <int G, int NT, bool ON = true>  // ON false: zero sums (profiling builds only)
-__device__ __forceinline__ void conv3x3(float (&acc)[MT][NT][4], uint32_t src, int srcw, int outw,
-                                        int M, int m0, uint32_t wsm, int lane) {
-  constexpr int PB = pix_bytes(G);
-  const int q = lane >> 3, r = lane & 7;
-  uint32_t a_base[MT];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int m = min(m0 + 16 * mt + r + 8 * (q & 1), M - 1);
-    a_base[mt] = src + ((m / outw) * srcw + m % outw) * PB + (q >> 1) * 16;
-  }
-  const uint32_t b_base = wsm + ((q >> 1) * 8 + r) * WROW + (((q & 1) ^ ((r >> 2) & 1)) * 16);
-  __syncwarp();  // the epilogue before diverges; ldmatrix and mma.sync need the whole warp
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
-  if (!ON) return;
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-#pragma unroll
-    for (int cg = 0; cg < G; ++cg) {
-      const int ks = tap * G + cg;
-      const uint32_t aoff = ((tap / 3) * srcw + tap % 3) * PB + cg * 32;
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], a_base[mt] + aoff);
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        const uint32_t baddr = b_base + (ks * 8 * NT + nt * 8) * WROW;
-        if (nt + 1 < NT) {
-          uint32_t b[4];
-          ldsm_x4(b, baddr);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
-            mma_bf16(acc[mt][nt + 1], a[mt], b[2], b[3]);
-          }
-        } else {
-          uint32_t b[2];
-          ldsm_x2(b, baddr);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b[0], b[1]);
-        }
-      }
-    }
-  }
-}
-
-// BN (multiply, then add), ReLU, rounded to bf16; zero outside the image (the
-// next conv's padding). The region starts at global (gy0, gx0) and is outw
-// wide; dst is pixel-major with pix_bytes(NT / 2) per pixel.
-template <int NT>
-__device__ __forceinline__ void store_bn_relu(const float (&acc)[MT][NT][4], unsigned char* dst,
-                                              int M, int m0, int outw, int gy0, int gx0, int H,
-                                              int W, const float* scale, const float* shift,
-                                              int lane) {
-  constexpr int PB = pix_bytes(NT / 2);
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + 16 * mt + g + 8 * half;
-      if (m >= M) continue;
-      const int r = m / outw, c = m - r * outw;
-      const int gy = gy0 + r, gx = gx0 + c;
-      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int o = nt * 8 + 2 * t;
-        const float* a = acc[mt][nt] + 2 * half;
-        const float v0 = fmaxf(__fadd_rn(__fmul_rn(a[0], scale[o]), shift[o]), 0.0f);
-        const float v1 = fmaxf(__fadd_rn(__fmul_rn(a[1], scale[o + 1]), shift[o + 1]), 0.0f);
-        *reinterpret_cast<uint32_t*>(dst + m * PB + o * 2) = inside ? pack_bf16x2(v0, v1) : 0u;
-      }
-    }
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
@@ -714,11 +629,34 @@ extern "C" int tail_launch(const void* x, long long sb, long long sh, long long 
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if ((size_t)B * h * w == 0) return 0;
   if (Cip % IC != 0 || Cp % OC != 0 || Cip < Ci) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(static_cast<const float*>(x), sb, sh, sw, sc, static_cast<const float*>(w0),
-                static_cast<const float*>(st0), static_cast<const float*>(w1),
-                static_cast<const float*>(st1), static_cast<const float*>(wh),
-                static_cast<const float*>(bh), static_cast<float*>(out), B, h, w, Ci, Cip, Cp,
-                stream);
+  return launch<float, false>(x, sb, sh, sw, sc, 1.0f, 1.0f, w0, st0, w1, st1, wh, bh, out, B, h,
+                              w, Ci, Cip, Cp, stream);
+}
+
+// The float32 border of the int8 tail (ops/cuda_tail.py::tail_q with a
+// float32 output): x (float32, bfloat16 or int8 by in_dtype 0, 1, 2) and its
+// element strides (batch, row, column, channel), quantized with inv =
+// float32(1 / s_x) unless int8 and dequantized with sx; weights as
+// tail_launch takes them; writes the outer six rows and columns of out.
+extern "C" int tail_border_f32_launch(const void* x, long long sb, long long sh, long long sw,
+                                      long long sc, int in_dtype, float inv, float sx,
+                                      const void* w0, const void* st0, const void* w1,
+                                      const void* st1, const void* wh, const void* bh, void* out,
+                                      int B, int h, int w, int Ci, int Cip, int Cp,
+                                      void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if ((size_t)B * h * w == 0) return 0;
+  if (Cip % IC != 0 || Cp % OC != 0 || Cip < Ci) return static_cast<int>(cudaErrorInvalidValue);
+  if (in_dtype == 0)
+    return launch<float, true>(x, sb, sh, sw, sc, inv, sx, w0, st0, w1, st1, wh, bh, out, B, h, w,
+                               Ci, Cip, Cp, stream);
+  if (in_dtype == 1)
+    return launch<__nv_bfloat16, true>(x, sb, sh, sw, sc, inv, sx, w0, st0, w1, st1, wh, bh, out,
+                                       B, h, w, Ci, Cip, Cp, stream);
+  if (in_dtype == 2)
+    return launch<int8_t, true>(x, sb, sh, sw, sc, inv, sx, w0, st0, w1, st1, wh, bh, out, B, h, w,
+                                Ci, Cip, Cp, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Shared memory the bfloat16 kernel needs with g0 and g1 16-channel groups (not a launcher).

@@ -83,10 +83,17 @@ class _Fusable(nn.Module):
     def _conv_ln_act(self, x: torch.Tensor, conv: QConv, norm: nn.Module, residual=None, *,
                      xscale=None, **kwargs) -> torch.Tensor:
         """The fused unit on NHWC x with ``conv``'s and ``norm``'s parameters.
-        Its int8 form gets the prepared operands that ``conv`` keeps until a
-        parameter or the scale changes, and the weight only as a view."""
+        Its int8 form, and its bf16 form at the wgmma kernel's shapes, get the
+        prepared operands that ``conv`` keeps until a parameter (or the
+        scale) changes, and the weight only as a view."""
         prepared = None
-        if xscale is None:
+        if xscale is None and x.dtype == torch.bfloat16 and cuda_head.wgmma_shape(
+                x.shape[-1], conv.out_channels):
+            w = conv.weight.permute(2, 3, 1, 0).to(x.dtype)  # a view of bf16 weights
+            prepared = conv.cached(
+                "fused_bf16", (conv.weight, conv.bias, norm.weight, norm.bias), (x.dtype,),
+                lambda: cuda_head.prepare_bf16(w, conv.bias, norm.weight, norm.bias))
+        elif xscale is None:
             w = _hwio(conv, x.dtype)
         else:
             w = conv.weight.permute(2, 3, 1, 0)

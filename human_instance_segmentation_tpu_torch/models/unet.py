@@ -138,9 +138,10 @@ class PeopleSegmentationUNet(nn.Module):
         return "float"
 
     def _tail_operands(self, operands, dtype: torch.dtype, form: str):
-        """The fused tail's packed kernel operands (the s8 tail's for
-        ``"int8"``, the bf16 tail's for ``"float"``), made once and kept until
-        a weight, a BN statistic or a scale changes."""
+        """The fused tail's packed kernel operands (the s8 tail's with its
+        float border's for ``"int8"``, the bf16 tail's for ``"float"``), made
+        once and kept until a weight, a BN statistic, a scale or the dtype
+        changes."""
         tensors = [operands[0], *operands[1], operands[2], *operands[3], *operands[4:]]
         if any(t.is_inference() for t in tensors):
             return None
@@ -150,7 +151,7 @@ class PeopleSegmentationUNet(nn.Module):
             with torch.inference_mode(False), torch.no_grad():
                 if form == "int8":
                     wq = cuda_tail.build_tail_weights_q(*operands, *self.tail_scales)
-                    packed = cuda_tail.pack_tail_weights_q(wq)
+                    packed = cuda_tail.pack_tail_weights_q(wq, operands, dtype)
                 else:
                     packed = cuda_tail.pack_tail_weights(*operands)
                 self._tail_packed = (key, tensors, packed)

@@ -41,9 +41,10 @@ _D = ctypes.c_double
 _L = ctypes.c_longlong
 # C signatures of the exported launchers; each returns cudaGetLastError().
 SIGNATURES = {
-    # x, w, b, gamma, beta, residual, out, scratch, N, H, W, Ci, Co, k,
-    # eps, relu, dtype (0 f32, 1 bf16), stream
-    "conv_ln_act_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # x, w (HWIO, or null with wp), wp (bf16 K-major packed weights, or null), bytes per
+    # packed row, b, gamma, beta, residual, out, scratch, N, H, W, Ci, Co, k, eps, relu,
+    # dtype (0 f32, 1 bf16), stream
+    "conv_ln_act_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _D, _I, _I, _P],
     # features, rois, out, B, H, W, C, N, oh, ow, ssh, ssw, aligned,
     # dtype (0 f32, 1 bf16), stream
@@ -91,15 +92,21 @@ SIGNATURES = {
     # Ho, Wo, stride, sizeof(T) -> tiles per image of pass 1, the middle extent of partial
     # (not a launcher)
     "mbconv_tiles_for": [_I, _I, _I, _I],
-    # x and its element strides (batch, row, column, channel), xq (B, h, w, Ci) int8,
-    # float32(1 / s_x), B, h, w, Ci, dtype (0 f32, 1 bf16), stream
-    "tail_q_quantize_launch": [_P, _L, _L, _L, _L, _P, _F, _I, _I, _I, _I, _I, _P],
-    # xq, w0 / w1 / wh codes and the float32 parameters as
-    # ops/cuda_tail.pack_tail_weights_q lays them out, out (B, 2h, 2w), B, h, w, Ci, Cip, Cp,
-    # out dtype (0 f32, 1 bf16), stream
-    "tail_q_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # Cip, Cp -> bytes of shared memory the int8 tail kernel needs (not a launcher)
-    "tail_q_smem_bytes_for": [_I, _I],
+    # x and its element strides (batch, row, column, channel), in dtype (0 f32, 1 bf16, 2 s8),
+    # float32(1 / s_x), s_x, w0 / w1 / wh codes and the float32 parameters as
+    # ops/cuda_tail.pack_tail_weights_q lays them out, the bf16 border's w0, w1, wh, fp as
+    # ops/cuda_tail.pack_tail_weights lays them out (null for a float32 output), out (B, 2h,
+    # 2w), B, h, w, Ci, Cip, Cp, out dtype (0 f32, 1 bf16), stream
+    "tail_q_launch": [_P, _L, _L, _L, _L, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _I, _I, _P],
+    # Cip, Cp, border (1: the bf16 border in the kernel) -> bytes of shared memory the int8
+    # tail kernel needs (not a launcher)
+    "tail_q_smem_bytes_for": [_I, _I, _I],
+    # the int8 tail's float32 border: x, its element strides, in dtype (0 f32, 1 bf16, 2 s8),
+    # float32(1 / s_x), s_x, the float32 tail's operands as tail_launch takes them, out (B, 2h,
+    # 2w), B, h, w, Ci, Cip, Cp, stream
+    "tail_border_f32_launch": [_P, _L, _L, _L, _L, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

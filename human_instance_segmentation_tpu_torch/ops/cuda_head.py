@@ -2,10 +2,16 @@
 
 Counterpart of the JAX package's ``ops/pallas_head.py::conv_ln_act``. The
 CUDA kernel is ``csrc/conv_ln_act.cu`` (an implicit-GEMM conv into a
-float32 scratch buffer, then one LayerNorm2d block per ROI; the source
-note says why it takes two launches). :func:`conv_ln_act_plain` is the
-same function in plain PyTorch: the path for CPU tensors and the oracle
+float32 scratch buffer, then a cluster of LayerNorm2d blocks per ROI; the
+source note says why it takes two launches). :func:`conv_ln_act_plain` is
+the same function in plain PyTorch: the path for CPU tensors and the oracle
 the kernel is held against.
+
+In bf16 the conv runs on wgmma when Ci and Co divide by 8 and x's rows are
+16-byte aligned (the served shapes), on weights packed K-major once
+(:func:`prepare_bf16`; the blocks make them once per weight and hand them in
+as ``prepared`` with the float32 bias and norm parameters); other bf16 shapes
+take a scalar-staged WMMA kernel on the HWIO weights, float32 an FMA kernel.
 
 With ``xscale`` (a calibrated activation scale) the unit runs its int8
 form (pallas_head.py:178-187): weights quantized per output channel and
@@ -23,7 +29,7 @@ bottleneck, 16x12 at 384 channels in the flagship). Do not widen them.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -69,6 +75,40 @@ def prepare_s8(w: torch.Tensor, xscale: float, b: torch.Tensor, gamma: torch.Ten
     b, gamma, beta = (t.detach().to(device=w.device, dtype=torch.float32).contiguous()
                       for t in (b, gamma, beta))
     return FusedS8Operands(wq, pack_weight_kmajor(wq), qscale, inv, b, gamma, beta)
+
+
+class FusedBF16Operands(NamedTuple):
+    """What the bf16 form needs besides x and the residual; depends only on
+    the parameters."""
+
+    packed: torch.Tensor  # (Co, Kp) bf16: pack_weight_bf16(w) (the wgmma kernel's operand)
+    b: torch.Tensor       # float32 conv bias, LayerNorm weight and bias
+    gamma: torch.Tensor
+    beta: torch.Tensor
+
+
+def wgmma_shape(ci: int, co: int) -> bool:
+    """Whether the bf16 conv takes the wgmma kernel (with aligned rows)."""
+    return ci % 8 == 0 and co % 8 == 0
+
+
+def pack_weight_bf16(w: torch.Tensor) -> torch.Tensor:
+    """(k, k, Ci, Co) weights (any strides) -> (Co, Kp) bf16, the wgmma
+    kernel's K-major B operand: row co holds, tap after tap, that tap's Ci
+    weights (K = tap * Ci + c), zero-padded to a multiple of 64 values (128
+    bytes)."""
+    k, k2, ci, co = w.shape
+    rows = w.detach().to(torch.bfloat16).permute(3, 0, 1, 2).reshape(co, k * k2 * ci)
+    return F.pad(rows, (0, -(-rows.shape[1] // 64) * 64 - rows.shape[1])).contiguous()
+
+
+def prepare_bf16(w: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor) -> FusedBF16Operands:
+    """The bf16 form's operands, made once: w (k, k, Ci, Co), any strides and
+    dtype (rounded to bf16), packed K-major; b, gamma, beta as float32."""
+    b, gamma, beta = (t.detach().to(device=w.device, dtype=torch.float32).contiguous()
+                      for t in (b, gamma, beta))
+    return FusedBF16Operands(pack_weight_bf16(w), b, gamma, beta)
 
 
 def conv_ln_act_plain(
@@ -140,17 +180,18 @@ def conv_ln_act(
     eps: float = 1e-5,
     act: str = "relu",
     xscale: Optional[float] = None,
-    prepared: Optional[FusedS8Operands] = None,
+    prepared: Optional[Union[FusedS8Operands, FusedBF16Operands]] = None,
 ) -> torch.Tensor:
     """Fused SAME conv (k in {1, 3}) + LayerNorm2d + optional residual + act.
 
     Same contract as the JAX wrapper: x (N, H, W, Ci); w (k, k, Ci, Co) in
     x's dtype; b/gamma/beta (Co,); residual (N, H, W, Co) added after the
     norm, before the activation; ``xscale`` switches to the int8 form.
-    Returns (N, H, W, Co) in x's dtype. With ``xscale``, ``prepared``
-    (:func:`prepare_s8` of the same w, xscale, b, gamma, beta, made once by
-    the caller) spares quantizing the weights at every call; w is then only
-    checked for its shape and may be any view.
+    Returns (N, H, W, Co) in x's dtype. ``prepared``, made once by the caller
+    from the same parameters, spares preparing them at every call: with
+    ``xscale``, :func:`prepare_s8`'s result; in bf16, :func:`prepare_bf16`'s.
+    Where the kernel reads it (the int8 form, and bf16 at a wgmma shape), w
+    is then only checked for its shape and may be any view.
 
     A CPU tensor takes :func:`conv_ln_act_plain`. A CUDA tensor launches
     the kernel (:func:`conv_ln_act_s8` for the int8 form) or raises.
@@ -172,37 +213,56 @@ def conv_ln_act(
             raise ValueError(f"{name} must be ({co},), got {tuple(t.shape)}")
     if residual is not None and tuple(residual.shape) != (n, h, wd, co):
         raise ValueError(f"residual must be {(n, h, wd, co)}, got {tuple(residual.shape)}")
+    s8 = xscale is not None
+    if prepared is not None and not isinstance(prepared, FusedS8Operands if s8
+                                               else FusedBF16Operands):
+        raise TypeError("prepared must be prepare_s8's result with xscale, prepare_bf16's "
+                        "without")
 
     if x.device.type == "cpu":
         return conv_ln_act_plain(x, w, b, gamma, beta, residual, kernel=kernel, eps=eps, act=act,
-                                 xscale=xscale, prepared=prepared)
+                                 xscale=xscale, prepared=prepared if s8 else None)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv_ln_act: no kernel for device {x.device}")
 
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv_ln_act kernel takes float32 or bfloat16, got {x.dtype}")
-    s8 = xscale is not None
-    operands = [x] + ([] if s8 and prepared is not None else [w]) \
-        + ([residual] if residual is not None else [])
+    dev = x.device
+    wgmma = (not s8 and x.dtype == torch.bfloat16 and wgmma_shape(ci, co)
+             and x.is_contiguous() and x.data_ptr() % 16 == 0)
+    reads_w = not (s8 and prepared is not None) and not (wgmma and prepared is not None)
+    operands = [x] + ([w] if reads_w else []) + ([residual] if residual is not None else [])
     for t in operands:
-        if t.device != x.device or t.dtype != x.dtype:
+        if t.device != dev or t.dtype != x.dtype:
             raise TypeError("x, w and residual must share x's device and dtype")
-        if not t.is_contiguous():
+        if not t.is_contiguous() and not (wgmma and t is w):
             raise ValueError("x, w and residual must be contiguous (NHWC / HWIO)")
-    out = torch.empty((n, h, wd, co), device=x.device, dtype=x.dtype)
-    scratch = torch.empty((n, h * wd, co), device=x.device, dtype=torch.float32)
+    out = torch.empty((n, h, wd, co), device=dev, dtype=x.dtype)
+    scratch = torch.empty((n, h * wd, co), device=dev, dtype=torch.float32)
     if s8:
         ops = prepared if prepared is not None else prepare_s8(w, xscale, b, gamma, beta)
         conv_ln_act_s8(x, ops, residual, out, scratch, kernel=kernel, eps=eps, act=act)
         return out
-    params = [p.to(device=x.device, dtype=torch.float32).contiguous() for p in (b, gamma, beta)]
     lib = _build.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if wgmma:
+        ops = prepared if prepared is not None else prepare_bf16(w, b, gamma, beta)
+        kp = -(-kernel * kernel * ci // 64) * 64
+        if tuple(ops.packed.shape) != (co, kp) or ops.packed.dtype != torch.bfloat16 or any(
+                t.device != dev or not t.is_contiguous() for t in ops):
+            raise ValueError(f"conv_ln_act: prepared operands must be contiguous on x's device, "
+                             f"the packed weights ({co}, {kp}) bf16")
+        wptr, wpp, params = None, ops.packed.data_ptr(), (ops.b, ops.gamma, ops.beta)
+        kp_bytes = 2 * kp
+    else:
+        params = ((prepared.b, prepared.gamma, prepared.beta) if prepared is not None else
+                  tuple(p.to(device=dev, dtype=torch.float32).contiguous()
+                        for p in (b, gamma, beta)))
+        wptr, wpp, kp_bytes = w.data_ptr(), None, 0
     err = lib.conv_ln_act_launch(
-        x.data_ptr(), w.data_ptr(), params[0].data_ptr(), params[1].data_ptr(),
-        params[2].data_ptr(), residual.data_ptr() if residual is not None else None,
-        out.data_ptr(), scratch.data_ptr(), n, h, wd, ci, co, kernel, float(eps),
-        int(act == "relu"), _DTYPES[x.dtype], stream)
+        x.data_ptr(), wptr, wpp, kp_bytes, *(p.data_ptr() for p in params),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(), scratch.data_ptr(),
+        n, h, wd, ci, co, kernel, float(eps), int(act == "relu"), _DTYPES[x.dtype],
+        _build.current_stream(dev))
     conv_ln_act.launches += 1
     _build.check(err, "conv_ln_act")
     return out

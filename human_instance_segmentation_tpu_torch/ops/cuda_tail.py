@@ -50,21 +50,27 @@ calibrated static activation scales ``s_x``, ``s_mid``, ``s_head``:
 4. requantize with ``1 / s_head``; the head with one weight scale, times
    ``s_head * swh``, plus ``bh``;
 5. the outer six rows and columns of the map are not int8: they are the float
-   tail (:func:`tail` / :func:`tail_plain`, un-quantized weights) of the
-   dequantized input ``xq * s_x``, computed on four edge strips (the first and
-   last 8 rows and columns of x, two launches of the float kernel) and written
-   over the int8 map's border;
+   tail (:func:`tail_plain`'s rule, un-quantized weights) of the dequantized
+   input ``xq * s_x`` (rounded to the output dtype), which the plain version
+   computes on four edge strips (the first and last 8 rows and columns of x;
+   the strips' own edges are further from the six kept rows and columns than
+   the tail's receptive field, so this is the float tail of the whole
+   dequantized map there);
 6. the result is in ``out_dtype``, else x's dtype, bfloat16 for an int8 x.
 
-Integer sums are exact and every float step after them is one correctly
-rounded float32 operation in the kernel and in the plain version, so the two
-are equal in the interior; the border differs as the float kernel differs
-from its plain version.
+The kernel (one launch for a bf16 output): a persistent grid that stages the
+weights once per block, quantizes x while it stages each tile (no int8 copy
+of a float x), runs the three s8 convs and, in the tiles that meet the
+border, the bf16 float tail for the border pixels. A float32 output keeps
+the float32 rule for its border: a second launch of the float32 tail kernel
+in border mode. Integer sums are exact and every float step after them is one
+correctly rounded float32 operation in the kernel and in the plain version,
+so the two are equal in the interior; the border differs as the float kernel
+differs from its plain version.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -86,9 +92,12 @@ BatchNormParams = Sequence[torch.Tensor]  # (scale, bias, mean, var), each (C,)
 
 BORDER = 6   # outer rows and columns of the int8 map that are float
 _STRIP = 8   # input rows and columns whose float tail covers the border
+_MAX_CIP_Q = 64  # csrc/tail_q.cu: at most four 16-channel groups of the input
+_IN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 __all__ = ["tail", "tail_plain", "fold_bn", "pack_tail_weights", "tail_q", "tail_q_plain",
-           "build_tail_weights_q", "pack_tail_weights_q", "compose_up_conv", "TailWeightsQ"]
+           "build_tail_weights_q", "pack_tail_weights_q", "compose_up_conv", "TailWeightsQ",
+           "TailPackedQ"]
 
 
 def fold_bn(bn: BatchNormParams, eps: float = BN_EPS) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,6 +194,17 @@ def pack_tail_weights(k0: torch.Tensor, bn0: BatchNormParams, k1: torch.Tensor,
             fp)
 
 
+def _f32_operands(k0, bn0, k1, bn1, kh, bh):
+    """The float32 kernel's operands (w0, st0, w1, st1, wh, bh), zero beyond
+    the real channels: padded channels come out as relu(0 * 0 + 0) = 0 and
+    meet zero weights downstream."""
+    ci, c = k0.shape[2], k0.shape[3]
+    cip, cp = -(-ci // _IC) * _IC, -(-c // _OC) * _OC
+    return (_pad_to(k0.reshape(9, ci, c), (9, cip, cp)), _pad_to(torch.stack(fold_bn(bn0)), (2, cp)),
+            _pad_to(k1.reshape(9, c, c), (9, cp, cp)), _pad_to(torch.stack(fold_bn(bn1)), (2, cp)),
+            _pad_to(kh.reshape(9, c), (9, cp)), bh.to(torch.float32).reshape(1).contiguous())
+
+
 def tail(x: torch.Tensor, k0: torch.Tensor, bn0: BatchNormParams, k1: torch.Tensor,
          bn1: BatchNormParams, kh: torch.Tensor, bh: torch.Tensor, packed=None) -> torch.Tensor:
     """:func:`tail_plain`'s function. A CPU tensor takes the plain version; a
@@ -221,23 +241,14 @@ def tail(x: torch.Tensor, k0: torch.Tensor, bn0: BatchNormParams, k1: torch.Tens
         err = lib.tail_bf16_launch(x.data_ptr(), *x.stride(), *(t.data_ptr() for t in packed),
                                    out.data_ptr(), b, h, w, ci, g0, g1, stream)
     else:
-        cip = -(-ci // _IC) * _IC
-        cp = -(-c // _OC) * _OC
-        need = lib.tail_smem_bytes_for(cp)
+        need = lib.tail_smem_bytes_for(-(-c // _OC) * _OC)
         if need > _SMEM_LIMIT:
             raise ValueError(f"tail: C={c} needs {need} bytes of shared memory per block, more "
                              f"than the {_SMEM_LIMIT} a block can have")
-        # float32 operands, zero beyond the real channels: padded channels
-        # come out as relu(0 * 0 + 0) = 0 and meet zero weights downstream
-        w0 = _pad_to(k0.reshape(9, ci, c), (9, cip, cp))
-        w1 = _pad_to(k1.reshape(9, c, c), (9, cp, cp))
-        wh = _pad_to(kh.reshape(9, c), (9, cp))
-        st0 = _pad_to(torch.stack(fold_bn(bn0)), (2, cp))
-        st1 = _pad_to(torch.stack(fold_bn(bn1)), (2, cp))
-        bias = bh.to(torch.float32).reshape(1).contiguous()
-        err = lib.tail_launch(x.data_ptr(), *x.stride(), w0.data_ptr(), st0.data_ptr(),
-                              w1.data_ptr(), st1.data_ptr(), wh.data_ptr(), bias.data_ptr(),
-                              out.data_ptr(), b, h, w, ci, cip, cp, stream)
+        ops = _f32_operands(k0, bn0, k1, bn1, kh, bh)
+        err = lib.tail_launch(x.data_ptr(), *x.stride(), *(t.data_ptr() for t in ops),
+                              out.data_ptr(), b, h, w, ci, -(-ci // _IC) * _IC, -(-c // _OC) * _OC,
+                              stream)
     tail.launches += 1
     _build.check(err, "tail")
     return out
@@ -382,22 +393,43 @@ def tail_q_plain(x: torch.Tensor, k0, bn0, k1, bn1, kh, bh, s_x: float, s_mid: f
 
 
 def _pack_rows(wq: torch.Tensor, cs: int, n_pad: int) -> torch.Tensor:
-    """(3, 3, Cin, N) codes -> [3][ks][n_pad][32] as ``csrc/tail_q.cu`` reads
-    them: within kernel row dy the contraction index is dx * cs + channel,
-    zero codes past Cin, past the third tap and past N."""
+    """(3, 3, Cin, N) codes -> [steps][n_pad][32] as ``csrc/tail_q.cu`` reads
+    them: the contraction runs over 16-byte halves h = tap * (cs / 16) + group
+    (tap = 3 dy + dx, channels 16 group ... 16 group + 15), half h at bytes 16
+    (h % 2) of step h / 2; zero codes past Cin, past N and in the last half of
+    an odd count."""
     _, _, cin, n = wq.shape
-    ks = -(-3 * cs // 32)
-    rows = torch.zeros((3, 3, cs, n_pad), dtype=torch.int8, device=wq.device)
-    rows[:, :, :cin, :n] = wq
-    flat = torch.zeros((3, ks * 32, n_pad), dtype=torch.int8, device=wq.device)
-    flat[:, :3 * cs] = rows.reshape(3, 3 * cs, n_pad)
-    return flat.reshape(3, ks, 32, n_pad).permute(0, 1, 3, 2).contiguous()
+    halves = 9 * cs // 16
+    steps = -(-halves // 2)
+    rows = torch.zeros((9, cs, n_pad), dtype=torch.int8, device=wq.device)
+    rows[:, :cin, :n] = wq.reshape(9, cin, n)
+    flat = torch.zeros((2 * steps, 16, n_pad), dtype=torch.int8, device=wq.device)
+    flat[:halves] = rows.reshape(halves, 16, n_pad)
+    return flat.reshape(steps, 2, 16, n_pad).permute(0, 3, 1, 2).reshape(steps, n_pad, 32) \
+        .contiguous()
 
 
-def pack_tail_weights_q(wq: TailWeightsQ):
-    """The kernel's operands: (w0, w1, wh int8 as :func:`_pack_rows` lays
-    them out, float32 parameters g0 (4 Cp) | b0 | g1 | b1 (Cp each) | gh, bh,
-    1 / s_mid, 1 / s_head), with Cip and Cp = Ci and C rounded up to 16."""
+class TailPackedQ(NamedTuple):
+    """The kernel's operands (:func:`pack_tail_weights_q`): the int8 codes as
+    :func:`_pack_rows` lays them out, the float32 parameters, and the float
+    border's operands for one output dtype (``border_dtype``): bf16,
+    :func:`pack_tail_weights`' result; float32, the float32 tail kernel's
+    padded weights, BN scale and shift and head bias."""
+    w0: torch.Tensor
+    w1: torch.Tensor
+    wh: torch.Tensor
+    fp: torch.Tensor
+    border: tuple
+    border_dtype: torch.dtype
+
+
+def pack_tail_weights_q(wq: TailWeightsQ, float_ops,
+                        out_dtype: torch.dtype = torch.bfloat16) -> TailPackedQ:
+    """The kernel's operands, made once: w0, w1, wh int8 as :func:`_pack_rows`
+    lays them out; float32 parameters g0 (4 Cp) | b0 | g1 | b1 (Cp each) | gh,
+    bh, 1 / s_mid, 1 / s_head, with Cip and Cp = Ci and C rounded up to 16;
+    and the border's operands for ``out_dtype`` from ``float_ops`` = (k0, bn0,
+    k1, bn1, kh, bh), the weights of ``wq``."""
     ci, c = wq.w0q.shape[2], wq.w0q.shape[4]
     cip, cp = -(-ci // 16) * 16, -(-c // 16) * 16
     dev = wq.w0q.device
@@ -409,18 +441,27 @@ def pack_tail_weights_q(wq: TailWeightsQ):
         fp[(4 + i) * cp:(4 + i) * cp + c] = v
     fp[7 * cp:] = torch.cat([wq.gh, wq.bh, torch.tensor(
         [1.0 / wq.s_mid, 1.0 / wq.s_head], dtype=torch.float32, device=dev)])
-    return (_pack_rows(w0.reshape(3, 3, ci, 4 * cp), cip, 4 * cp), _pack_rows(wq.w1q, cp, cp),
-            _pack_rows(wq.whq, cp, 8), fp)
+    if out_dtype == torch.bfloat16:
+        border = pack_tail_weights(*float_ops)
+    elif out_dtype == torch.float32:
+        border = _f32_operands(*float_ops)
+    else:
+        raise TypeError(f"tail_q writes float32 or bfloat16, got {out_dtype}")
+    return TailPackedQ(_pack_rows(w0.reshape(3, 3, ci, 4 * cp), cip, 4 * cp),
+                       _pack_rows(wq.w1q, cp, cp), _pack_rows(wq.whq, cp, 8), fp, border,
+                       out_dtype)
 
 
 def tail_q(x: torch.Tensor, k0, bn0, k1, bn1, kh, bh, s_x: float, s_mid: float, s_head: float,
-           out_dtype: Optional[torch.dtype] = None, packed=None) -> torch.Tensor:
+           out_dtype: Optional[torch.dtype] = None, packed: Optional[TailPackedQ] = None
+           ) -> torch.Tensor:
     """The int8 fused tail (module docstring). x (B, h, w, Ci) float32 or
     bfloat16 with any strides, or int8 already quantized with ``s_x``;
     operands as :func:`tail`; returns (B, 2h, 2w). ``packed`` is
-    :func:`pack_tail_weights_q`'s result for these weights and scales, made
-    earlier. A CPU tensor takes :func:`tail_q_plain`; a CUDA tensor launches
-    the kernels or raises."""
+    :func:`pack_tail_weights_q`'s result for these weights and scales and
+    this output dtype, made earlier (built here when None). A CPU tensor
+    takes :func:`tail_q_plain`; a CUDA tensor launches the kernel (and, for a
+    float32 output, the float32 border) or raises."""
     edge = _check_q(x, k0, bn0, k1, bn1, kh, bh, out_dtype)
     if x.device.type == "cpu":
         return tail_q_plain(x, k0, bn0, k1, bn1, kh, bh, s_x, s_mid, s_head, out_dtype)
@@ -429,42 +470,43 @@ def tail_q(x: torch.Tensor, k0, bn0, k1, bn1, kh, bh, s_x: float, s_mid: float, 
     b, h, w, ci = x.shape
     c = k0.shape[3]
     cip, cp = -(-ci // 16) * 16, -(-c // 16) * 16
-    if cp > 32:
-        raise ValueError(f"tail_q: the kernel holds at most 32 channels per warp tile, got C={c}")
+    if cp > 32 or cip > _MAX_CIP_Q:
+        raise ValueError(f"tail_q: the kernel takes Ci <= {_MAX_CIP_Q} and C <= 32, got Ci={ci}, "
+                         f"C={c}")
     lib = _build.library()
-    need = lib.tail_q_smem_bytes_for(cip, cp)
+    bf16 = edge == torch.bfloat16
+    need = lib.tail_q_smem_bytes_for(cip, cp, int(bf16))
     if need > _SMEM_LIMIT:
-        raise ValueError(f"tail_q: Ci={ci} needs {need} bytes of shared memory per block, more "
-                         f"than the {_SMEM_LIMIT} a block can have")
+        raise ValueError(f"tail_q: Ci={ci}, C={c} needs {need} bytes of shared memory per block, "
+                         f"more than the {_SMEM_LIMIT} a block can have")
     if packed is None:
         packed = pack_tail_weights_q(build_tail_weights_q(k0, bn0, k1, bn1, kh, bh, s_x, s_mid,
-                                                          s_head))
-    w0, w1, wh, fp = packed
-    ks0, ks1 = -(-3 * cip // 32), -(-3 * cp // 32)
-    want = ((3, ks0, 4 * cp, 32), (3, ks1, cp, 32), (3, ks1, 8, 32), (7 * cp + 4,))
+                                                          s_head), (k0, bn0, k1, bn1, kh, bh), edge)
+    ks0, ks1 = -(-9 * cip // 32), -(-9 * cp // 32)
+    want = ((ks0, 4 * cp, 32), (ks1, cp, 32), (ks1, 8, 32), (7 * cp + 4,))
     dtypes = (torch.int8, torch.int8, torch.int8, torch.float32)
-    if tuple((tuple(t.shape), t.dtype) for t in packed) != tuple(zip(want, dtypes)) or any(
-            t.device != x.device or not t.is_contiguous() for t in packed):
+    if tuple((tuple(t.shape), t.dtype) for t in packed[:4]) != tuple(zip(want, dtypes)) or any(
+            t.device != x.device or not t.is_contiguous() for t in packed[:4]) \
+            or packed.border_dtype != edge or any(t.device != x.device for t in packed.border) \
+            or (bf16 and tuple(tuple(t.shape) for t in packed.border) != (
+                (9 * cip // 16, cp, 16), (9 * cp // 16, cp, 16), (9 * cp // 16, 8, 16), (4 * cp + 4,))):
         raise ValueError(f"tail_q: packed operands must be contiguous int8 codes and float32 "
-                         f"parameters on x's device with shapes {want}")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.int8:
-        xq = x.contiguous()
-    else:
-        xq = torch.empty((b, h, w, ci), dtype=torch.int8, device=x.device)
-        err = lib.tail_q_quantize_launch(x.data_ptr(), *x.stride(), xq.data_ptr(), 1.0 / s_x, b,
-                                         h, w, ci, _DTYPES[x.dtype], stream)
-        _build.check(err, "tail_q (quantize)")
+                         f"parameters on x's device with shapes {want}, with the border's "
+                         f"operands for {edge}")
+    inv, stream = 1.0 / s_x, _build.current_stream(x.device)
     out = torch.empty((b, 2 * h, 2 * w), dtype=edge, device=x.device)
-    err = lib.tail_q_launch(xq.data_ptr(), w0.data_ptr(), w1.data_ptr(), wh.data_ptr(),
-                            fp.data_ptr(), out.data_ptr(), b, h, w, ci, cip, cp, _DTYPES[edge],
-                            stream)
+    codes = [t.data_ptr() for t in packed[:4]]
+    border = [t.data_ptr() for t in packed.border] if bf16 else [None] * 4
+    err = lib.tail_q_launch(x.data_ptr(), *x.stride(), _IN_DTYPES[x.dtype], inv, s_x, *codes,
+                            *border, out.data_ptr(), b, h, w, ci, cip, cp, _DTYPES[edge], stream)
     tail_q.launches += 1
     _build.check(err, "tail_q")
-    strip_tail = tail
-    if edge == torch.bfloat16:  # both strip launches share one packing of the weights
-        strip_tail = functools.partial(tail, packed=pack_tail_weights(k0, bn0, k1, bn1, kh, bh))
-    _write_border(out, xq, s_x, strip_tail, (k0, bn0, k1, bn1, kh, bh))
+    if not bf16:  # the float32 border: the float32 tail kernel on the dequantized input
+        err = lib.tail_border_f32_launch(
+            x.data_ptr(), *x.stride(), _IN_DTYPES[x.dtype], inv, s_x,
+            *(t.data_ptr() for t in packed.border), out.data_ptr(), b, h, w, ci,
+            -(-ci // _IC) * _IC, -(-c // _OC) * _OC, stream)
+        _build.check(err, "tail_q (float32 border)")
     return out
 
 

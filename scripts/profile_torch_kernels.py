@@ -1,8 +1,14 @@
-"""Where the time of the port's two bf16 tensor-core kernels goes: the fused
-stage-1 tail (``csrc/tail.cu``) and the fused MBConv (``csrc/mbconv.cu``),
-timed at the served shapes with parts of each kernel switched off.
+"""Where the time of the port's tensor-core kernels goes: the fused stage-1
+tail (``csrc/tail.cu``), the fused MBConv (``csrc/mbconv.cu``) and the int8
+tail (``csrc/tail_q.cu``), timed at the served shapes with parts of each
+kernel switched off; and where the host time of a served ``tail_q`` and
+bf16 ``conv_ln_act`` call goes.
 
-    python3 scripts/profile_torch_kernels.py
+    python3 scripts/profile_torch_kernels.py [bf16] [tail_q] [host] [conv_tile]
+
+(all four groups without arguments). ``conv_tile`` times the bf16
+``conv_ln_act`` at ``chip_smoke.HEAD_SHAPE`` with each wgmma tile forced
+(``-DHIST_BF16_TILE=<BN * 10 + warpgroups>``; 0 is the launch's own pick).
 
 Needs one CUDA card and ``nvcc``. Each variant is a separate build of the
 kernels with ``-DHIST_SKIP=<mask>`` (``csrc/mma_bf16.cuh`` lists the bits);
@@ -11,9 +17,11 @@ drop in time is what that part costs. The results are device times (ten
 launches in a row between CUDA events, median of 20) on the same seeded
 inputs: the tail at ``chip_smoke.TAIL_SHAPE`` in the served layout (NCHW
 memory viewed as NHWC, weights packed once), both MBConv passes summed over
-``chip_smoke.MBCONV_SHAPES`` (channels-last). A variant computes wrong
-values; only its time means something. Prints one line per variant, then
-all of them as one JSON object on the last line.
+``chip_smoke.MBCONV_SHAPES`` (channels-last), the int8 tail as the tail
+(bf16 output, operands packed once). A variant computes wrong values; only
+its time means something. ``host``: wall time per call of 200 calls in a
+row against their device time, and ``cProfile``'s largest entries. Prints
+one line per variant, then all of them as one JSON object on the last line.
 """
 
 from __future__ import annotations
@@ -36,6 +44,56 @@ VARIANTS = [
     ("no SiLU", 512),
     ("skeleton: staging stores, epilogues and barriers only", 1023),
 ]
+# conv_ln_act's wgmma tiles (s8igemm::pick_wide_tile's six), BN * 10 + warpgroups
+CONV_TILES = [0, 641, 961, 1281, 642, 962, 1282]
+# the int8 tail's bits (csrc/tail_q.cu)
+VARIANTS_Q = [
+    ("all on", 0),
+    ("no input staging (global loads and quantizer)", 1024),
+    ("no conv0 products", 2048),
+    ("no conv1 products", 4096),
+    ("no head products", 8192),
+    ("no float border", 16384),
+    ("no requantizing epilogues", 32768),
+    ("epilogues on values that do not wait for the products", 65536),
+    ("skeleton: barriers, stores and the head's epilogue only", 1024 | 2048 | 4096 | 8192 | 16384
+     | 32768),
+]
+
+
+def host_profile(name, fn, card, reps=200):
+    """Wall ms per call of ``reps`` calls in a row (the host's time when it is
+    the slower side) beside the device ms of the same calls, and the largest
+    ``cProfile`` entries of the host side."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    import chip_smoke as cs
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    device = sum(cs.device_ms_by_kernel(fn).values())
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(12)
+    print(f"host {name}: {wall:.4f} ms wall per call ({reps} in a row), device {device:.4f} ms "
+          f"per call [{card}]")
+    print(out.getvalue())
+    return {"kernel": name, "wall_ms": wall, "device_ms": device}
 
 
 def main() -> None:
@@ -48,6 +106,7 @@ def main() -> None:
     import chip_smoke as cs
     from human_instance_segmentation_tpu_torch.ops import _build, cuda_mbconv, cuda_tail
 
+    groups = set(sys.argv[1:]) or {"bf16", "tail_q", "host", "conv_tile"}
     card = cs.card_line()
     print(card)
     dev = torch.device("cuda")
@@ -68,8 +127,51 @@ def main() -> None:
         se = cuda_mbconv.squeeze_excite(sums, count, wr, br, ws, bs, torch.bfloat16)
         blocks.append((xm, ops, se, k, stride, stride == 1 and shape[1] == co))
 
+    from human_instance_segmentation_tpu_torch.ops import cuda_head
+
+    qops = cs.tail_operands(rng, ci, c, torch.bfloat16, dev)
+    sx, sm, sh = cs.tail_q_scales(x, qops)
+    qpacked = cuda_tail.pack_tail_weights_q(cuda_tail.build_tail_weights_q(*qops, sx, sm, sh),
+                                            qops, torch.bfloat16)
+
+    def tail_q():
+        return cuda_tail.tail_q(x, *qops, sx, sm, sh, packed=qpacked)
+
+    n, hh, ww, cc = cs.HEAD_SHAPE
+    xh = torch.tensor(rng.standard_normal(cs.HEAD_SHAPE), dtype=torch.bfloat16, device=dev)
+    wh = torch.tensor(rng.standard_normal((3, 3, cc, cc)) / (9 * cc) ** 0.5, dtype=torch.bfloat16,
+                      device=dev)
+    hb, hg, hbe = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (
+        rng.standard_normal(cc) * 0.1, 1 + rng.standard_normal(cc) * 0.2,
+        rng.standard_normal(cc) * 0.1))
+    hops = cuda_head.prepare_bf16(wh, hb, hg, hbe)
+
+    def conv_ln_act():
+        return cuda_head.conv_ln_act(xh, wh, hb, hg, hbe, height=hh, width=ww, prepared=hops)
+
     results = []
-    for name, mask in VARIANTS:
+    if "host" in groups:
+        _build.DEFINES = ()
+        _build.library()
+        results.append(host_profile("tail_q", tail_q, card))
+        results.append(host_profile("conv_ln_act bf16", conv_ln_act, card))
+    for tile in CONV_TILES if "conv_tile" in groups else []:
+        _build.DEFINES = (f"HIST_BF16_TILE={tile}",) if tile else ()
+        _build.library()
+        ms = cs.median_ms(conv_ln_act, calls=10)
+        split = cs.device_ms_by_kernel(conv_ln_act)
+        results.append({"conv_ln_act_tile": tile, "ms_10": ms, "device_ms": split})
+        print(f"HIST_BF16_TILE={tile:4d}: conv_ln_act bf16 {ms:.4f} ms (ten launches in a row), "
+              f"device ms by kernel { {k: round(v, 4) for k, v in split.items()} } [{card}]")
+    for name, mask in VARIANTS_Q if "tail_q" in groups else []:
+        _build.DEFINES = (f"HIST_SKIP={mask}",) if mask else ()
+        t0 = time.perf_counter()
+        _build.library()
+        built = time.perf_counter() - t0
+        ms = cs.median_ms(tail_q, calls=10)
+        results.append({"variant": name, "HIST_SKIP": mask, "tail_q_ms": ms, "build_s": built})
+        print(f"HIST_SKIP={mask:5d} {name}: tail_q {ms:.4f} ms (build {built:.1f} s) [{card}]")
+    for name, mask in VARIANTS if "bf16" in groups else []:
         _build.DEFINES = (f"HIST_SKIP={mask}",) if mask else ()
         t0 = time.perf_counter()
         _build.library()
@@ -89,7 +191,7 @@ def main() -> None:
         print(f"HIST_SKIP={mask:4d} {name}: tail {tail_ms:.4f} ms, MBConv sums {sums_ms:.4f} ms, "
               f"apply {apply_ms:.4f} ms (six blocks; build {built:.1f} s) [{card}]")
     _build.DEFINES = ()
-    print(json.dumps({"card": card, "tail_shape": cs.TAIL_SHAPE,
+    print(json.dumps({"card": card, "tail_shape": cs.TAIL_SHAPE, "head_shape": cs.HEAD_SHAPE,
                       "mbconv_shapes": cs.MBCONV_SHAPES, "results": results}))
 
 

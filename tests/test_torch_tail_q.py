@@ -191,23 +191,34 @@ def test_tail_q_rejects_and_has_no_fallback(rng):
 
 
 def test_tail_q_kernel_operands_layout(rng):
-    """``pack_tail_weights_q``: within kernel row dy the contraction index is
-    dx * (padded channels) + channel, in 32-byte steps, zero beyond."""
+    """``pack_tail_weights_q``: the contraction runs over 16-byte halves, half
+    h = tap * (padded channels / 16) + channel group, two to a 32-byte step,
+    zero beyond; the float border's bf16 operands are the bf16 tail's."""
     ci, c = 5, 12
-    wq = cuda_tail.build_tail_weights_q(*_torch_ops(_weights(rng, ci, c)), 0.01, 0.02, 0.03)
-    w0, w1, wh, fp = cuda_tail.pack_tail_weights_q(wq)
-    assert tuple(w0.shape) == (3, 2, 64, 32) and tuple(w1.shape) == (3, 2, 16, 32)
-    assert tuple(wh.shape) == (3, 2, 8, 32) and tuple(fp.shape) == (7 * 16 + 4,)
-    flat = w0.permute(0, 1, 3, 2).reshape(3, 64, 64)  # [dy][k][n]
-    for dx in range(3):
-        got = flat[:, dx * 16:dx * 16 + ci].reshape(3, ci, 4, 16)[..., :c]
-        assert torch.equal(got, wq.w0q[:, dx])
-        assert not flat[:, dx * 16 + ci:(dx + 1) * 16].any()
-    assert not flat[:, 48:].any()
-    head = wh.permute(0, 1, 3, 2).reshape(3, 64, 8)
-    assert torch.equal(head[:, 16:16 + c, 0], wq.whq[:, 1, :, 0])
+    ops = _torch_ops(_weights(rng, ci, c))
+    wq = cuda_tail.build_tail_weights_q(*ops, 0.01, 0.02, 0.03)
+    packed = cuda_tail.pack_tail_weights_q(wq, ops)
+    w0, w1, wh, fp = packed[:4]
+    assert tuple(w0.shape) == (5, 64, 32) and tuple(w1.shape) == (5, 16, 32)
+    assert tuple(wh.shape) == (5, 8, 32) and tuple(fp.shape) == (7 * 16 + 4,)
+
+    def halves(t):  # [step][n][32] -> [half][channel][n]
+        s, n, _ = t.shape
+        return t.reshape(s, n, 2, 16).permute(0, 2, 3, 1).reshape(2 * s, 16, n)
+
+    h0, h1, hh = halves(w0), halves(w1), halves(wh)
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        assert torch.equal(h0[tap, :ci].reshape(ci, 4, 16)[..., :c], wq.w0q[dy, dx])
+        assert not h0[tap, ci:].any() and not h0[tap, :, :].reshape(16, 4, 16)[..., c:].any()
+        assert torch.equal(h1[tap, :c, :c], wq.w1q[dy, dx]) and not h1[tap, c:].any()
+        assert torch.equal(hh[tap, :c, 0], wq.whq[dy, dx, :, 0]) and not hh[tap, :, 1:].any()
+    assert not h0[9].any() and not h1[9].any() and not hh[9].any()
     assert torch.equal(fp[:4 * 16].reshape(4, 16)[:, :c], wq.g0) and not fp[c:16].any()
     assert fp[-2].item() == np.float32(1 / 0.02) and fp[-1].item() == np.float32(1 / 0.03)
+    assert packed.border_dtype == torch.bfloat16
+    for got, want in zip(packed.border, cuda_tail.pack_tail_weights(*ops)):
+        assert torch.equal(got, want)
 
 
 @pytest.fixture(scope="module")
