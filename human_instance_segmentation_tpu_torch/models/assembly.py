@@ -4,9 +4,10 @@ stack and the hierarchical head.
 Counterpart of the JAX package's ``models/assembly.py`` in its plain branch
 (assembly.py:260-264): the stage-1 logit map is materialised at full
 resolution, and both RoI crops (the RGB image and the 2-channel logit map)
-are taken by ``ops.cuda_roi_align`` when ``pallas_roi_align`` is on (the
-JAX flag name; here it is on by default and covers both crops). With it
-off, the crops call the plain ``ops.sampling.roi_align``.
+are taken by one launch of ``ops.cuda_roi_align.roi_align_pair`` when
+``pallas_roi_align`` is on (the JAX flag name; here it is on by default and
+covers both crops). With it off, and in training, the crops call the plain
+``ops.sampling.roi_align`` once each.
 
 With ``pallas_tail=True`` it is the JAX package's dense branch
 (assembly.py:246-259): stage 1 ends in the fused tail (``ops/cuda_tail``)
@@ -99,15 +100,21 @@ class HierarchicalInstanceSegmenter(nn.Module):
             feature_dim, mid_channels, mask_size, use_contour_detection,
             use_distance_transform, norm, activation, base_channels, depth)
 
-    def _crop(self, x: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
+    def _crops(self, images: torch.Tensor, logits: torch.Tensor,
+               rois: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ROI crops of the RGB image and of the logit map, contiguous
+        NHWC from either path, so the convs that follow see one layout
+        (cuDNN's float32 result depends on it, and int8 serving turns a
+        one-ulp difference into whole codes). With ``pallas_roi_align`` (in
+        eval mode) one kernel launch crops both maps as they lie; otherwise
+        two plain calls on contiguous copies."""
         rh, rw = self.roi_size
         scale = (float(self.image_size[0]), float(self.image_size[1]))
-        fn = (cuda_roi_align.roi_align if self.pallas_roi_align and not self.training
-              else sampling.roi_align)
-        # contiguous NHWC from either path, so the convs that follow see one
-        # layout (cuDNN's float32 result depends on it, and int8 serving
-        # turns a one-ulp difference into whole codes)
-        return fn(x.contiguous(), rois, rh, rw, spatial_scale=scale, aligned=True).contiguous()
+        if self.pallas_roi_align and not self.training:
+            return cuda_roi_align.roi_align_pair(images, logits, rois, rh, rw,
+                                                 spatial_scale=scale, aligned=True)
+        return tuple(sampling.roi_align(x.contiguous(), rois, rh, rw, spatial_scale=scale,
+                                        aligned=True).contiguous() for x in (images, logits))
 
     def person_prob(self, x: torch.Tensor) -> torch.Tensor:
         """``softmax(wrapper(x))[channel 0]`` of one-channel logits of any
@@ -136,13 +143,12 @@ class HierarchicalInstanceSegmenter(nn.Module):
             raise ValueError(f"model built for {self.image_size}, got {tuple(images.shape[1:3])}")
         form, x1 = self.pretrained_unet(_nchw(images), raw=True)
         if form == "dense":  # x1 (B, H, W): the fused tail's one-channel logit map
-            roi1 = self._crop(x1[..., None], rois)
+            roi_rgb, roi1 = self._crops(images, x1[..., None], rois)
             roi_bg_fg = _nhwc(self.unet_wrapper(_nchw(roi1))).contiguous()
             full_image_logits = _nhwc(self.unet_wrapper(x1[:, None]))
         else:
             full_image_logits = _nhwc(self.unet_wrapper(x1))
-            roi_bg_fg = self._crop(full_image_logits, rois)
-        roi_rgb = self._crop(images, rois)
+            roi_rgb, roi_bg_fg = self._crops(images, full_image_logits, rois)
 
         logits, aux = self.stage2(roi_rgb, roi_bg_fg)
         if form == "dense":

@@ -46,10 +46,11 @@ SIGNATURES = {
     # dtype (0 f32, 1 bf16), stream
     "conv_ln_act_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _D, _I, _I, _P],
-    # features, rois, out, B, H, W, C, N, oh, ow, ssh, ssw, aligned,
-    # dtype (0 f32, 1 bf16), stream
-    "roi_align_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                         _I, _P],
+    # two maps, each: features, element strides (image, row, column, channel), C, out
+    # (the second skipped when its C is 0); then rois (N, 5) f32, B, H, W, N, oh, ow, ssh,
+    # ssw, aligned, dtype of both maps (0 f32, 1 bf16), stream
+    "roi_align_launch": [_P, _L, _L, _L, _L, _I, _P, _P, _L, _L, _L, _L, _I, _P,
+                         _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     # x and its element strides as (N, C, H, W), packed weights, inv (1,),
     # qscale (Co,), b, gamma, beta, residual, out, scratch, int8 staging
     # buffer, N, H, W, Ci, Co, k, eps, relu, dtype (0 f32, 1 bf16), stream
@@ -66,8 +67,9 @@ SIGNATURES = {
     "s8_conv_needs_staging": [_P, _L, _L, _L, _L, _I, _I, _I, _I],
     # Ci, k -> bytes in one packed weight row (not a launcher)
     "s8_conv_packed_k": [_I, _I],
-    # x (P, H, W) f32, spatial (k, k) f32, out, P, H, W, k, 1 / (2 sigma_range^2), stream
-    "bilateral_filter_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x (P, H, W) f32, out, P, H, W, k, a_s and a_r (log2(e) / (2 sigma^2) of the spatial
+    # and the range Gaussian), stream
+    "bilateral_filter_launch": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
     # mask (P, H, W) f32, out, P, H, W, blur_strength, threshold, stream
     "edge_smooth_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
     # float32: x and its element strides (batch, row, column, channel), w0 (9, Cip, Cp),

@@ -2,14 +2,17 @@
 smoothing. Counterpart of the JAX package's ``ops/pallas_kernels.py``
 (``bilateral_filter_pallas``, ``edge_smooth_pallas``).
 
-The CUDA kernels are ``csrc/postprocess.cu``: each is one launch over the
-``(B * C, H, W)`` float32 planes of an NHWC tensor, with the padding
-resolved inside the kernel (reflect for the bilateral filter, zero for the
-edge smoothing). Beside each is its plain PyTorch version
-(:func:`bilateral_filter_plain`: k^2 shifted multiply-adds, as the JAX
-package's ``models/postprocess.bilateral_filter``; :func:`edge_smooth_plain`:
-two depthwise 3x3 convs, as its ``edge_smooth_binary_mask``): the path for
-CPU tensors and the oracle the kernel is held against.
+The CUDA kernels are ``csrc/bilateral.cu`` and ``csrc/postprocess.cu``
+(edge smoothing): each is one launch over the ``(B * C, H, W)`` float32
+planes of an NHWC tensor, with the padding resolved inside the kernel
+(reflect for the bilateral filter, zero for the edge smoothing). The
+bilateral kernel folds the spatial weight into the range weight's exponent
+(:func:`bilateral_rates`), so it takes no spatial table. Beside each is
+its plain PyTorch version (:func:`bilateral_filter_plain`: k^2 shifted
+multiply-adds, as the JAX package's ``models/postprocess.bilateral_filter``;
+:func:`edge_smooth_plain`: two depthwise 3x3 convs, as its
+``edge_smooth_binary_mask``): the path for CPU tensors and the oracle the
+kernel is held against.
 ``models/postprocess.py`` exposes both under the JAX package's names.
 """
 
@@ -21,12 +24,13 @@ import torch.nn.functional as F
 from . import _build
 
 _MAX_PLANES = 65535  # gridDim.z
+_LOG2E = 1.4426950408889634
 
 _LAPLACIAN = ((-1.0, -1.0, -1.0), (-1.0, 8.0, -1.0), (-1.0, -1.0, -1.0))
 _GAUSS3 = ((1 / 16, 2 / 16, 1 / 16), (2 / 16, 4 / 16, 2 / 16), (1 / 16, 2 / 16, 1 / 16))
 
-__all__ = ["bilateral_filter", "bilateral_filter_plain", "depthwise_conv2d", "edge_smooth",
-           "edge_smooth_plain", "gaussian_kernel_2d"]
+__all__ = ["bilateral_filter", "bilateral_filter_plain", "bilateral_rates", "depthwise_conv2d",
+           "edge_smooth", "edge_smooth_plain", "gaussian_kernel_2d"]
 
 
 def depthwise_conv2d(x: torch.Tensor, kernel2d) -> torch.Tensor:
@@ -98,6 +102,17 @@ def bilateral_filter_plain(x: torch.Tensor, kernel_size: int = 5, sigma_spatial:
     return num / (den + 1e-8)
 
 
+def bilateral_rates(kernel_size: int, sigma_spatial: float, sigma_range: float) -> tuple:
+    """The kernel's exponent rates ``(a_s, a_r) = log2(e) / (2 sigma^2)`` of
+    the spatial and the range Gaussian, after checking what the kernel takes:
+    an odd positive ``kernel_size`` and positive sigmas."""
+    if kernel_size < 1 or kernel_size % 2 == 0:
+        raise ValueError(f"bilateral_filter: kernel_size must be odd and positive, got {kernel_size}")
+    if not (sigma_spatial > 0 and sigma_range > 0):
+        raise ValueError("bilateral_filter: sigmas must be positive")
+    return _LOG2E / (2.0 * sigma_spatial ** 2), _LOG2E / (2.0 * sigma_range ** 2)
+
+
 def bilateral_filter(x: torch.Tensor, kernel_size: int = 5, sigma_spatial: float = 1.0,
                      sigma_range: float = 0.1) -> torch.Tensor:
     """:func:`bilateral_filter_plain`'s function. A CPU tensor takes the plain
@@ -107,22 +122,16 @@ def bilateral_filter(x: torch.Tensor, kernel_size: int = 5, sigma_spatial: float
     if x.device.type == "cpu":
         return bilateral_filter_plain(x, kernel_size, sigma_spatial, sigma_range)
     _kernel_device(x, "bilateral_filter")
-    if kernel_size < 1 or kernel_size % 2 == 0:
-        raise ValueError(f"bilateral_filter: kernel_size must be odd and positive, got {kernel_size}")
+    a_s, a_r = bilateral_rates(kernel_size, sigma_spatial, sigma_range)
     pad = kernel_size // 2
     if pad >= x.shape[1] or pad >= x.shape[2]:
         raise ValueError("bilateral_filter: reflect padding needs kernel_size // 2 < H and W")
-    if not (sigma_spatial > 0 and sigma_range > 0):
-        raise ValueError("bilateral_filter: sigmas must be positive")
     planes = _planes(x)
     p, h, w = planes.shape
-    spatial = gaussian_kernel_2d(kernel_size, sigma_spatial, normalized=False,
-                                 device=x.device).contiguous()
     out = torch.empty_like(planes)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.library().bilateral_filter_launch(
-        planes.data_ptr(), spatial.data_ptr(), out.data_ptr(), p, h, w, kernel_size,
-        1.0 / (2.0 * sigma_range ** 2), stream)
+        planes.data_ptr(), out.data_ptr(), p, h, w, kernel_size, a_s, a_r,
+        _build.current_stream(x.device))
     bilateral_filter.launches += 1
     _build.check(err, "bilateral_filter")
     return _unplanes(out, x)

@@ -4,9 +4,9 @@ tail (``csrc/tail_q.cu``), timed at the served shapes with parts of each
 kernel switched off; and where the host time of a served ``tail_q`` and
 bf16 ``conv_ln_act`` call goes.
 
-    python3 scripts/profile_torch_kernels.py [bf16] [tail_q] [host] [conv_tile]
+    python3 scripts/profile_torch_kernels.py [bf16] [tail_q] [host] [conv_tile] [crops]
 
-(all four groups without arguments). ``conv_tile`` times the bf16
+(all five groups without arguments). ``conv_tile`` times the bf16
 ``conv_ln_act`` at ``chip_smoke.HEAD_SHAPE`` with each wgmma tile forced
 (``-DHIST_BF16_TILE=<BN * 10 + warpgroups>``; 0 is the launch's own pick).
 
@@ -96,6 +96,107 @@ def host_profile(name, fn, card, reps=200):
     return {"kernel": name, "wall_ms": wall, "device_ms": device}
 
 
+def kernels_around(fn, name: str, before: int = 2):
+    """One call of ``fn`` under ``torch.profiler``: each launch of a kernel
+    whose name holds ``name``, with its device ms and the ``before`` kernels
+    that ran just before it on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seq = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                 key=lambda e: e.time_range.start)
+    out = []
+    for i, e in enumerate(seq):
+        if name in e.name:
+            out.append({"ms": e.time_range.elapsed_us() / 1e3,
+                        "before": [p.name[:200] for p in seq[max(0, i - before):i]]})
+    return out
+
+
+def crops_and_bilateral(card, rng):
+    """``roi_align`` and ``bilateral_filter`` at the served shapes: one call
+    between CUDA events, ten in a row, device ms by kernel (profiler); for the
+    crops also ``F.grid_sample`` on the same inputs and, in a served forward
+    with and without ``pallas_tail``, each crop launch's device ms, the
+    kernels just before it, and whether the logit map the model crops is a
+    contiguous NHWC tensor (else the crop before the pair entry point copied
+    it). Measures whichever crop entry points the package has
+    (``roi_align``; ``roi_align_pair`` where it exists), so the same script
+    times a parent commit beside this one."""
+    import torch
+
+    import chip_smoke as cs
+    from human_instance_segmentation_tpu_torch.inference import (InferenceEngine,
+                                                                 create_flagship, pad_rois)
+    from human_instance_segmentation_tpu_torch.ops import cuda_kernels, cuda_roi_align
+
+    b, (h, w), (oh, ow) = 32, cs.IMAGE_HW, cs.ROI_HW
+    scale = (float(h), float(w))
+
+    def t(shape):
+        return torch.tensor(rng.random(shape), dtype=torch.bfloat16, device="cuda")
+
+    rgb = t((b, h, w, 3))
+    logit2 = t((b, 2, h, w)).permute(0, 2, 3, 1)  # the wrapper's NCHW output, viewed NHWC
+    logit1 = t((b, h, w))[..., None]  # the fused tail's map
+    rois = cs.served_crop_rois(b)
+    single = cuda_roi_align.roi_align
+    pair = getattr(cuda_roi_align, "roi_align_pair", None)
+    calls = {
+        "roi_align rgb (32,480,640,3)": lambda: single(rgb, rois, oh, ow, scale, True),
+        "roi_align logit (32,480,640,2), .contiguous() first as the parent's model did":
+            lambda: single(logit2.contiguous(), rois, oh, ow, scale, True),
+        "roi_align logit (32,480,640,1)": lambda: single(logit1, rois, oh, ow, scale, True),
+    }
+    if pair is not None:
+        calls["roi_align_pair rgb + logit C=2 (strided view)"] = lambda: pair(
+            rgb, logit2, rois, oh, ow, scale, True)
+        calls["roi_align_pair rgb + logit C=1"] = lambda: pair(rgb, logit1, rois, oh, ow, scale,
+                                                                True)
+    calls["F.grid_sample rgb + logit C=2 (library, two calls)"] = cs.grid_sample_crops(
+        rois, (rgb, logit2))
+    x = torch.tensor(rng.random(cs.BINARY_SHAPE), dtype=torch.float32, device="cuda")
+    calls["bilateral_filter (32,480,640,1) k=7 sigma (1.5, 0.2)"] = lambda: (
+        cuda_kernels.bilateral_filter(x, 7, 1.5, 0.2))
+    results = []
+    for name, fn in calls.items():
+        one = cs.median_ms(fn)
+        ten = cs.median_ms(fn, calls=10)
+        dev = cs.device_ms_by_kernel(fn)
+        results.append({"call": name, "ms": one, "ms_10": ten, "device_ms": dev})
+        print(f"{name}: {one:.4f} ms one call, {ten:.4f} ms ten in a row, device ms by kernel "
+              f"{ {k: round(v, 4) for k, v in dev.items()} } [{card}]")
+
+    images, rois_np = cs.make_request(rng, b, b)
+    images_t = torch.tensor(images, device="cuda", dtype=torch.bfloat16)
+    rois_t = torch.tensor(pad_rois(rois_np, b), device="cuda")
+    for tail in (False, True):
+        model = create_flagship(variant="b0", roi_size=cs.ROI_HW, mask_size=cs.MASK_HW,
+                                image_size=cs.IMAGE_HW, mid_channels=128, seed=0,
+                                pallas_tail=tail)
+        engine = InferenceEngine(model, dilation_pixels=1, dtype=torch.bfloat16, fused_head=True)
+        del model
+        nhwc = []
+        hook = engine.model.unet_wrapper.register_forward_hook(
+            lambda m, i, o: nhwc.append(o.permute(0, 2, 3, 1).is_contiguous()))
+        seen = kernels_around(lambda: engine.forward(images_t, rois_t), "roi_align")
+        hook.remove()
+        results.append({"forward": f"pallas_tail={tail}", "roi_align_launches": seen,
+                        "wrapper_output_nhwc_contiguous": nhwc[-2:]})
+        print(f"served bf16 forward, batch {b} x 1 roi, pallas_tail={tail}: "
+              f"{len(seen)} roi_align launches: "
+              + "; ".join(f"{s['ms']:.4f} ms after {s['before']}" for s in seen)
+              + f"; the wrapper's outputs contiguous as NHWC: {nhwc[-2:]} [{card}]")
+        del engine
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -106,9 +207,13 @@ def main() -> None:
     import chip_smoke as cs
     from human_instance_segmentation_tpu_torch.ops import _build, cuda_mbconv, cuda_tail
 
-    groups = set(sys.argv[1:]) or {"bf16", "tail_q", "host", "conv_tile"}
+    groups = set(sys.argv[1:]) or {"bf16", "tail_q", "host", "conv_tile", "crops"}
     card = cs.card_line()
     print(card)
+    if groups == {"crops"}:
+        print(json.dumps({"card": card, "crops": crops_and_bilateral(card,
+                                                                     np.random.default_rng(0))}))
+        return
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     b, h, w, ci, c = cs.TAIL_SHAPE
@@ -191,6 +296,8 @@ def main() -> None:
         print(f"HIST_SKIP={mask:4d} {name}: tail {tail_ms:.4f} ms, MBConv sums {sums_ms:.4f} ms, "
               f"apply {apply_ms:.4f} ms (six blocks; build {built:.1f} s) [{card}]")
     _build.DEFINES = ()
+    if "crops" in groups:
+        results.append({"crops": crops_and_bilateral(card, rng)})
     print(json.dumps({"card": card, "tail_shape": cs.TAIL_SHAPE, "head_shape": cs.HEAD_SHAPE,
                       "mbconv_shapes": cs.MBCONV_SHAPES, "results": results}))
 

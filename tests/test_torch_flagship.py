@@ -189,3 +189,39 @@ def test_engine_leaves_the_callers_model_alone():
     inst_f, binary_f = InferenceEngine(fresh, device="cpu", dilation_pixels=1)(images, ROIS)
     np.testing.assert_array_equal(binary, binary_f)
     np.testing.assert_array_equal(inst, inst_f)
+
+
+@pytest.mark.parametrize("pallas_tail", [False, True])
+def test_crops_take_one_pair_call(monkeypatch, pallas_tail):
+    """With ``pallas_roi_align`` the served forward takes both crops (the RGB
+    image and the logit map: two channels, or one from the fused tail) in one
+    ``roi_align_pair`` call, whose CPU path gives what the plain crops give;
+    without the flag, and in training, the plain crops run and the pair is
+    not called."""
+    from human_instance_segmentation_tpu_torch.ops import cuda_roi_align
+
+    calls = []
+    real = cuda_roi_align.roi_align_pair
+
+    def spy(first, second, *args, **kwargs):
+        calls.append((first.shape[-1], second.shape[-1]))
+        return real(first, second, *args, **kwargs)
+
+    monkeypatch.setattr(cuda_roi_align, "roi_align_pair", spy)
+    images = torch.from_numpy(np.random.default_rng(5).random((2, 64, 96, 3), dtype=np.float32))
+    rois = torch.from_numpy(pad_rois(ROIS, 4))
+    outs = {}
+    for flag in (True, False):
+        model = create_flagship(variant="tiny", device="cpu", seed=0, pallas_tail=pallas_tail,
+                                pallas_roi_align=flag, **TINY)
+        with torch.no_grad():
+            outs[flag] = model(images, rois)
+        assert calls == ([(3, 1 if pallas_tail else 2)] if flag else [])
+        calls.clear()
+        with torch.no_grad():
+            model.train()(images, rois)
+        assert not calls
+    (logits, aux), (logits_p, aux_p) = outs[True], outs[False]
+    assert torch.equal(logits, logits_p)
+    for key in ("roi_patches", "roi_bg_fg"):
+        assert aux[key].is_contiguous() and torch.equal(aux[key], aux_p[key]), key

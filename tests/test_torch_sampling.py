@@ -157,3 +157,47 @@ def test_max_pool_strided(rng):
     x = rng.standard_normal((1, 8, 6, 2)).astype(np.float32)
     ref = np.asarray(jmorph.max_pool2d(jnp.asarray(x), 3, 2, 1))
     np.testing.assert_array_equal(morphology.max_pool2d(torch.from_numpy(x), 3, 2, 1).numpy(), ref)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "permuted"])
+@pytest.mark.parametrize("second_channels", [1, 2])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_pair_takes_plain_on_cpu(rng, highest, aligned, second_channels, layout):
+    """The two-map entry point on the CPU: two plain calls (contiguous
+    outputs), equal to the JAX package's ``ops/sampling.roi_align`` for each
+    map, and no kernel launched. The second map is also an NCHW tensor viewed
+    as NHWC, as the model hands the logit map over."""
+    first = rng.random((2, 24, 32, 3)).astype(np.float32)
+    second = rng.random((2, second_channels, 24, 32)).astype(np.float32).transpose(0, 2, 3, 1)
+    second_t = torch.from_numpy(second) if layout == "permuted" else torch.from_numpy(
+        np.ascontiguousarray(second))
+    rois = torch.from_numpy(ROIS)
+    kw = dict(spatial_scale=(24.0, 32.0), aligned=aligned)
+    before = cuda_roi_align.roi_align.launches
+    got = cuda_roi_align.roi_align_pair(torch.from_numpy(first), second_t, rois, 8, 6, **kw)
+    assert cuda_roi_align.roi_align.launches == before
+    for out, feats, feats_np in zip(got, (torch.from_numpy(first), second_t), (first, second)):
+        assert out.is_contiguous() and out.dtype == torch.float32
+        assert torch.equal(out, sampling.roi_align(feats, rois, 8, 6, **kw))
+        ref = np.asarray(jsampling.roi_align(jnp.asarray(feats_np), jnp.asarray(ROIS), 8, 6, **kw))
+        np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
+
+
+def test_pair_rejects():
+    rois = torch.from_numpy(ROIS)
+    a = torch.zeros(2, 8, 8, 3)
+    with pytest.raises(ValueError, match="share"):
+        cuda_roi_align.roi_align_pair(a, torch.zeros(2, 8, 9, 2), rois, 4, 4)
+    with pytest.raises(ValueError, match="share"):
+        cuda_roi_align.roi_align_pair(a, a.to(torch.bfloat16), rois, 4, 4)
+    with pytest.raises(ValueError, match=r"\(N, 5\)"):
+        cuda_roi_align.roi_align_pair(a, a, rois[:, :4], 4, 4)
+    with pytest.raises(ValueError, match=r"\(B, H, W, C\)"):
+        cuda_roi_align.roi_align_pair(a, a[0], rois, 4, 4)
+    # a map that is neither on the CPU nor on a CUDA device never reaches
+    # the plain version
+    for first, second in ((a.to("meta"), a.to("meta")), (a, a.to("meta"))):
+        with pytest.raises(RuntimeError, match="no kernel for device"):
+            cuda_roi_align.roi_align_pair(first, second, rois, 4, 4)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        cuda_roi_align.roi_align(a.to("meta"), rois, 4, 4)
