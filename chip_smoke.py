@@ -42,9 +42,12 @@ package beside the script; it imports nothing of JAX. Phases:
    tail, the bilateral filter and the edge smoothing against their plain
    versions at the slice's shapes (B0, 480x640, batch 32) and at ragged
    ones (the bilateral filter at every unrolled k and a generic one, on
-   planes narrower than a tile and on bf16 input), timed beside the plain
-   version and, for the tail, beside the unfused bf16 chain the model runs
-   with ``pallas_tail=False``;
+   planes narrower than a tile and on bf16 input; the edge smoothing in its
+   four-column and one-column forms, at widths around a warp's edge lanes,
+   strips cut short, several planes and a plane off 16-byte alignment),
+   timed beside the plain version (the filters also ten in a row and by
+   device time) and, for the tail, beside the unfused bf16 chain the model
+   runs with ``pallas_tail=False``;
 10. flagship with the tail (:func:`serve_with_tail`):
     ``create_flagship(pallas_tail=True)`` served in bf16 and float32, 1 tail
     + 5 conv_ln_act + 1 roi_align launch per forward, held against the
@@ -705,28 +708,68 @@ def check_tail_and_filters(card: str, rng) -> list:
                     **bound(8 * n, (24 * 4 + 48 * 3 + 2) * n, "f32", sfu_ops=24 * n)})
 
     # ---- edge_smooth --------------------------------------------------------
+    # the served shape, ragged shapes, widths around the lanes' edges (1, 3,
+    # 5, 127, 129), strips cut short (H = 1, 3, 5 and 37: shorter than a
+    # warp's rows, not a multiple of them), several planes (B * C > 1), and a
+    # plane that does not start on 16 bytes (a view into a buffer at a
+    # one-element offset): the four-column form and the one-column form,
+    # each held to 0 differing pixels
     worst, timing = 0.0, None
+
+    def noise(shape):
+        return torch.tensor(rng.random(shape) > 0.5, device=dev).float()
+
+    def offset_view(shape):
+        n = 1
+        for d in shape:
+            n *= d
+        buf = torch.zeros(n + 1, device=dev)
+        view = buf[1:].view(shape)
+        view.copy_(noise(shape))
+        return view
+
     masks = [("blobs", blob_mask(rng, BINARY_SHAPE, dev)),
-             ("noise", torch.tensor(rng.random(BINARY_SHAPE) > 0.5, device=dev).float()),
+             ("noise", noise(BINARY_SHAPE)),
              ("ragged blobs", blob_mask(rng, (2, 37, 53, 3), dev))]
+    masks += [(f"noise W={shape[2]}", noise(shape))
+              for shape in ((1, 21, 1, 1), (2, 19, 3, 1), (1, 33, 5, 2), (1, 40, 127, 1),
+                            (2, 23, 129, 1))]
+    masks += [("noise H = 1", noise((3, 1, 64, 1))), ("noise H = 5", noise((3, 5, 64, 1))),
+              ("noise H = 3, ragged W", noise((1, 3, 129, 1))),
+              ("noise H = 37", noise((2, 37, 132, 1))),
+              ("noise B * C = 8", noise((4, 16, 64, 2))),
+              ("noise, base 4 bytes past 16", offset_view((4, 29, 128, 1)))]
+    forms = set()  # the forms the wrapper launched: columns a lane
     for name, m in masks:
         for thr, strength in ((0.5, 3.0), (0.4, 1.5)):
+            before = cuda_kernels.edge_smooth.launches
+            cuda_kernels.edge_smooth.last_vec = None
             got = cuda_kernels.edge_smooth(m, thr, strength)
             torch.cuda.synchronize()
+            if cuda_kernels.edge_smooth.launches != before + 1:
+                raise AssertionError(f"edge_smooth {name}: not one launch")
+            vec = cuda_kernels.edge_smooth.last_vec
+            forms.add(vec)
             ref = cuda_kernels.edge_smooth_plain(m, thr, strength)
             ndiff = int((got != ref).sum().item())
-            print(f"edge_smooth {name} {tuple(m.shape)} threshold {thr} strength {strength}: "
-                  f"{ndiff} differing pixels (tol 0), changed {(got != m).float().mean():.4f} of "
-                  f"the mask")
+            print(f"edge_smooth {name} {tuple(m.shape)} ({vec} column(s) a lane) threshold {thr} "
+                  f"strength {strength}: {ndiff} differing pixels (tol 0), changed "
+                  f"{(got != m).float().mean():.4f} of the mask")
             if ndiff or got.shape != m.shape:
                 raise AssertionError(f"edge_smooth {name}: {ndiff} pixels differ")
         if name == "blobs":
-            kms = median_ms(lambda: cuda_kernels.edge_smooth(m))
+            def fn():
+                return cuda_kernels.edge_smooth(m)
+
+            kms, kms10 = median_ms(fn), median_ms(fn, calls=10)
+            dms = sum(device_ms_by_kernel(fn).values())
             pms = median_ms(lambda: cuda_kernels.edge_smooth_plain(m))
-            timing = (kms, pms)
-            print(f"edge_smooth f32 {tuple(m.shape)}: kernel {kms:.4f} ms, plain (two depthwise "
-                  f"convs and the blend) {pms:.4f} ms (median of {TIMING_REPS}, CUDA events) "
-                  f"[{card}]")
+            timing = (kms, pms, kms10, dms)
+            print(f"edge_smooth f32 {tuple(m.shape)}: kernel {kms:.4f} ms one call, {kms10:.4f} ms "
+                  f"ten in a row, device {dms:.4f} ms; plain (two depthwise convs and the blend) "
+                  f"{pms:.4f} ms (median of {TIMING_REPS}, CUDA events; profiler) [{card}]")
+    if forms != {1, 4}:
+        raise AssertionError(f"edge_smooth: the cases reached the forms {forms}, not both")
     soft = torch.tensor(rng.random(BINARY_SHAPE), dtype=torch.float32, device=dev)
     ndiff = int((cuda_kernels.edge_smooth(soft) != cuda_kernels.edge_smooth_plain(soft)).sum())
     print(f"edge_smooth soft (non-binary) input {BINARY_SHAPE}: {ndiff} of {n} pixels differ "
@@ -735,6 +778,7 @@ def check_tail_and_filters(card: str, rng) -> list:
                     "source": "human_instance_segmentation_tpu_torch/csrc/postprocess.cu",
                     "replaces": "human_instance_segmentation_tpu/ops/pallas_kernels.py:157",
                     "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1],
+                    "ms_10": timing[2], "device_ms": timing[3],
                     "library_ms": None, "chain_ms": timing[1], "soft_input_diff_pixels": ndiff,
                     **bound(8 * n, 30 * n, "f32", sfu_ops=n)})
     return results
@@ -1813,6 +1857,7 @@ def binary_mask_mode(card: str, rng) -> dict:
         if d != {"tail": 1, "bilateral_filter": 1, "edge_smooth": 1}:
             raise AssertionError(f"expected one launch of each kernel, got {d}")
         PER_FORWARD["bilateral_filter"] = d["bilateral_filter"]
+        PER_FORWARD["edge_smooth"] = d["edge_smooth"]
         if dtype == torch.bfloat16:
             launches = d
         mask = served["mask"]

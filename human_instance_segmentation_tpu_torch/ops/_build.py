@@ -30,8 +30,9 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Extra ``-D`` definitions (``NAME=VALUE``) of the build, empty for serving:
-# scripts/profile_torch_kernels.py sets ``HIST_SKIP`` to build variants of the
-# kernels with parts switched off, each under its own hashed name.
+# scripts/profile_torch_kernels.py sets ``HIST_SKIP`` (parts switched off) or
+# ``HIST_BF16_TILE`` (a forced wgmma tile) to build variants of the kernels,
+# each under its own hashed name.
 DEFINES: tuple = ()
 
 _P = ctypes.c_void_p
@@ -70,8 +71,9 @@ SIGNATURES = {
     # x (P, H, W) f32, out, P, H, W, k, a_s and a_r (log2(e) / (2 sigma^2) of the spatial
     # and the range Gaussian), stream
     "bilateral_filter_launch": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # mask (P, H, W) f32, out, P, H, W, blur_strength, threshold, stream
-    "edge_smooth_launch": [_P, _P, _I, _I, _I, _F, _F, _P],
+    # mask (P, H, W) f32, out, P, H, W, columns a lane (4 or 1), blur_strength, threshold,
+    # stream
+    "edge_smooth_launch": [_P, _P, _I, _I, _I, _I, _F, _F, _P],
     # float32: x and its element strides (batch, row, column, channel), w0 (9, Cip, Cp),
     # scale/shift 0 (2, Cp), w1 (9, Cp, Cp), scale/shift 1, head weights (9, Cp),
     # head bias (1,), out (B, 2h, 2w), B, h, w, Ci, Cip, Cp, stream

@@ -7,7 +7,9 @@ The CUDA kernels are ``csrc/bilateral.cu`` and ``csrc/postprocess.cu``
 planes of an NHWC tensor, with the padding resolved inside the kernel
 (reflect for the bilateral filter, zero for the edge smoothing). The
 bilateral kernel folds the spatial weight into the range weight's exponent
-(:func:`bilateral_rates`), so it takes no spatial table. Beside each is
+(:func:`bilateral_rates`), so it takes no spatial table; the edge-smoothing
+kernel walks strips of rows, a lane on four adjacent columns where the
+width and the alignment allow (:func:`edge_smooth_vec`). Beside each is
 its plain PyTorch version (:func:`bilateral_filter_plain`: k^2 shifted
 multiply-adds, as the JAX package's ``models/postprocess.bilateral_filter``;
 :func:`edge_smooth_plain`: two depthwise 3x3 convs, as its
@@ -30,7 +32,7 @@ _LAPLACIAN = ((-1.0, -1.0, -1.0), (-1.0, 8.0, -1.0), (-1.0, -1.0, -1.0))
 _GAUSS3 = ((1 / 16, 2 / 16, 1 / 16), (2 / 16, 4 / 16, 2 / 16), (1 / 16, 2 / 16, 1 / 16))
 
 __all__ = ["bilateral_filter", "bilateral_filter_plain", "bilateral_rates", "depthwise_conv2d",
-           "edge_smooth", "edge_smooth_plain", "gaussian_kernel_2d"]
+           "edge_smooth", "edge_smooth_plain", "edge_smooth_vec", "gaussian_kernel_2d"]
 
 
 def depthwise_conv2d(x: torch.Tensor, kernel2d) -> torch.Tensor:
@@ -154,10 +156,19 @@ def edge_smooth_plain(mask: torch.Tensor, threshold: float = 0.5,
     return (smoothed > threshold).to(mask.dtype)
 
 
+def edge_smooth_vec(planes: torch.Tensor, out: torch.Tensor) -> int:
+    """Columns a lane of the edge-smoothing kernel: 4 (one 16-byte load and
+    store a row) when the width is a multiple of 4 and both planes start on
+    16 bytes, else 1 (any width and alignment)."""
+    aligned = planes.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    return 4 if planes.shape[-1] % 4 == 0 and aligned else 1
+
+
 def edge_smooth(mask: torch.Tensor, threshold: float = 0.5,
                 blur_strength: float = 3.0) -> torch.Tensor:
     """:func:`edge_smooth_plain`'s function. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel (its four-column form where
+    :func:`edge_smooth_vec` allows, else its one-column form) or raises."""
     _check(mask, "edge_smooth")
     if mask.device.type == "cpu":
         return edge_smooth_plain(mask, threshold, blur_strength)
@@ -165,12 +176,15 @@ def edge_smooth(mask: torch.Tensor, threshold: float = 0.5,
     planes = _planes(mask)
     p, h, w = planes.shape
     out = torch.empty_like(planes)
-    stream = torch.cuda.current_stream(mask.device).cuda_stream
-    err = _build.library().edge_smooth_launch(planes.data_ptr(), out.data_ptr(), p, h, w,
-                                              blur_strength, threshold, stream)
+    vec = edge_smooth_vec(planes, out)
+    err = _build.library().edge_smooth_launch(
+        planes.data_ptr(), out.data_ptr(), p, h, w, vec, blur_strength, threshold,
+        _build.current_stream(mask.device))
     edge_smooth.launches += 1
+    edge_smooth.last_vec = vec
     _build.check(err, "edge_smooth")
     return _unplanes(out, mask)
 
 
 edge_smooth.launches = 0
+edge_smooth.last_vec = None  # the form of the latest launch: columns a lane

@@ -1,12 +1,13 @@
 """Where the time of the port's tensor-core kernels goes: the fused stage-1
 tail (``csrc/tail.cu``), the fused MBConv (``csrc/mbconv.cu``) and the int8
 tail (``csrc/tail_q.cu``), timed at the served shapes with parts of each
-kernel switched off; and where the host time of a served ``tail_q`` and
-bf16 ``conv_ln_act`` call goes.
+kernel switched off; where the host time of a served ``tail_q`` and
+bf16 ``conv_ln_act`` call goes; and the crops, the bilateral filter
+(``crops``) and the edge smoothing (``edge``) timed alone.
 
-    python3 scripts/profile_torch_kernels.py [bf16] [tail_q] [host] [conv_tile] [crops]
+    python3 scripts/profile_torch_kernels.py [bf16] [tail_q] [host] [conv_tile] [crops] [edge]
 
-(all five groups without arguments). ``conv_tile`` times the bf16
+(all six groups without arguments). ``conv_tile`` times the bf16
 ``conv_ln_act`` at ``chip_smoke.HEAD_SHAPE`` with each wgmma tile forced
 (``-DHIST_BF16_TILE=<BN * 10 + warpgroups>``; 0 is the launch's own pick).
 
@@ -197,6 +198,45 @@ def crops_and_bilateral(card, rng):
     return results
 
 
+def edge_smooth_times(card, rng):
+    """``edge_smooth`` at the served binary-mode shape (``chip_smoke.BINARY_SHAPE``)
+    on a blob mask: equal to its plain version, then one call between CUDA
+    events, ten in a row and device ms by kernel (profiler), beside the plain
+    version. Run it alone in a process (``edge``), since later profiler
+    sessions of a long process miss kernel events. Runs unchanged in an
+    unpacked parent commit (copy this script there), so the parent's kernel
+    and this one are timed in one call, in turns."""
+    import torch
+
+    import chip_smoke as cs
+    from human_instance_segmentation_tpu_torch.ops import _build, cuda_kernels
+
+    mask = cs.blob_mask(rng, cs.BINARY_SHAPE, "cuda")
+    _build.library()
+
+    def fn():
+        return cuda_kernels.edge_smooth(mask)
+
+    ndiff = int((fn() != cuda_kernels.edge_smooth_plain(mask)).sum())
+    if ndiff:
+        raise AssertionError(f"edge_smooth: {ndiff} pixels differ")
+    entry = None
+    for line in _build.build_log.splitlines():  # ptxas -v: registers and spills
+        if "entry function" in line:
+            entry = "edge_smooth_kernel" in line and line.split("'")[1][-12:]
+        elif entry and ("Used" in line or "spill" in line):
+            print(f"  ptxas {entry}: {line.strip()}")
+    one, ten = cs.median_ms(fn), cs.median_ms(fn, calls=10)
+    dev = cs.device_ms_by_kernel(fn)
+    plain = cs.median_ms(lambda: cuda_kernels.edge_smooth_plain(mask))
+    row = {"ms": one, "ms_10": ten, "device_ms": dev, "plain_ms": plain}
+    print(f"edge_smooth {cs.BINARY_SHAPE}: {one:.4f} ms one call, {ten:.4f} ms "
+          f"ten in a row, device ms by kernel { {k: round(v, 4) for k, v in dev.items()} }, 0 "
+          f"differing pixels; plain {plain:.4f} ms [{card}]")
+    torch.cuda.synchronize()
+    return row
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -207,12 +247,16 @@ def main() -> None:
     import chip_smoke as cs
     from human_instance_segmentation_tpu_torch.ops import _build, cuda_mbconv, cuda_tail
 
-    groups = set(sys.argv[1:]) or {"bf16", "tail_q", "host", "conv_tile", "crops"}
+    groups = set(sys.argv[1:]) or {"bf16", "tail_q", "host", "conv_tile", "crops", "edge"}
     card = cs.card_line()
     print(card)
     if groups == {"crops"}:
         print(json.dumps({"card": card, "crops": crops_and_bilateral(card,
                                                                      np.random.default_rng(0))}))
+        return
+    if groups == {"edge"}:
+        print(json.dumps({"card": card, "edge": edge_smooth_times(
+            card, np.random.default_rng(0))}))
         return
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -298,6 +342,8 @@ def main() -> None:
     _build.DEFINES = ()
     if "crops" in groups:
         results.append({"crops": crops_and_bilateral(card, rng)})
+    if "edge" in groups:
+        results.append({"edge": edge_smooth_times(card, rng)})
     print(json.dumps({"card": card, "tail_shape": cs.TAIL_SHAPE, "head_shape": cs.HEAD_SHAPE,
                       "mbconv_shapes": cs.MBCONV_SHAPES, "results": results}))
 

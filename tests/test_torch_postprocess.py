@@ -307,3 +307,125 @@ def test_bilateral_kernel_arithmetic_matches_plain(rng, shape, k, ss, sr):
     a_s, a_r = cuda_kernels.bilateral_rates(k, ss, sr)
     assert a_s == pytest.approx(np.log2(np.e) / (2 * ss ** 2), rel=1e-12)
     assert a_r == pytest.approx(np.log2(np.e) / (2 * sr ** 2), rel=1e-12)
+
+
+# the edge-smoothing kernel's output rows a warp: kRows in csrc/postprocess.cu
+_EDGE_ROWS = 2
+
+
+def _edge_kernel_emulation(planes, vec, strength, threshold):
+    """csrc/postprocess.cu on float32 planes (P, H, W), step by step: one warp
+    a work item (plane, strip of ``_EDGE_ROWS`` rows, segment of 32 * vec
+    columns), a numpy vector over its 32 lanes, each lane on ``vec``
+    adjacent columns; the strip and its two halo rows loaded with zeros off
+    the plane, the neighbour columns handed on by
+    ``__shfl_up_sync`` / ``__shfl_down_sync`` with lanes 0 and 31 loading
+    their own, the kernel's float32 arithmetic in its grouping. Returns the
+    thresholded planes and the blend before the threshold; each pixel must
+    be stored exactly once."""
+    f32 = np.float32
+    p_n, h, w = planes.shape
+    rows, seg_w = _EDGE_ROWS, 32 * vec
+    if vec == 4:
+        assert w % 4 == 0  # what the wrapper checks before it picks four columns
+    segs, strips = -(-w // seg_w), -(-h // rows)
+    out = np.zeros(planes.shape, f32)
+    blend = np.zeros(planes.shape, f32)
+    stores = np.zeros(planes.shape, int)
+    lane = np.arange(32)
+    zero = np.zeros(32, f32)
+    strength, threshold = f32(strength), f32(threshold)
+    for item in range(p_n * strips * segs):
+        seg, rest = item % segs, item // segs
+        y0, p = (rest % strips) * rows, rest // strips
+        xs = seg * seg_w
+        x0 = xs + lane * vec
+        hx = np.where(lane == 0, xs - 1, xs + seg_w)
+        edge_lane = ((lane == 0) & (hx >= 0)) | ((lane == 31) & (hx < w))
+        v, left, right = [], [], []
+        for i in range(rows + 2):
+            y = y0 - 1 + i
+            row_ok = 0 <= y < h
+            cols = [np.where(row_ok & (x0 < w), planes[p, y % h, np.minimum(x0 + j, w - 1)], zero)
+                    for j in range(vec)]
+            halo = np.where(edge_lane & row_ok, planes[p, y % h, np.clip(hx, 0, w - 1)], zero)
+            v.append(cols)
+            left.append(np.concatenate([halo[:1], cols[-1][:-1]]))   # shfl_up by 1
+            right.append(np.concatenate([cols[0][1:], halo[31:]]))   # shfl_down by 1
+        for r in range(rows):
+            y = y0 + r
+            if y >= h:
+                break
+            for j in range(vec):
+                def at(i, dj):
+                    k = j + dj
+                    return left[i] if k < 0 else right[i] if k == vec else v[i][k]
+
+                c = v[r + 1][j]
+                corners = (at(r, -1) + at(r, 1)) + (at(r + 2, -1) + at(r + 2, 1))
+                sides = (v[r][j] + at(r + 1, -1)) + (at(r + 1, 1) + v[r + 2][j])
+                edges = np.abs(f32(8) * c - (corners + sides))
+                ew = f32(1) / (f32(1) + np.exp(-(edges * strength)))
+                blurred = ((corners + f32(2) * sides) + f32(4) * c) * f32(1 / 16)
+                smoothed = c * (f32(1) - ew) + blurred * ew
+                ok = x0 < w  # the lanes that store
+                xo = x0[ok] + j
+                out[p, y, xo] = (smoothed[ok] > threshold).astype(f32)
+                blend[p, y, xo] = smoothed[ok]
+                stores[p, y, xo] += 1
+    assert (stores == 1).all()
+    return out, blend
+
+
+def _edge_blend_f64(planes, strength):
+    """The blend before the threshold in float64, straight from the
+    definition: zero padding, the 3x3 Laplacian's magnitude, the 1-2-1 blur."""
+    x = np.pad(planes.astype(np.float64), ((0, 0), (1, 1), (1, 1)))
+    h, w = planes.shape[1:]
+
+    def tap(di, dj):
+        return x[:, 1 + di:1 + di + h, 1 + dj:1 + dj + w]
+
+    corners = tap(-1, -1) + tap(-1, 1) + tap(1, -1) + tap(1, 1)
+    sides = tap(-1, 0) + tap(0, -1) + tap(0, 1) + tap(1, 0)
+    c = tap(0, 0)
+    ew = 1 / (1 + np.exp(-np.abs(8 * c - corners - sides) * strength))
+    return c * (1 - ew) + (corners + 2 * sides + 4 * c) / 16 * ew
+
+
+@pytest.mark.parametrize("vec,shape", [
+    (4, (2, 19, 132)),   # two segments, the second 4 columns wide; a ragged strip
+    (4, (3, 16, 8)),     # strips ending on the plane's last row; lanes 2-31 off the plane
+    (4, (1, 5, 256)),    # two full segments; H = 5
+    (4, (2, 1, 64)), (1, (1, 1, 5)),                   # H = 1, shorter than any strip
+    (1, (1, 9, 1)), (1, (2, 7, 3)), (1, (1, 17, 5)),   # W narrower than a warp
+    (1, (1, 11, 127)), (1, (1, 8, 129)),           # segment edges at 32 columns
+], ids=lambda s: "x".join(map(str, s)) if isinstance(s, tuple) else f"vec{s}")
+@pytest.mark.parametrize("strength,threshold", [(3.0, 0.5), (1.5, 0.4)])
+def test_edge_smooth_kernel_layout_matches_plain(rng, vec, shape, strength, threshold):
+    """The edge-smoothing kernel's schedule, emulated on the CPU (strips and
+    their halo rows, the lanes' columns, the neighbour columns handed on by
+    shuffles and loaded by the edge lanes, zero padding by global
+    coordinate), equals ``edge_smooth_plain`` bit for bit on binary masks of
+    the shapes the card checks it at, in both instantiations; and its blend
+    before the threshold is the definition's, so a misjudged neighbour
+    shows even where the threshold would hide it."""
+    masks = [(rng.random(shape) > 0.5).astype(np.float32)]
+    if shape[1] >= 4 and shape[2] >= 4:
+        masks.append(_blobs(rng, (*shape, 1))[..., 0])
+    for m in masks:
+        got, blend = _edge_kernel_emulation(m, vec, strength, threshold)
+        ref = cuda_kernels.edge_smooth_plain(_t(m[..., None]), threshold, strength).numpy()
+        np.testing.assert_array_equal(got, ref[..., 0])
+        np.testing.assert_allclose(blend, _edge_blend_f64(m, strength), rtol=0, atol=1e-6)
+
+
+def test_edge_smooth_vec_picks_the_form(rng):
+    """Four columns a lane only for a width that is a multiple of 4 and
+    planes that start on 16 bytes."""
+    flat = torch.zeros(4 * 6 * 8 + 1)
+    planes = flat[:-1].view(4, 6, 8)
+    out = torch.empty_like(planes)
+    assert cuda_kernels.edge_smooth_vec(planes, out) == 4
+    assert cuda_kernels.edge_smooth_vec(flat[1:].view(4, 6, 8), out) == 1   # 4-byte offset
+    assert cuda_kernels.edge_smooth_vec(torch.zeros(4, 6, 10), torch.zeros(4, 6, 10)) == 1
