@@ -70,7 +70,19 @@ package beside the script; it imports nothing of JAX. Phases:
     and 6, served in bf16 without quantization and with ``quantize="int8"``,
     launch counts asserted per forward, outputs held against
     ``kernels=False`` and (unquantized, float32) against the model without
-    either flag, forward times beside N = 0 and a device-time profile.
+    either flag, forward times beside N = 0 and a device-time profile;
+14. training (:func:`train_entry_point`, :func:`train_step_kernels`,
+    :func:`time_train_steps`): (a) ``run_training`` on the deployed B0
+    config at 480 x 640, synthetic, bf16, 5 steps, with ``pallas_tail`` and
+    ``encoder_fused_blocks=6`` (every step finite, launches of the run
+    asserted, the checkpoint restored to an equal state, the trained model
+    served against its plain path with phase 4's gates); (b) the train step
+    with both stage-1 kernels against the same weights without them in
+    float32 and bf16 (6 + 6 ``fused_mbconv`` and 1 ``tail`` launch a step;
+    bounds in ``TOL_STAGE1_F32``'s comment), and again after a step that
+    decays the frozen weights; (c) ms per bf16 step and images per second,
+    kernels and plain stage 1, device busy time, idle share and the
+    largest kernels, peak memory.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -2111,6 +2123,463 @@ def serve_fused_encoder_and_tail_q(card: str, rng) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training the flagship
+# ---------------------------------------------------------------------------
+
+# the deployed B0 configuration the JAX package trains (config.py:444-474):
+# frozen stage 1, contour and distance branches, the boundary-aware loss;
+# batch 8 x 8 ROIs, bf16 compute, AdamW with a cosine-and-warmup schedule,
+# clip 5.0. Its image_size field is 640 x 640; the flagship's is 480 x 640.
+TRAIN_CONFIG = ("rgb_hierarchical_unet_v2_fullimage_pretrained_peopleseg_r64x48m128x96_"
+                "disttrans_contdet_baware_from_b0")
+TRAIN_STEPS = 5
+TRAIN_MODS = {"model": {"image_size": list(IMAGE_HW)}}
+TRAIN_KERNELS = {"pallas_tail": True, "encoder_fused_blocks": 6}
+# launches of each stage-1 kernel in one train step (one stage-1 forward)
+TRAIN_PER_STEP = {"mbconv_sums": 6, "mbconv_apply": 6, "tail": 1}
+# stage-1 logits of the kernel path against the same weights with both
+# switches off, float32: the tail's own error (TOL_TAIL: 2e-5 + 1e-5 |x|)
+# plus the six fused blocks' 2e-5 each (TOL_MBCONV) carried through the
+# rest of stage 1 at a gain of about one (LeCun-scaled weights and BN keep
+# activations at unit scale): atol 2e-5 + 6 * 2e-5, rtol 1e-5. The loss and
+# the stage-2 gradients are held to twice what a stage-1 error of that size
+# moves them on the plain path (the largest of a uniform shift by the
+# tolerance and a random-sign one), since stage 2 is the same code on both
+# paths and sees the two only through the stage-1 logits.
+TOL_STAGE1_F32 = (1.4e-4, 1e-5)
+TRAIN_PROFILE_STEPS = 3
+
+
+# device time of a train step by kind of kernel: the first kind whose words
+# appear in the kernel's name
+TRAIN_KERNEL_KINDS = (
+    ("fused stage-1 kernels", ("mbconv", "tail_kernel", "tail_bf16_kernel")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("convolutions and GEMMs", ("conv2d", "convolve", "gemm", "xmma", "cutlass", "cudnn", "dgrad",
+                                "wgrad", "sm90_", "implicit", "nchwToNhwc", "nhwcToNchw")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and dtype casts", ("copy_kernel", "CopyKernel")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _kernel_kind(key: str) -> str:
+    return next((k for k, words in TRAIN_KERNEL_KINDS if any(w in key for w in words)), "other")
+
+
+def _kernel_label(key: str) -> str:
+    """A kernel's name with what tells elementwise and reduction kernels
+    apart (their functor or op) kept."""
+    key = key.replace("void ", "").replace("at::native::", "")
+    found = re.findall(r"(\w+(?:Functor|Ops|Op|_kernel_cuda|_impl|Backward\w*|kernel\w*))", key)
+    head = re.match(r"[\w:]+", key)
+    names = [head.group(0)] if head else []
+    names += [f for f in dict.fromkeys(found) if f not in names][:3]
+    return "/".join(names)[:110]
+
+
+def train_counters() -> dict:
+    from human_instance_segmentation_tpu_torch.ops import cuda_mbconv, cuda_tail
+
+    return {"mbconv_sums": cuda_mbconv.mbconv_sums, "mbconv_apply": cuda_mbconv.mbconv_apply,
+            "tail": cuda_tail.tail}
+
+
+def train_batches(n: int, seed: int):
+    from human_instance_segmentation_tpu_torch.config import ConfigManager
+    from human_instance_segmentation_tpu_torch.training.loop import synthetic_batches
+
+    cfg = ConfigManager.get_config(TRAIN_CONFIG)
+    gen = synthetic_batches(cfg.training.batch_size, cfg.data.rois_per_image, IMAGE_HW, MASK_HW,
+                            seed=seed)
+    return [next(gen) for _ in range(n)]
+
+
+def train_entry_point(card: str, rng) -> dict:
+    """Phase 14 (a): ``run_training`` on the deployed B0 config at 480 x 640,
+    synthetic, bf16, 5 steps, with the fused tail and the six fused encoder
+    blocks. Gates: every step finite (``skipped == 0``), the launches of the
+    run (5 train steps and the 2 validation batches, one stage-1 forward
+    each), the last checkpoint restoring into a fresh state to an equal
+    state, and the trained model served through ``InferenceEngine(bf16,
+    fused_head=True)`` passing the phase 4 gates against its own plain path.
+    Returns the launch counts of the run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager, _deep_merge,
+                                                              model_from_config)
+    from human_instance_segmentation_tpu_torch.inference import InferenceEngine
+    from human_instance_segmentation_tpu_torch.training.checkpoint import restore_checkpoint
+    from human_instance_segmentation_tpu_torch.training.loop import run_training
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      constant_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    out = ROOT / "build" / "phase14_run"
+    shutil.rmtree(out, ignore_errors=True)
+    counters = train_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    metrics, state = run_training(TRAIN_CONFIG, steps=TRAIN_STEPS, synthetic=True,
+                                  output_dir=str(out), config_modifications=TRAIN_MODS,
+                                  model_overrides=TRAIN_KERNELS, return_state=True)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    forwards = TRAIN_STEPS + 2  # and the two held-out validation batches
+    want = {k: n * forwards for k, n in TRAIN_PER_STEP.items()}
+    rows = [json.loads(line) for f in sorted((out / "logs").glob("*.jsonl"))
+            for line in f.read_text().splitlines()]
+    losses = [r["total_loss"] for r in rows if "total_loss" in r]
+    print(f"run_training {TRAIN_CONFIG} {IMAGE_HW[0]}x{IMAGE_HW[1]}, {TRAIN_STEPS} steps, bf16, "
+          f"synthetic: "
+          f"{wall:.1f} s (model build, steps, validation, checkpoints); logged losses {losses}, "
+          f"skipped {state.skipped}, val mIoU {metrics['val_miou']:.4f}; launches {launches} "
+          f"(expected {want}: {TRAIN_PER_STEP} per stage-1 forward x {forwards}) [{card}]")
+    if state.skipped or state.step != TRAIN_STEPS or not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"training went wrong: step {state.step}, skipped {state.skipped}, "
+                             f"losses {losses}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite metrics {metrics}")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+
+    # the checkpoint restores to an equal state
+    cfg = _deep_merge(ConfigManager.get_config(TRAIN_CONFIG), TRAIN_MODS)
+    fresh = TrainState.create(model_from_config(cfg, seed=1, **TRAIN_KERNELS),
+                              build_optimizer(constant_schedule(0.0)), seed=2)
+    fresh, step = restore_checkpoint(str(out / "checkpoints"), fresh)
+    a, b = state.model.state_dict(), fresh.model.state_dict()
+    same = (step == TRAIN_STEPS and fresh.step == state.step and fresh.skipped == state.skipped
+            and a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+            and fresh.optimizer.count == state.optimizer.count
+            and all(torch.equal(state.optimizer.mu[k], fresh.optimizer.mu[k])
+                    and torch.equal(state.optimizer.nu[k], fresh.optimizer.nu[k])
+                    for k in state.optimizer.mu)
+            and all(torch.equal(v, fresh.loss_state.state_dict()[k])
+                    for k, v in state.loss_state.state_dict().items())
+            and torch.equal(state.generator.get_state(), fresh.generator.get_state()))
+    print(f"checkpoint of step {step} restored into a fresh state: equal {same}")
+    if not same:
+        raise AssertionError("the restored state differs from the trained one")
+    del fresh, a, b
+
+    # the trained model served, held to its own plain path (phase 4's gates)
+    trained = state.model
+
+    def engine(dtype, kernels: bool):
+        e = InferenceEngine(trained, dilation_pixels=1, dtype=dtype, fused_head=kernels,
+                            kernels=kernels)
+        e.model.pallas_roi_align = kernels
+        return e
+
+    engines = {"served bf16": engine(torch.bfloat16, True),
+               "plain bf16": engine(torch.bfloat16, False),
+               "served f32": engine(torch.float32, True),
+               "plain f32": engine(torch.float32, False)}
+    for images, rois in (make_request(rng, 4, 3), make_request(rng, 8, 8)):
+        o = {name: e(images, rois) for name, e in engines.items()}
+        tag = f"trained model batch {images.shape[0]} x {rois.shape[0]} rois"
+        inst, binary = o["served bf16"]
+        if inst.shape != (rois.shape[0], *MASK_HW, 1) or binary.shape != (images.shape[0],
+                                                                           *IMAGE_HW, 1):
+            raise AssertionError(f"bad output shapes {inst.shape}, {binary.shape}")
+        if not all(np.isfinite(x).all() for pair in o.values() for x in pair):
+            raise AssertionError("non-finite outputs")
+        bin_f32 = float(np.abs(o["served f32"][1] - o["plain f32"][1]).max())
+        agree_f32 = _agreement(o["served f32"][0], o["plain f32"][0])
+        bin_bf16 = float(np.abs(binary - o["plain bf16"][1]).max())
+        agree_k = _agreement(inst, o["plain f32"][0])
+        agree_p = _agreement(o["plain bf16"][0], o["plain f32"][0])
+        print(f"{tag}: f32 served vs plain binary max_abs_err {bin_f32:.3e} (tol 1e-2), instance "
+              f"agreement {agree_f32:.6f} (min {MIN_AGREE}); bf16 served vs plain binary "
+              f"{bin_bf16:.3e} (tol 1e-2), vs f32 plain: served {agree_k:.6f}, plain bf16 "
+              f"{agree_p:.6f} (served >= plain - 0.002); fg share {inst.mean():.4f}")
+        if not (bin_f32 <= 1e-2 and agree_f32 >= MIN_AGREE):
+            raise AssertionError(f"{tag}: f32 served path disagrees with its plain path")
+        if not (bin_bf16 <= 1e-2 and agree_k >= agree_p - 0.002):
+            raise AssertionError(f"{tag}: bf16 served path is further from f32 than its plain path")
+    del engines, state, trained
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_models():
+    """The flagship at mid 256 with the two stage-1 kernels, and the same
+    weights with both switches off and ``kernels=False``."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.inference import create_flagship
+
+    def build(kernels: bool):
+        m = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW, image_size=IMAGE_HW,
+                            mid_channels=256, seed=0, pallas_roi_align=False,
+                            pallas_tail=kernels, encoder_fused_blocks=6 if kernels else 0)
+        if not kernels:
+            m.pretrained_unet.tail_use_kernel = False
+            m.pretrained_unet.encoder.set_fused_kernels(False)
+        return m
+
+    mk, mp = build(True), build(False)
+    a, b = mk.state_dict(), mp.state_dict()
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("the two models do not hold the same weights")
+    return mk, mp
+
+
+def _loss_and_grads(model, loss_cfg, batch, dtype: str, delta=None):
+    """One evaluation of the train step's loss and its stage-2 gradients (the
+    dropout masks drawn from a generator seeded alike on both paths), and the
+    stage-1 logits it saw, as ``(B, H, W)``; ``delta(x1)`` is added to the
+    stage-1 logits when given."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.losses.hierarchical import HierarchicalLossState
+    from human_instance_segmentation_tpu_torch.training import steps
+
+    seen = {}
+
+    def hook(module, inputs, out):
+        form, x1 = out
+        if delta is not None:
+            x1 = x1 + delta(x1).to(x1.dtype)
+        seen["x1"] = (x1 if form == "dense" else x1[:, 0]).float()
+        return form, x1
+
+    handle = model.pretrained_unet.register_forward_hook(hook)
+    try:
+        model.train()
+        loss, _ = steps.make_loss_fn(model, loss_cfg, dtype)(
+            HierarchicalLossState.create("cuda"), torch.Generator(device="cuda").manual_seed(5),
+            steps.batch_to(batch, "cuda"))
+        names = [n for n, p in model.named_parameters() if not n.startswith(
+            ("pretrained_unet.", "unet_wrapper."))]
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+    finally:
+        handle.remove()
+    flat = torch.cat([(g if g is not None else torch.zeros_like(params[n])).flatten()
+                      for n, g in zip(names, grads)])
+    return float(loss.detach()), flat.detach(), seen["x1"]
+
+
+def train_step_kernels(card: str, rng) -> None:
+    """Phase 14 (b): ``make_train_step`` on the flagship at mid 256 with
+    ``pallas_tail=True, encoder_fused_blocks=6`` against the same weights and
+    batch with both switches off (``kernels=False``), TF32 off. Launches per
+    step asserted (6 ``mbconv_sums``, 6 ``mbconv_apply``, 1 ``tail``); in
+    float32 the stage-1 logits within ``TOL_STAGE1_F32`` and the loss and
+    stage-2 gradients within twice the effect of a stage-1 error at that
+    tolerance; in bf16 the kernel path no further from the float32 plain
+    path than twice the bf16 plain path's own distance from it (plus the
+    float32 bound). After an optimizer step that decays the frozen weights
+    by 10% the kernels still equal their plain versions: stage 1 in float32
+    against the switches-off model with the decayed weights, and in bf16
+    every kernel call against its plain version on that call's operands."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager,
+                                                              loss_config_from_experiment)
+    from human_instance_segmentation_tpu_torch.ops import cuda_mbconv, cuda_tail
+    from human_instance_segmentation_tpu_torch.training import steps
+    from human_instance_segmentation_tpu_torch.training.optim import Transform, constant_schedule
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    loss_cfg = loss_config_from_experiment(ConfigManager.get_config(TRAIN_CONFIG))
+    batch = train_batches(1, seed=3)[0]
+    mk, mp = _train_models()
+    counters = train_counters()
+    for dtype in ("float32", "bfloat16"):
+        state = TrainState.create(mk, Transform("adamw", constant_schedule(0.0), 1e-4, 5.0))
+        c0 = {k: f.launches for k, f in counters.items()}
+        state, metrics = steps.make_train_step(mk, loss_cfg, dtype)(state, batch)
+        d = {k: f.launches - c0[k] for k, f in counters.items()}
+        print(f"train step {dtype}, mid 256, batch 8 x 8 rois: launches {d} (expected "
+              f"{TRAIN_PER_STEP}), loss {float(metrics['total_loss']):.6f}")
+        if d != TRAIN_PER_STEP or state.skipped:
+            raise AssertionError(f"train step {dtype}: launches {d}, skipped {state.skipped}")
+
+    res = {(path, dtype): _loss_and_grads(m, loss_cfg, batch, dtype)
+           for path, m in (("kernels", mk), ("plain", mp)) for dtype in ("float32", "bfloat16")}
+    lk, gk, xk = res[("kernels", "float32")]
+    lp, gp, xp = res[("plain", "float32")]
+    atol, rtol = TOL_STAGE1_F32
+    x_err = (xk - xp).abs()
+    x_ok = bool((x_err <= atol + rtol * xp.abs()).all())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def shift(x):
+        return atol + rtol * x.abs()
+
+    def random_sign(x):
+        s = torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1
+        return s * (atol + rtol * x.abs())
+
+    effects = [_loss_and_grads(mp, loss_cfg, batch, "float32", delta) for delta in
+               (shift, random_sign)]
+    l_bound = 2 * max(abs(le - lp) for le, _, _ in effects)
+    g_bound = 2 * max(float((ge - gp).norm()) for _, ge, _ in effects)
+    l_err, g_err = abs(lk - lp), float((gk - gp).norm())
+    print(f"train step float32, kernels vs switches off: stage-1 logits max_abs_err "
+          f"{float(x_err.max()):.3e} (tol {atol} + {rtol} |x|, max |x| {float(xp.abs().max()):.2f}); "
+          f"loss {lk:.7f} vs {lp:.7f}, |diff| {l_err:.3e} = {l_err / abs(lp):.2e} relative "
+          f"(bound {l_bound:.3e} = {l_bound / abs(lp):.2e}); stage-2 gradients |diff| {g_err:.3e} "
+          f"of |g| {float(gp.norm()):.3e} (bound {g_bound:.3e})")
+    if not (x_ok and l_err <= l_bound and g_err <= g_bound):
+        raise AssertionError("float32 train step: the kernel path is outside its bound")
+    lkb, gkb, _ = res[("kernels", "bfloat16")]
+    lpb, gpb, _ = res[("plain", "bfloat16")]
+    lb_bound = 2 * abs(lpb - lp) + l_bound
+    gb_bound = 2 * float((gpb - gp).norm()) + g_bound
+    lb_err, gb_err = abs(lkb - lp), float((gkb - gp).norm())
+    print(f"train step bfloat16 vs the float32 plain path: kernels loss {lkb:.6f}, |diff| "
+          f"{lb_err:.3e} (bound {lb_bound:.3e}: twice the bf16 plain path's {abs(lpb - lp):.3e} "
+          f"plus the float32 bound); stage-2 gradients |diff| {gb_err:.3e} (bound {gb_bound:.3e}: "
+          f"twice the bf16 plain path's {float((gpb - gp).norm()):.3e} plus the float32 bound)")
+    if not (lb_err <= lb_bound and gb_err <= gb_bound):
+        raise AssertionError("bf16 train step: the kernel path is outside its bound")
+    del res, effects
+
+    # an optimizer step that decays every frozen weight by 10% (lr 0.1, wd 1)
+    w = mk.pretrained_unet.encoder.stage1_block0.project_conv.weight
+    before = w.detach().clone()
+    state = TrainState.create(mk, Transform("adamw", constant_schedule(0.1), 1.0, 5.0))
+    steps.make_train_step(mk, loss_cfg, "bfloat16")(state, batch)
+    ratio = float((w.detach() / before).mean())
+    mp.load_state_dict(mk.state_dict())
+    images = torch.tensor(batch["images"], device="cuda")
+    x_err = (mk.stage1(images) - mp.stage1(images)).abs()
+    ref = mp.stage1(images).abs()
+    ok = bool((x_err <= atol + rtol * ref).all())
+    print(f"after a step with decay (frozen weights x {ratio:.4f}): float32 stage 1 kernels vs the "
+          f"switches-off model with the same weights, max_abs_err {float(x_err.max()):.3e}")
+    if not (abs(ratio - 0.9) < 1e-3 and ok):
+        raise AssertionError("after the decay the kernels disagree with the decayed weights")
+
+    real_mb, real_tail = cuda_mbconv.fused_mbconv, cuda_tail.tail
+    errs = {"fused_mbconv": [], "tail": []}
+
+    def spy_mbconv(x, *ops, **kw):
+        y = real_mb(x, *ops, **kw)
+        yp = cuda_mbconv.fused_mbconv_plain(x, *ops, **kw)
+        atol_, rtol_ = TOL_MBCONV["bfloat16"]
+        errs["fused_mbconv"].append(bool(((y.float() - yp.float()).abs()
+                                          <= atol_ + rtol_ * yp.float().abs()).all()))
+        return y
+
+    def spy_tail(x, *ops, packed=None):
+        cuda_tail.tail = real_tail  # the wrapper counts its launches on its own name
+        try:
+            y = real_tail(x, *ops, packed=packed)
+        finally:
+            cuda_tail.tail = spy_tail
+        yp = cuda_tail.tail_plain(x, *ops)
+        atol_, rtol_ = TOL_TAIL["bfloat16"]
+        errs["tail"].append(bool(((y.float() - yp.float()).abs()
+                                  <= atol_ + rtol_ * yp.float().abs()).all()))
+        return y
+
+    cuda_mbconv.fused_mbconv, cuda_tail.tail = spy_mbconv, spy_tail
+    try:
+        with torch.no_grad():
+            steps.forward(mk, images, steps.rois_from_boxes(
+                torch.tensor(batch["boxes"], device="cuda")), "bfloat16")
+    finally:
+        cuda_mbconv.fused_mbconv, cuda_tail.tail = real_mb, real_tail
+    print(f"after the decay, bf16 train forward: each kernel call against its plain version on "
+          f"its operands: {errs}")
+    if [len(errs["fused_mbconv"]), len(errs["tail"])] != [6, 1] or not all(
+            all(v) for v in errs.values()):
+        raise AssertionError(f"a kernel call disagrees with its plain version: {errs}")
+    del mk, mp, state
+    torch.cuda.empty_cache()
+
+
+def time_train_steps(card: str) -> None:
+    """Phase 14 (c): ms per bf16 train step and images per second (median of
+    10 steps after 3 of warmup, the two paths in turns, batches already on
+    the card), kernels against plain stage 1; device busy time and idle
+    share over 3 steps (``torch.profiler``) with the 12 kernels that take
+    the most device time; peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager,
+                                                              loss_config_from_experiment)
+    from human_instance_segmentation_tpu_torch.training import steps
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      build_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    cfg = ConfigManager.get_config(TRAIN_CONFIG)
+    t = cfg.training
+    loss_cfg = loss_config_from_experiment(cfg)
+    batches = [steps.batch_to(b, "cuda") for b in train_batches(4, seed=7)]
+    images_per_step = batches[0]["images"].shape[0]
+    models = dict(zip(("kernels", "plain"), _train_models()))
+    runs = {}
+    for name, m in models.items():
+        tx = build_optimizer(build_schedule(t.learning_rate, t.num_epochs, 100, t.scheduler,
+                                            t.min_lr, t.warmup_epochs),
+                             t.optimizer, t.weight_decay, t.gradient_clip)
+        runs[name] = [TrainState.create(m, tx), steps.make_train_step(m, loss_cfg,
+                                                                      t.compute_dtype)]
+    torch.cuda.synchronize()
+    peak = {}
+    for name, run in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(3):
+            run[0], _ = run[1](run[0], batches[i % len(batches)])
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    times = {name: [] for name in runs}
+    for i in range(10):
+        for name in (("kernels", "plain") if i % 2 == 0 else ("plain", "kernels")):
+            run = runs[name]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run[0], _ = run[1](run[0], batches[i % len(batches)])
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    for name, run in runs.items():
+        med = statistics.median(times[name])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(TRAIN_PROFILE_STEPS):
+                run[0], _ = run[1](run[0], batches[i % len(batches)])
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy = sum(e.self_device_time_total for e in events) / (TRAIN_PROFILE_STEPS * 1e3)
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+        parts = {}
+        for e in events:
+            kind = _kernel_kind(e.key)
+            parts[kind] = parts.get(kind, 0.0) + e.self_device_time_total / (
+                TRAIN_PROFILE_STEPS * 1e3)
+        print(f"train step bf16, B0 480x640, batch {images_per_step} x 8 rois, mid 256, "
+              f"{name} stage 1: {med:.3f} ms/step, {images_per_step / med * 1e3:.1f} img/s "
+              f"(median of 10 steps after 3 of warmup, CUDA events; all {times[name]}); device "
+              f"busy {busy:.3f} ms per step ({100 * (1 - busy / med):.1f}% idle), "
+              f"{sum(e.count for e in events) // TRAIN_PROFILE_STEPS} kernels per step; peak "
+              f"memory {peak[name]:.2f} GiB (max_memory_allocated) [{card}]")
+        print(f"  device ms per step by kind ({name}): " + "; ".join(
+            f"{k} {v:.3f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+        print(f"  12 largest kernels by device time per step ({name}): " + "; ".join(
+            f"{_kernel_label(e.key)} [{_kernel_kind(e.key)}] "
+            f"{e.self_device_time_total / (TRAIN_PROFILE_STEPS * 1e3):.3f} ms "
+            f"x{e.count // TRAIN_PROFILE_STEPS}" for e in top))
+        if run[0].skipped:
+            raise AssertionError(f"{name}: {run[0].skipped} timed steps were skipped")
+    del runs, models
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -2152,7 +2621,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 14))
+    phases = set(range(1, 15))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -2203,12 +2672,23 @@ def main() -> None:
         for name in ("tail", "conv_ln_act", "conv_ln_act_s8", "qconv", "roi_align"):
             launches[name] = launches.get(name, 0) + slice_launches[name]
 
+    if 14 in phases:
+        torch.cuda.empty_cache()
+        train_launches = train_entry_point(card, rng)
+        train_step_kernels(card, rng)
+        time_train_steps(card)
+        for name, n in train_launches.items():
+            launches[name] = launches.get(name, 0) + n
+
     for k in kernels:
+        if k["name"] in TRAIN_PER_STEP and 14 in phases:
+            k["train_launches"] = train_launches[k["name"]]
+            k["train_launches_per_step"] = TRAIN_PER_STEP[k["name"]]
         k["launches"] = launches.get(k["name"], 0)
         if k["name"] in PER_FORWARD:
             k["launches_per_forward"] = PER_FORWARD[k["name"]]
         k["bound_share"] = k["bound_ms"] / k["ms"]
-    if any(k["launches"] == 0 for k in kernels) and phases >= {3, 4, 6, 7, 9, 10, 11, 12, 13}:
+    if any(k["launches"] == 0 for k in kernels) and phases >= {3, 4, 6, 7, 9, 10, 11, 12, 13, 14}:
         raise AssertionError(f"a kernel of the main path was never launched: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

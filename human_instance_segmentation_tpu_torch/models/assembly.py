@@ -18,6 +18,13 @@ zero-padded out-of-image samples, as in the JAX package) and gives
 ``aux["person_prob_dense"]``. ``encoder_fused_blocks=N`` is handed down to
 the stage-1 encoder (the first N MBConv blocks through the fused kernel).
 
+Stage 1 is frozen (``freeze_pretrained=True``, the JAX default,
+assembly.py:117): the UNet and the wrapper stay in eval mode after
+``model.train()`` and run without autograd (``torch.no_grad``, where JAX
+has ``stop_gradient``, assembly.py:186-195, :253-263), so no gradient
+reaches them and, on the GPU, the fused tail and the fused MBConv blocks
+run inside every train step as they do when serving.
+
 Public I/O is NHWC as in the JAX package; the modules run NCHW inside.
 """
 
@@ -81,11 +88,18 @@ class HierarchicalInstanceSegmenter(nn.Module):
                  activation: str = "relu", base_channels: int = 96, depth: int = 3,
                  unet_decoder_channels: Tuple[int, ...] = (256, 128, 64, 32, 16),
                  stage1_upsample_mode: str = "bilinear", pallas_roi_align: bool = True,
-                 pallas_tail: bool = False, encoder_fused_blocks: int = 0):
+                 pallas_tail: bool = False, encoder_fused_blocks: int = 0,
+                 freeze_pretrained: bool = True):
         super().__init__()
         if not (use_contour_detection or use_distance_transform):
             # the JAX model then takes PretrainedUNetGuidedHead instead
             raise NotImplementedError("PretrainedUNetGuidedHead is not ported yet")
+        if not freeze_pretrained:
+            # stage 1 would then train its BatchNorms on batch statistics
+            raise NotImplementedError(
+                "freeze_pretrained=False is not ported yet (ROADMAP A3: the port's BatchNorm2d "
+                "is eval only, so an unfrozen stage 1 would train on frozen statistics)")
+        self.freeze_pretrained = freeze_pretrained
         self.roi_size = tuple(roi_size)
         self.mask_size = tuple(mask_size)
         self.image_size = tuple(image_size)
@@ -99,6 +113,21 @@ class HierarchicalInstanceSegmenter(nn.Module):
         self.head = RefinedHierarchicalHead(
             feature_dim, mid_channels, mask_size, use_contour_detection,
             use_distance_transform, norm, activation, base_channels, depth)
+
+    def train(self, mode: bool = True) -> "HierarchicalInstanceSegmenter":
+        """Set the mode of stage 2; the frozen stage 1 (the UNet and its
+        wrapper) stays in eval mode, as the JAX model runs it with
+        ``train=False``."""
+        super().train(mode)
+        self.pretrained_unet.eval()
+        self.unet_wrapper.eval()
+        return self
+
+    def stage1(self, images: torch.Tensor) -> torch.Tensor:
+        """Full-image two-channel person logits ``(B, H, W, 2)`` ([fg, bg] =
+        [+x, -x] at the wrapper's initial weights), without autograd."""
+        with torch.no_grad():
+            return _nhwc(self.unet_wrapper(self.pretrained_unet(_nchw(images))))
 
     def _crops(self, images: torch.Tensor, logits: torch.Tensor,
                rois: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -141,18 +170,20 @@ class HierarchicalInstanceSegmenter(nn.Module):
                 rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         if tuple(images.shape[1:3]) != self.image_size:
             raise ValueError(f"model built for {self.image_size}, got {tuple(images.shape[1:3])}")
-        form, x1 = self.pretrained_unet(_nchw(images), raw=True)
-        if form == "dense":  # x1 (B, H, W): the fused tail's one-channel logit map
-            roi_rgb, roi1 = self._crops(images, x1[..., None], rois)
-            roi_bg_fg = _nhwc(self.unet_wrapper(_nchw(roi1))).contiguous()
-            full_image_logits = _nhwc(self.unet_wrapper(x1[:, None]))
-        else:
-            full_image_logits = _nhwc(self.unet_wrapper(x1))
-            roi_rgb, roi_bg_fg = self._crops(images, full_image_logits, rois)
+        with torch.no_grad():  # the frozen stage 1 and the crops, which need no gradient
+            form, x1 = self.pretrained_unet(_nchw(images), raw=True)
+            if form == "dense":  # x1 (B, H, W): the fused tail's one-channel logit map
+                roi_rgb, roi1 = self._crops(images, x1[..., None], rois)
+                roi_bg_fg = _nhwc(self.unet_wrapper(_nchw(roi1))).contiguous()
+                full_image_logits = _nhwc(self.unet_wrapper(x1[:, None]))
+                person_prob = self.person_prob(x1)
+            else:
+                full_image_logits = _nhwc(self.unet_wrapper(x1))
+                roi_rgb, roi_bg_fg = self._crops(images, full_image_logits, rois)
 
         logits, aux = self.stage2(roi_rgb, roi_bg_fg)
         if form == "dense":
-            aux["person_prob_dense"] = self.person_prob(x1)
+            aux["person_prob_dense"] = person_prob
         aux["full_image_logits"] = full_image_logits
         aux["roi_bg_fg"] = roi_bg_fg
         aux["roi_patches"] = roi_rgb

@@ -171,6 +171,38 @@ class ResidualBlock(_Fusable):
         return self.act(h + x)
 
 
+class Dropout2d(nn.Module):
+    """Channel-wise spatial dropout (the JAX package's ``Dropout2d``, torch
+    ``nn.Dropout2d`` semantics): in training mode each (sample, channel)
+    map is kept with probability ``1 - p`` and scaled by ``1 / (1 - p)``,
+    or zeroed; in eval mode, or at ``p = 0``, the identity. The masks are
+    drawn from ``generator`` (set for each step by the train step through
+    :func:`set_dropout_generator`), on x's device. Holds no parameters."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.p
+        shape = (x.shape[0], x.shape[1], 1, 1)
+        u = torch.rand(shape, generator=self.generator, device=x.device, dtype=torch.float32)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(module: nn.Module, generator) -> None:
+    """Draw the masks of every :class:`Dropout2d` under ``module`` from
+    ``generator`` (a ``torch.Generator`` on the model's device)."""
+    for m in module.modules():
+        if isinstance(m, Dropout2d):
+            m.generator = generator
+
+
 class ConvTranspose2x(nn.Module):
     """2x upsampling transposed conv (k=2, s=2), held as ``deconv``.
 

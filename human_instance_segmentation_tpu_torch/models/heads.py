@@ -4,8 +4,12 @@ Counterpart of the JAX package's ``models/heads.py``: ``EnhancedUNet``,
 ``HierarchicalHeadV2`` with its unfused mask branch, ``ContourBranch``,
 ``DistanceTransformDecoder`` and ``RefinedHierarchicalHead`` with the
 contour and distance branches. Heads return ``(final_logits, aux)`` with
-NCHW tensors; the assembly turns them into the JAX package's NHWC. Dropout
-is the identity in eval mode and holds no parameters, so it is left out.
+NCHW tensors; the assembly turns them into the JAX package's NHWC.
+``HierarchicalHeadV2`` drops whole channels (:class:`.blocks.Dropout2d`)
+where the JAX head does (heads.py:198-252): after ``shared_in`` and
+``shared_res0`` (``shared_drop0/1``), after ``gate0`` at half the rate
+(``gate_drop``), and around the ``tnt`` upsample (``tnt_drop0/1``); in eval
+mode these are the identity, and they hold no parameters.
 
 The 1x1/3x3 convs the JAX package builds as ``QConv`` are
 :class:`..ops.quant.QConv` here too, and the producer-side int8
@@ -24,7 +28,8 @@ from ..ops.activations import get_activation
 from ..ops.norms import get_normalization
 from ..ops.quant import QConv
 from ..ops.sampling import resize_bilinear
-from .blocks import ConvNormAct, ConvTranspose2x, ResidualBlock, max_pool_2x, prequantize_for
+from .blocks import (ConvNormAct, ConvTranspose2x, Dropout2d, ResidualBlock, max_pool_2x,
+                     prequantize_for)
 
 _NCHW = (2, 3)
 
@@ -108,45 +113,52 @@ class HierarchicalHeadV2(nn.Module):
 
     def __init__(self, in_channels: int, mid_channels: int = 256,
                  mask_size: Tuple[int, int] = (56, 56), norm: str = "layernorm2d",
-                 activation: str = "relu", base_channels: int = 96, depth: int = 3):
+                 activation: str = "relu", base_channels: int = 96, depth: int = 3,
+                 dropout_rate: float = 0.1):
         super().__init__()
         kw = dict(norm=norm, activation=activation)
         mc = mid_channels
         self.mask_size = tuple(mask_size)
         self.act = get_activation(activation)
         self.shared_in = ConvNormAct(in_channels, mc, **kw)
+        self.shared_drop0 = Dropout2d(dropout_rate)
         self.shared_res0 = ResidualBlock(mc, **kw)
+        self.shared_drop1 = Dropout2d(dropout_rate)
         self.shared_res1 = ResidualBlock(mc, **kw)
         self.bg_vs_fg_unet = EnhancedUNet(mc, base_channels, depth, **kw)
         self.upsample_deconv = ConvTranspose2x(2, 32)
         self.upsample_norm = get_normalization(norm, 32)
         self.upsample_out = QConv(32, 2, 1)
         self.gate0 = QConv(2, mc // 4, 1)
+        self.gate_drop = Dropout2d(dropout_rate * 0.5)
         self.gate1 = QConv(mc // 4, mc // 2, 1)
         self.gate2 = QConv(mc // 2, mc, 1)
         self.tnt_res0 = ResidualBlock(mc, **kw)
+        self.tnt_drop0 = Dropout2d(dropout_rate)
         self.tnt_deconv = ConvTranspose2x(mc, mc // 2)
         self.tnt_norm = get_normalization(norm, mc // 2)
+        self.tnt_drop1 = Dropout2d(dropout_rate)
         self.tnt_res1 = ResidualBlock(mc // 2, **kw)
         self.tnt_out = QConv(mc // 2, 2, 1)
 
     def forward(self, features: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         act = self.act
         mh, mw = self.mask_size
-        shared = self.shared_res1(self.shared_res0(self.shared_in(features)))
+        shared = self.shared_drop0(self.shared_in(features))
+        shared = self.shared_res1(self.shared_drop1(self.shared_res0(shared)))
 
         bg_fg_low = self.bg_vs_fg_unet(shared)
         up = act(self.upsample_norm(self.upsample_deconv(bg_fg_low)))
         bg_fg_logits = _resize_to(self.upsample_out(up), mh, mw)
         bg_fg_probs = torch.softmax(bg_fg_logits, dim=1)
 
-        g = act(self.gate0(bg_fg_low))
+        g = self.gate_drop(act(self.gate0(bg_fg_low)))
         g = act(self.gate1(prequantize_for(self.gate1, g, k=1)))
         fg_attention = torch.sigmoid(self.gate2(prequantize_for(self.gate2, g, k=1)))
 
-        t = self.tnt_res0(shared * fg_attention)
+        t = self.tnt_drop0(self.tnt_res0(shared * fg_attention))
         t = act(self.tnt_norm(self.tnt_deconv(t)))
-        t = self.tnt_res1(t)
+        t = self.tnt_res1(self.tnt_drop1(t))
         tnt_logits = _resize_to(self.tnt_out(t), mh, mw)
 
         fg_p = bg_fg_probs[:, 1:2]

@@ -1,0 +1,226 @@
+"""Train and eval steps for the hierarchical model.
+
+Counterpart of the JAX package's ``training/steps.py`` on one device (its
+mesh form waits for ROADMAP A9). A step computes what the JAX step
+computes: the forward in training mode (dropout from the state's
+generator; the frozen stage 1 in eval mode without autograd), the refined
+hierarchical loss, the gradients of every parameter, the NaN guard and the
+optimizer's update.
+
+Batch contract (numpy arrays or tensors):
+    images: (B, H, W, 3) float in [0, 1]
+    boxes:  (B, K, 4)    normalised [x1, y1, x2, y2]
+    masks:  (B, K, mh, mw) int labels {0, 1, 2}
+    valid:  (B, K)       1.0 for real ROIs, 0.0 for padding
+
+``compute_dtype="bfloat16"`` runs the forward and the backward on bf16
+copies of every floating parameter and buffer (``torch.func.functional_call``
+over ``p.to(bf16)``, the JAX ``_cast_floating``), so the gradients reach the
+float32 masters through the casts; the masters, the optimizer state and the
+loss stay float32. (``torch.autocast`` would keep some ops in float32 and
+compute something else.) The copies are made anew every step, so the fused
+stage-1 kernels, which keep operands prepared from the weights they see,
+rebuild them every step: the decay changes the frozen weights every step.
+
+The NaN guard: a step whose loss or gradients' global norm is not finite
+keeps the parameters, the optimizer state (its step count with it) and the
+loss state, advances ``state.step`` and counts one more ``skipped``. The
+decision is one host sync a step (``bool`` of a device scalar); the JAX
+step selects on the device instead.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from ..losses.hierarchical import (HierarchicalLossState, RefinedLossConfig,
+                                   refined_hierarchical_loss)
+from ..models.blocks import set_dropout_generator
+from .optim import global_norm
+from .state import TrainState
+
+Batch = Dict[str, object]
+
+
+def rois_from_boxes(boxes: torch.Tensor) -> torch.Tensor:
+    """(B, K, 4) boxes -> (B*K, 5) rois with their batch indices."""
+    b, k, _ = boxes.shape
+    idx = torch.arange(b, dtype=boxes.dtype, device=boxes.device).repeat_interleave(k)[:, None]
+    return torch.cat([idx, boxes.reshape(b * k, 4)], dim=-1)
+
+
+def batch_to(batch: Batch, device) -> Dict[str, torch.Tensor]:
+    """The batch's arrays as tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+            .to(device) for k, v in batch.items()}
+
+
+def _compute_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
+    if compute_dtype in (None, "float32", "f32"):
+        return None
+    return getattr(torch, compute_dtype)
+
+
+def _frozen(model: nn.Module, name: str) -> bool:
+    return getattr(model, "freeze_pretrained", False) and name.split(".")[0] in (
+        "pretrained_unet", "unet_wrapper")
+
+
+def cast_variables(model: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Copies of every floating parameter and buffer of ``model`` in
+    ``dtype`` (others as they are), keyed by name: differentiable casts of
+    the trainable parameters, detached ones of the frozen stage 1."""
+    out = {}
+    for name, p in model.named_parameters():
+        out[name] = (p.detach() if _frozen(model, name) else p).to(dtype)
+    for name, b in model.named_buffers():
+        out[name] = b.to(dtype) if b.is_floating_point() else b
+    return out
+
+
+def forward(model: nn.Module, images: torch.Tensor, rois: torch.Tensor,
+            compute_dtype: Optional[str] = None):
+    """``model(images, rois)`` in the step's compute dtype; logits and aux
+    come back float32."""
+    cdt = _compute_dtype(compute_dtype)
+    if cdt is None:
+        return model(images, rois)
+    logits, aux = functional_call(model, cast_variables(model, cdt), (images.to(cdt), rois))
+    return logits.float(), {k: v.float() if v.is_floating_point() else v for k, v in aux.items()}
+
+
+def make_loss_fn(model: nn.Module, loss_cfg: RefinedLossConfig,
+                 compute_dtype: Optional[str] = None):
+    """``loss_fn(loss_state, generator, batch) -> (loss, (new_loss_state,
+    metrics))`` over ``model`` in its current mode; with ``compute_dtype``
+    (e.g. "bfloat16") the forward and backward run in that dtype while the
+    master parameters, their statistics and the loss stay float32."""
+
+    def loss_fn(loss_state: HierarchicalLossState, generator: torch.Generator,
+                batch: Dict[str, torch.Tensor]):
+        set_dropout_generator(model, generator)
+        rois = rois_from_boxes(batch["boxes"].float())
+        logits, aux = forward(model, batch["images"].float(), rois, compute_dtype)
+        b, k = batch["boxes"].shape[:2]
+        mh, mw = batch["masks"].shape[-2:]
+        targets = batch["masks"].reshape(b * k, mh, mw)
+        valid = batch["valid"].reshape(b * k)
+        loss, new_loss_state, metrics = refined_hierarchical_loss(
+            logits, targets, aux, loss_state, loss_cfg, valid=valid)
+        return loss, (new_loss_state, metrics)
+
+    return loss_fn
+
+
+def _apply_step(state: TrainState, grads: List[Optional[torch.Tensor]],
+                new_loss_state: HierarchicalLossState, loss: torch.Tensor) -> TrainState:
+    """The optimizer's update with the NaN-batch skip."""
+    present = [g for g in grads if g is not None]
+    finite = torch.isfinite(loss)
+    if present:
+        finite = finite & torch.isfinite(global_norm(present))
+    if bool(finite):  # the step's one host sync
+        state.optimizer.step(grads)
+        state.loss_state = new_loss_state
+    else:
+        state.skipped += 1
+    state.step += 1
+    return state
+
+
+def make_train_step(
+    model: nn.Module,
+    loss_cfg: RefinedLossConfig = RefinedLossConfig(),
+    compute_dtype: Optional[str] = None,
+) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """``step(state, batch) -> (state, metrics)`` for a state over
+    ``model``; the state is updated in place. Metrics are device tensors."""
+    loss_fn = make_loss_fn(model, loss_cfg, compute_dtype)
+
+    def step(state: TrainState, batch: Batch):
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step's")
+        model.train()
+        device = next(model.parameters()).device
+        loss, (new_loss_state, metrics) = loss_fn(state.loss_state, state.generator,
+                                                  batch_to(batch, device))
+        params = state.optimizer.params
+        needed = [i for i, p in enumerate(params) if p.requires_grad]
+        found = torch.autograd.grad(loss, [params[i] for i in needed], allow_unused=True)
+        grads: List[Optional[torch.Tensor]] = [None] * len(params)
+        for i, g in zip(needed, found):
+            grads[i] = g
+        state = _apply_step(state, grads, new_loss_state, loss.detach())
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_scanned_train_step(
+    model: nn.Module,
+    loss_cfg: RefinedLossConfig = RefinedLossConfig(),
+    scan_steps: int = 8,
+    compute_dtype: Optional[str] = None,
+):
+    """``scan_steps`` optimizer steps per call over a stacked super-batch
+    (each array gains a leading ``(scan_steps,)`` axis); returns ``(state,
+    metrics of the last step)``, as the JAX ``lax.scan`` form does."""
+    step = make_train_step(model, loss_cfg, compute_dtype)
+
+    def scanned(state: TrainState, batches: Batch):
+        metrics = None
+        for i in range(scan_steps):
+            state, metrics = step(state, {k: v[i] for k, v in batches.items()})
+        return state, metrics
+
+    return scanned
+
+
+def stack_batches(batches):
+    """Stack K host batches into the (K, ...) super-batch for
+    :func:`make_scanned_train_step`."""
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def make_eval_step(model: nn.Module):
+    """``eval_step(batch) -> sums`` of per-ROI target IoU, detection at 0.5
+    and 0.7, the ROI count and pixel accuracy, the model in eval mode and
+    float32 (its mode is restored after)."""
+
+    def step(batch: Batch) -> Dict[str, torch.Tensor]:
+        was_training = model.training
+        model.eval()
+        try:
+            device = next(model.parameters()).device
+            batch = batch_to(batch, device)
+            with torch.no_grad():
+                logits, _ = model(batch["images"].float(),
+                                  rois_from_boxes(batch["boxes"].float()))
+        finally:
+            model.train(was_training)
+        b, k = batch["boxes"].shape[:2]
+        mh, mw = batch["masks"].shape[-2:]
+        targets = batch["masks"].reshape(b * k, mh, mw)
+        valid = batch["valid"].reshape(b * k).to(logits.dtype)
+        pred = torch.argmax(logits, dim=-1)
+        tp = (pred == 1) & (targets == 1)
+        union = (pred == 1) | (targets == 1)
+        inter_n = torch.sum(tp, dim=(1, 2)).to(logits.dtype)
+        union_n = torch.sum(union, dim=(1, 2)).to(logits.dtype)
+        iou = inter_n / torch.clamp(union_n, min=1.0)
+        acc = torch.sum((pred == targets) * valid[:, None, None]) / torch.clamp(
+            torch.sum(valid) * mh * mw, min=1.0)
+        return {
+            "iou_sum": torch.sum(iou * valid),
+            "det50_sum": torch.sum((iou > 0.5) * valid),
+            "det70_sum": torch.sum((iou > 0.7) * valid),
+            "n": torch.sum(valid),
+            "acc": acc,
+        }
+
+    return step

@@ -1,0 +1,172 @@
+"""The port's config registry and ``model_from_config`` against the JAX
+package's, and the import rule of the new modules.
+
+The registry must be equal name for name and field for field
+(``to_dict()``), as must the loss config each experiment describes. For the
+flagship family the port's ``model_from_config`` must load, strictly
+(``from_jax_params(..., model)``: every leaf consumed, every parameter
+filled, equal shapes), the variables of the JAX ``model_from_config`` of
+the same config: the parameter trees agree. The variables come from
+``jax.eval_shape`` (shapes only, filled with zeros), so no JAX model runs.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from human_instance_segmentation_tpu import config as jcfg
+from human_instance_segmentation_tpu_torch import config as pcfg
+from human_instance_segmentation_tpu_torch.weights import from_jax_params
+
+REPO = Path(__file__).resolve().parents[1]
+FAMILY = "rgb_hierarchical_unet_v2_fullimage_pretrained_peopleseg_"
+
+
+def test_registry_names_and_fields_equal():
+    names = pcfg.ConfigManager.list_configs()
+    assert names == jcfg.ConfigManager.list_configs()
+    for name in names:
+        assert (pcfg.ConfigManager.get_config(name).to_dict()
+                == jcfg.ConfigManager.get_config(name).to_dict()), name
+
+
+def test_loss_configs_equal(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    stats = {"pixel_ratios": {"background": 0.8, "target": 0.15, "non_target": 0.05}}
+    (tmp_path / "stats.json").write_text(json.dumps(stats))
+    for name in pcfg.ConfigManager.list_configs():
+        for mods in ({}, {"data": {"data_stats": "stats.json"},
+                          "distance_loss": {"enabled": True, "boundary_width": 3},
+                          "training": {"use_focal": True, "ce_weight": 0.5}}):
+            p = pcfg._deep_merge(pcfg.ConfigManager.get_config(name), mods)
+            j = jcfg._deep_merge(jcfg.ConfigManager.get_config(name), mods)
+            assert p.to_dict() == j.to_dict()
+            assert (dataclasses.asdict(pcfg.loss_config_from_experiment(p))
+                    == dataclasses.asdict(jcfg.loss_config_from_experiment(j))), (name, mods)
+
+
+@pytest.mark.parametrize("name", ["x_r64x48m128x96_y", "a_r112m224", "r8x6m16x12", "plain"])
+def test_parse_sizes_from_name(name):
+    assert pcfg.parse_sizes_from_name(name) == jcfg.parse_sizes_from_name(name)
+
+
+def test_custom_config_and_json_roundtrip(tmp_path):
+    mods = {"training": {"learning_rate": 3e-4, "stage_schedule": {"2": {"lr_scale": 0.5}}},
+            "model": {"roi_size": [32, 24]}}
+    base = FAMILY + "r64x48m128x96_disttrans_contdet_baware_from_b0"
+    p = pcfg.ConfigManager.create_custom_config(base, "custom", mods)
+    j = jcfg.ConfigManager.create_custom_config(base, "custom", mods)
+    assert p.to_dict() == j.to_dict()
+    p.save(str(tmp_path / "c.json"))
+    assert pcfg.ExperimentConfig.load(str(tmp_path / "c.json")).to_dict() == p.to_dict()
+    with pytest.raises(KeyError):
+        pcfg.ConfigManager.get_config("no_such_experiment")
+
+
+# one config per distinct parameter tree of the flagship family: encoder,
+# head base/depth (the "enhanced" grid) and head width (the "fast" config)
+TREES = [
+    FAMILY + "r64x48m128x96_disttrans_contdet_baware_from_b0",
+    FAMILY + "r64x48m128x96_disttrans_contdet_baware_from_B0_enhanced",
+    FAMILY + "r80x60m160x120_disttrans_contdet_baware_from_b1",
+    FAMILY + "r128x96m256x192_disttrans_contdet_baware_from_B7_enhanced",
+    FAMILY + "r64x48m64x48_disttrans_contdet_baware_fast",
+    FAMILY + "r64x48m64x48_disttrans_contdet_baware_progressive",
+]
+
+
+@pytest.mark.parametrize("name", TREES)
+def test_flagship_family_loads_jax_variables_strictly(name):
+    pc = pcfg.ConfigManager.get_config(name)
+    jc = jcfg.ConfigManager.get_config(name)
+    for c in (pc, jc):
+        c.model.image_size = (64, 64)  # no parameter depends on it
+    jm = jcfg.model_from_config(jc)
+    shapes = jax.eval_shape(lambda r: jm.init(r, jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 5)),
+                                              train=False), jax.random.PRNGKey(0))
+    variables = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    model = pcfg.model_from_config(pc, device="cpu")
+    model.load_state_dict(from_jax_params(variables, model), strict=True)
+    assert model.freeze_pretrained and not model.pallas_roi_align
+    assert not model.training
+    m = pc.model
+    assert model.roi_size == tuple(m.roi_size) and model.mask_size == tuple(m.mask_size)
+
+
+def test_model_from_config_is_seeded_and_takes_overrides():
+    name = TREES[0]
+    cfg = pcfg.ConfigManager.get_config(name)
+    cfg.model.encoder_name = "tiny"
+    kw = dict(mid_channels=32, feature_dim=32, unet_decoder_channels=(32, 24, 16, 16, 8))
+    a = pcfg.model_from_config(cfg, seed=3, device="cpu", **kw)
+    b = pcfg.model_from_config(cfg, seed=3, device="cpu", **kw)
+    c = pcfg.model_from_config(cfg, seed=4, device="cpu", **kw)
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert any(not torch.equal(sa[k], sc[k]) for k in sa)
+    assert a.head.base_head.shared_in.conv.out_channels == 32
+    tail = pcfg.model_from_config(cfg, device="cpu", pallas_tail=True, encoder_fused_blocks=3,
+                                  **kw)
+    assert tail.pretrained_unet.pallas_tail and tail.pretrained_unet.encoder.fused_blocks == 3
+
+
+@pytest.mark.parametrize("name,item", [
+    ("baseline", "A8"),
+    ("rgb_hierarchical_unet_v2", "A8"),
+    ("rgb_hierarchical_unet_v2_pretrained_peopleseg_r64x48m64x48", "A8"),
+    ("rgb_hierarchical_unet_v2_attention_r64m64_refined_batchnorm", "A8"),
+    ("rgb_hierarchical_unet_v2_distillation_b0_from_b3", "A8"),
+])
+def test_other_families_raise(name, item):
+    with pytest.raises(NotImplementedError, match=item):
+        pcfg.model_from_config(pcfg.ConfigManager.get_config(name), device="cpu")
+
+
+@pytest.mark.parametrize("mods", [
+    {"use_attention_module": True}, {"use_boundary_refinement": True},
+    {"use_progressive_upsampling": True}, {"use_subpixel_conv": True},
+    {"normalization_type": "batchnorm"}, {"activation_function": "swish"},
+    {"freeze_pretrained_weights": False},
+])
+def test_flagship_modules_not_ported_raise(mods):
+    cfg = pcfg._deep_merge(pcfg.ConfigManager.get_config(TREES[0]), {"model": mods})
+    cfg.model.encoder_name = "tiny"
+    with pytest.raises(NotImplementedError, match="A3"):
+        pcfg.model_from_config(cfg, device="cpu")
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal on a host without CUDA")
+def test_model_from_config_needs_cuda_by_default():
+    cfg = pcfg.ConfigManager.get_config(TREES[0])
+    cfg.model.encoder_name = "tiny"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pcfg.model_from_config(cfg)
+
+
+def test_new_modules_import_no_jax():
+    """The config, the losses and the training package load neither jax nor
+    flax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import human_instance_segmentation_tpu_torch.config as c\n"
+        "import human_instance_segmentation_tpu_torch.losses\n"
+        "import human_instance_segmentation_tpu_torch.training.loop\n"
+        "import human_instance_segmentation_tpu_torch.training.checkpoint\n"
+        "import human_instance_segmentation_tpu_torch.training.logging\n"
+        "import human_instance_segmentation_tpu_torch.training.progressive\n"
+        "c.loss_config_from_experiment(c.ConfigManager.get_config('baseline'))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
+        " 'orbax', 'human_instance_segmentation_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
