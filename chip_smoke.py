@@ -82,7 +82,24 @@ package beside the script; it imports nothing of JAX. Phases:
     bounds in ``TOL_STAGE1_F32``'s comment), and again after a step that
     decays the frozen weights; (c) ms per bf16 step and images per second,
     kernels and plain stage 1, device busy time, idle share and the
-    largest kernels, peak memory.
+    largest kernels, peak memory;
+15. the other families and the refinement flags (:func:`serve_rgb_family`,
+    :func:`train_roi_family`, :func:`train_and_serve_a3_flagship`): (a) the
+    pure-RGB config ``rgb_hierarchical_unet_v2_attention_r64m64`` at its
+    sizes (640 x 640, 64 x 64 ROIs and masks, head mid 256) served at
+    batch 8 x 8 and 8 x 64 ROIs with the fused unit (5 ``conv_ln_act``
+    launches a forward) against it off, phase 4's gates on the logits in
+    float32 and bf16, ms per forward; its group- and batch-norm ablations
+    one eval forward each; (b) ``run_training`` on the ROI-pretrained
+    config (B3 stage 1 unfrozen, 640 x 640, batch 8 x 8, bf16), 3 steps:
+    finite, stage 1's running statistics moved, checkpoint restored equal,
+    no fused stage-1 launch; ms per step; (c) the B0 flagship with the
+    attention module, the boundary refinement and stage 1 unfrozen, built
+    with ``pallas_tail`` and ``encoder_fused_blocks=6``: 3 bf16 steps with
+    no stage-1 kernel launched, its stage 1 then served through the kept
+    fused caches against a model without the kernels on the trained
+    weights, and the trained model served (bf16 and float32) against its
+    plain path under phase 4's gates with launches per forward; ms per step.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -297,6 +314,9 @@ def check_kernels(card: str, rng) -> list:
     cases = [((n, h, w, c), k, res, dt) for dt in (torch.float32, torch.bfloat16)
              for k, res in ((3, False), (3, True), (1, False))]
     cases += [((3, 5, 7, 260), 3, True, dt) for dt in (torch.float32, torch.bfloat16)]
+    # the pure-RGB bottleneck (phase 15a: 64 ROIs of 64 x 64 -> 16 x 16 x 384),
+    # whose LayerNorm pass caches 48 KB a block
+    cases += [((64, 16, 16, c), 3, True, dt) for dt in (torch.float32, torch.bfloat16)]
     for shape, k, res, dt in cases:
         cn, ch, cw, cc = shape
         x = torch.tensor(rng.standard_normal(shape), dtype=dt, device=dev)
@@ -1090,10 +1110,10 @@ def check_mbconv_and_tail_q(card: str, rng) -> list:
     return results
 
 
-def make_request(rng, batch: int, nrois: int):
+def make_request(rng, batch: int, nrois: int, hw=IMAGE_HW):
     import numpy as np
 
-    images = rng.random((batch, *IMAGE_HW, 3), dtype=np.float32)
+    images = rng.random((batch, *hw, 3), dtype=np.float32)
     rois = np.zeros((nrois, 5), np.float32)
     rois[:, 0] = np.arange(nrois) % batch
     lo = rng.random((nrois, 2)) * 0.5
@@ -1396,6 +1416,9 @@ def check_int8_kernels(card: str, rng) -> list:
     cases = [((n, h, w, c), k, res, dt) for dt in (torch.float32, torch.bfloat16)
              for k, res in ((3, False), (3, True), (1, False))]
     cases += [((3, 5, 7, 260), 3, True, dt) for dt in (torch.float32, torch.bfloat16)]
+    # the pure-RGB bottleneck (phase 15a: 64 ROIs of 64 x 64 -> 16 x 16 x 384),
+    # whose LayerNorm pass caches 48 KB a block
+    cases += [((64, 16, 16, c), 3, True, dt) for dt in (torch.float32, torch.bfloat16)]
     for shape, k, res, dt in cases:
         cn, ch, cw, cc = shape
         x = torch.tensor(rng.standard_normal(shape), dtype=dt, device=dev)
@@ -2580,6 +2603,392 @@ def time_train_steps(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the pure-RGB and ROI-pretrained families, the flagship with the
+# refinement flags and an unfrozen stage 1
+# ---------------------------------------------------------------------------
+
+# the registry's pure-RGB config at its published sizes (JAX config.py:338-345):
+# 640 x 640 images, 64 x 64 ROIs and masks, head mid 256, base 96, depth 3,
+# the attention module; its group- and batch-norm ablations (:347-376)
+RGB_CONFIG = "rgb_hierarchical_unet_v2_attention_r64m64"
+RGB_ABLATIONS = (
+    "rgb_hierarchical_unet_v2_attention_r64m64_refined_contour_activecontourloss_distance_"
+    "groupnorm",
+    "rgb_hierarchical_unet_v2_attention_r64x48m64x48_refined_batchnorm",
+)
+# the ROI-pretrained config (:379-384): B3 stage 1 on every 64 x 48 crop, not
+# frozen, its BatchNorms trained; 640 x 640, batch 8 x 8 ROIs, bf16
+ROI_CONFIG = "rgb_hierarchical_unet_v2_pretrained_peopleseg_r64x48m64x48"
+# the deployed B0 flagship with the attention module, the boundary
+# refinement and stage 1 unfrozen, at the flagship's 480 x 640
+A3_MODS = {"model": {"image_size": list(IMAGE_HW), "use_attention_module": True,
+                     "use_boundary_refinement": True, "freeze_pretrained_weights": False}}
+PHASE15_STEPS = 3
+# conv_ln_act launches in one forward of the EnhancedUNet bottleneck (bott_res0,
+# bott_res1: two units each; bott_cna: one) at 16 x 16 (or 16 x 12) x 384
+BOTTLENECK_UNITS = 5
+
+
+def _gates(tag: str, o: dict) -> None:
+    """Phase 4's gates on the four engines' outputs ``{name: (instance,
+    binary or None, float32 logits)}``: float32 served vs plain logits
+    max-abs <= 1e-2 (and binary where there is one) and instance agreement
+    >= MIN_AGREE; bf16 served no further from the float32 plain path than
+    the bf16 plain path is, in instance agreement less 0.002 (C4) and in
+    logits at most twice as far plus 1e-2 (phase 14's bf16 rule)."""
+    import numpy as np
+
+    for name, (inst, binary, logits) in o.items():
+        if not (np.isfinite(inst).all() and np.isfinite(logits).all()
+                and (binary is None or np.isfinite(binary).all())):
+            raise AssertionError(f"{tag} {name}: non-finite outputs")
+        if not set(np.unique(inst)) <= {0.0, 1.0}:
+            raise AssertionError(f"{tag} {name}: instance masks are not binary")
+    logit_f32 = float(np.abs(o["served f32"][2] - o["plain f32"][2]).max())
+    logit_k = float(np.abs(o["served bf16"][2] - o["plain f32"][2]).max())
+    logit_p = float(np.abs(o["plain bf16"][2] - o["plain f32"][2]).max())
+    agree_f32 = _agreement(o["served f32"][0], o["plain f32"][0])
+    agree_k = _agreement(o["served bf16"][0], o["plain f32"][0])
+    agree_p = _agreement(o["plain bf16"][0], o["plain f32"][0])
+    bins = ""
+    ok_bin = True
+    if o["plain f32"][1] is not None:
+        bin_f32 = float(np.abs(o["served f32"][1] - o["plain f32"][1]).max())
+        bin_bf16 = float(np.abs(o["served bf16"][1] - o["plain bf16"][1]).max())
+        bins = f"binary max_abs_err f32 {bin_f32:.3e}, bf16 {bin_bf16:.3e} (tol 1e-2); "
+        ok_bin = bin_f32 <= 1e-2 and bin_bf16 <= 1e-2
+    print(f"{tag}: f32 served vs plain logits max_abs_err {logit_f32:.3e} (tol 1e-2), instance "
+          f"agreement {agree_f32:.6f} (min {MIN_AGREE}); {bins}bf16 vs f32 plain: served "
+          f"{agree_k:.6f}, plain bf16 {agree_p:.6f} (served >= plain - 0.002), logits "
+          f"max_abs_err served {logit_k:.3e}, plain bf16 {logit_p:.3e} (served <= 2 x plain + "
+          f"1e-2); fg share {o['served bf16'][0].mean():.4f}")
+    if not (ok_bin and logit_f32 <= 1e-2 and agree_f32 >= MIN_AGREE):
+        raise AssertionError(f"{tag}: the float32 served path disagrees with its plain path")
+    if not (agree_k >= agree_p - 0.002 and logit_k <= 2 * logit_p + 1e-2):
+        raise AssertionError(f"{tag}: bf16 served path is further from f32 than its plain path")
+
+
+def _serve(engine, images, rois):
+    """(instance, binary or None, float32 logits) of one request, numpy."""
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.inference import pad_rois, roi_bucket
+
+    n = rois.shape[0]
+    bucket = roi_bucket(n, max_bucket=engine.max_bucket)
+    images_t = torch.as_tensor(images).to(engine.device, engine.dtype)
+    rois_t = torch.as_tensor(pad_rois(np.asarray(rois, np.float32), bucket)).to(engine.device)
+    inst, binary, logits = engine.forward(images_t, rois_t)
+    return (inst[:n].float().cpu().numpy(),
+            None if binary is None else binary.float().cpu().numpy(),
+            logits[:n].float().cpu().numpy())
+
+
+def serve_rgb_family(card: str, rng) -> dict:
+    """Phase 15a: the pure-RGB config served through ``InferenceEngine`` at
+    its sizes, batch 8 x 8 ROIs, with the fused unit on (``conv_ln_act``
+    at the bottleneck, 5 launches a forward) against the same weights with
+    it off, under phase 4's gates in float32 and bf16; ms per forward; the
+    group- and batch-norm ablations one eval forward each. Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager, _as_hw,
+                                                              model_from_config)
+    from human_instance_segmentation_tpu_torch.inference import InferenceEngine, pad_rois
+    from human_instance_segmentation_tpu_torch.ops import cuda_head
+
+    cfg = ConfigManager.get_config(RGB_CONFIG)
+    model = model_from_config(cfg, seed=0)
+    hw = _as_hw(cfg.model.image_size)
+
+    def engine(dtype, kernels: bool):
+        # at these random weights every pixel is class 1 (the instance gates
+        # hold trivially), so the logits gates carry the comparison
+        return InferenceEngine(model, dilation_pixels=1, dtype=dtype, fused_head=kernels,
+                               kernels=kernels)
+
+    engines = {"served bf16": engine(torch.bfloat16, True),
+               "plain bf16": engine(torch.bfloat16, False),
+               "served f32": engine(torch.float32, True),
+               "plain f32": engine(torch.float32, False)}
+    cuda_head.conv_ln_act.launches = 0
+    for images, rois in (make_request(rng, 8, 8, hw), make_request(rng, 8, 64, hw)):
+        tag = f"{RGB_CONFIG} batch {images.shape[0]} x {rois.shape[0]} rois"
+        o = {}
+        for name, e in engines.items():
+            c0 = cuda_head.conv_ln_act.launches
+            o[name] = _serve(e, images, rois)
+            dc = cuda_head.conv_ln_act.launches - c0
+            want = BOTTLENECK_UNITS if name.startswith("served") else 0
+            if dc != want:
+                raise AssertionError(f"{tag} {name}: {dc} conv_ln_act launches, expected {want}")
+        print(f"{tag}: {BOTTLENECK_UNITS} conv_ln_act launches per served forward (f32 and bf16)")
+        if o["served bf16"][0].shape != (rois.shape[0], *_as_hw(cfg.model.mask_size), 1):
+            raise AssertionError(f"bad output shape {o['served bf16'][0].shape}")
+        _gates(tag, o)
+    launches = {"conv_ln_act": cuda_head.conv_ln_act.launches}
+
+    images, rois = make_request(rng, 8, 64, hw)
+    images_t = torch.as_tensor(images).to("cuda", torch.bfloat16)
+    rois_t = torch.as_tensor(pad_rois(rois, 64)).to("cuda")
+    times = {"served": [], "plain": []}
+    for name in ("served", "plain", "plain", "served"):
+        e = engines[f"{name} bf16"]
+        times[name].append(median_ms(lambda: e.forward(images_t, rois_t), reps=TIMING_REPS // 2))
+    for name, ms in times.items():
+        med = statistics.median(ms)
+        print(f"{RGB_CONFIG} forward, bf16, batch 8 x 64 rois (8 a image), fused unit "
+              f"{'on' if name == 'served' else 'off'}: {med:.3f} ms per forward "
+              f"(median of per-round medians {ms}, {TIMING_REPS // 2} forwards each, CUDA "
+              f"events) [{card}]")
+    del engines, model
+    torch.cuda.empty_cache()
+
+    for name in RGB_ABLATIONS:
+        cfg = ConfigManager.get_config(name)
+        e = InferenceEngine(model_from_config(cfg, seed=1), dilation_pixels=1,
+                            dtype=torch.bfloat16, fused_head=True)
+        images, rois = make_request(rng, 8, 64, _as_hw(cfg.model.image_size))
+        inst, binary, logits = _serve(e, images, rois)
+        mask = _as_hw(cfg.model.mask_size)
+        ok = (inst.shape == (64, *mask, 1) and binary is None
+              and logits.shape == (64, *mask, 3) and np.isfinite(logits).all())
+        print(f"{name} ({cfg.model.normalization_type}): one eval forward, batch 8 x 64 rois, "
+              f"bf16: instance {inst.shape}, logits {logits.shape}, finite and shaped {ok}, "
+              f"fg share {inst.mean():.4f}")
+        if not ok:
+            raise AssertionError(f"{name}: bad eval forward")
+        del e
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _stage1_stats(model) -> dict:
+    from human_instance_segmentation_tpu_torch.ops.norms import running_stat_modules
+
+    mods = running_stat_modules(model.pretrained_unet)
+    return {f"{n}.{b}": getattr(m, b).detach().clone()
+            for n, m in model.pretrained_unet.named_modules() if m in mods
+            for b in ("running_mean", "running_var")}
+
+
+def _time_steps(model, cfg, batches, steps: int = 5, warmup: int = 2):
+    """ms per train step (CUDA events, median of ``steps`` after ``warmup``)
+    of ``model`` in the config's compute dtype, batches on the card."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import loss_config_from_experiment
+    from human_instance_segmentation_tpu_torch.training import steps as tsteps
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      build_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    t = cfg.training
+    tx = build_optimizer(build_schedule(t.learning_rate, t.num_epochs, 100, t.scheduler,
+                                        t.min_lr, t.warmup_epochs),
+                         t.optimizer, t.weight_decay, t.gradient_clip)
+    state = TrainState.create(model, tx)
+    step = tsteps.make_train_step(model, loss_config_from_experiment(cfg), t.compute_dtype)
+    times = []
+    for i in range(warmup + steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, batches[i % len(batches)])
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    if state.skipped:
+        raise AssertionError(f"{state.skipped} timed steps were skipped")
+    return statistics.median(times), times, state
+
+
+def train_roi_family(card: str, rng) -> None:
+    """Phase 15b: ``run_training`` on the ROI-pretrained config (B3 stage 1
+    unfrozen, 640 x 640, batch 8 x 8 ROIs, bf16), 3 steps, synthetic: every
+    step finite, stage 1's BN running statistics moved, the checkpoint
+    restored equal; then ms per step. The family has no fused stage-1 route
+    (nor has the JAX one), so the train-mode gate of the fused kernels is
+    held in 15c, on a model built with them."""
+    import shutil
+
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager, _as_hw,
+                                                              model_from_config)
+    from human_instance_segmentation_tpu_torch.training import steps as tsteps
+    from human_instance_segmentation_tpu_torch.training.checkpoint import restore_checkpoint
+    from human_instance_segmentation_tpu_torch.training.loop import (run_training,
+                                                                    synthetic_batches)
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      constant_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    cfg = ConfigManager.get_config(ROI_CONFIG)
+    out = ROOT / "build" / "phase15b_run"
+    shutil.rmtree(out, ignore_errors=True)
+    start_stats = _stage1_stats(model_from_config(cfg, seed=0))
+    t0 = time.perf_counter()
+    metrics, state = run_training(ROI_CONFIG, steps=PHASE15_STEPS, synthetic=True,
+                                  output_dir=str(out), return_state=True)
+    wall = time.perf_counter() - t0
+    moved = _stage1_stats(state.model)
+    n_moved = sum(not torch.equal(v, start_stats[k]) for k, v in moved.items())
+    print(f"run_training {ROI_CONFIG}, {PHASE15_STEPS} steps, bf16, 640x640, batch "
+          f"{cfg.training.batch_size} x {cfg.data.rois_per_image} rois, stage 1 "
+          f"{cfg.model.encoder_name} unfrozen: {wall:.1f} s; loss {metrics['total_loss']:.4f}, "
+          f"skipped {state.skipped}; stage-1 running statistics moved: {n_moved} of "
+          f"{len(moved)} [{card}]")
+    if state.skipped or state.step != PHASE15_STEPS:
+        raise AssertionError(f"training went wrong: step {state.step}, skipped {state.skipped}")
+    if n_moved != len(moved) or not moved:
+        raise AssertionError("stage 1's running statistics did not all move")
+    fresh = TrainState.create(model_from_config(cfg, seed=1),
+                              build_optimizer(constant_schedule(0.0)), seed=2)
+    fresh, step = restore_checkpoint(str(out / "checkpoints"), fresh)
+    a, b = state.model.state_dict(), fresh.model.state_dict()
+    same = (step == PHASE15_STEPS and a.keys() == b.keys()
+            and all(torch.equal(a[k], b[k]) for k in a)
+            and all(torch.equal(state.optimizer.mu[k], fresh.optimizer.mu[k])
+                    for k in state.optimizer.mu))
+    print(f"checkpoint of step {step} restored into a fresh state: equal {same}")
+    if not same:
+        raise AssertionError("the restored state differs from the trained one")
+    del fresh, a, b, state
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    gen = synthetic_batches(cfg.training.batch_size, cfg.data.rois_per_image,
+                            _as_hw(cfg.model.image_size), _as_hw(cfg.model.mask_size), seed=11)
+    batches = [tsteps.batch_to(next(gen), "cuda") for _ in range(3)]
+    med, times, _ = _time_steps(model_from_config(cfg, seed=0), cfg, batches)
+    n = cfg.training.batch_size
+    print(f"train step {ROI_CONFIG}, bf16, batch {n} x {cfg.data.rois_per_image} rois: "
+          f"{med:.3f} ms/step, {n / med * 1e3:.1f} img/s (median of {len(times)} steps after 2 "
+          f"of warmup, CUDA events; all {times}) [{card}]")
+    torch.cuda.empty_cache()
+
+
+def train_and_serve_a3_flagship(card: str, rng) -> dict:
+    """Phase 15c: the deployed B0 flagship with the attention module, the
+    boundary refinement and stage 1 unfrozen, built with ``pallas_tail`` and
+    ``encoder_fused_blocks=6``: 3 bf16 train steps with no stage-1 kernel
+    launched and stage 1's statistics moved; the trained model's own
+    stage 1, served through its kept fused caches in float32, against a
+    model without the kernels holding the same weights (the caches must
+    follow the trained statistics); then served through
+    ``InferenceEngine(bf16, fused_head=True)`` against its plain path under
+    phase 4's gates, with launch counts per forward; ms per step. Returns
+    the serving launch counts."""
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager, _deep_merge,
+                                                              loss_config_from_experiment,
+                                                              model_from_config)
+    from human_instance_segmentation_tpu_torch.inference import InferenceEngine
+    from human_instance_segmentation_tpu_torch.ops import cuda_head, cuda_roi_align
+    from human_instance_segmentation_tpu_torch.training import steps as tsteps
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      build_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    cfg = _deep_merge(ConfigManager.get_config(TRAIN_CONFIG), A3_MODS)
+    model = model_from_config(cfg, seed=0, **TRAIN_KERNELS)
+    images = torch.as_tensor(make_request(rng, 4, 4)[0], device="cuda")
+    with torch.no_grad():
+        model.eval().stage1(images)  # the fused caches fold the initial statistics
+    before = _stage1_stats(model)
+    batches = [tsteps.batch_to(b, "cuda") for b in train_batches(3, seed=13)]
+    t = cfg.training
+    tx = build_optimizer(build_schedule(t.learning_rate, t.num_epochs, 100, t.scheduler,
+                                        t.min_lr, t.warmup_epochs),
+                         t.optimizer, t.weight_decay, t.gradient_clip)
+    state = TrainState.create(model, tx)
+    step = tsteps.make_train_step(model, loss_config_from_experiment(cfg), t.compute_dtype)
+    counters = train_counters()
+    for f in counters.values():
+        f.launches = 0
+    losses = []
+    for b in batches[:PHASE15_STEPS]:
+        state, m = step(state, b)
+        losses.append(float(m["total_loss"]))
+    launches = {k: f.launches for k, f in counters.items()}
+    moved = _stage1_stats(model)
+    n_moved = sum(not torch.equal(v, before[k]) for k, v in moved.items())
+    print(f"flagship B0 {IMAGE_HW[0]}x{IMAGE_HW[1]} + attention module + boundary refinement, "
+          f"stage 1 unfrozen, {PHASE15_STEPS} bf16 steps, batch 8 x 8 rois: losses {losses}, "
+          f"skipped {state.skipped}; stage-1 statistics moved {n_moved} of {len(moved)}; fused "
+          f"stage-1 launches inside the steps {launches} [{card}]")
+    if state.skipped or not np.isfinite(losses).all():
+        raise AssertionError(f"training went wrong: skipped {state.skipped}, losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"a fused stage-1 kernel ran in a training step: {launches}")
+    if n_moved != len(moved):
+        raise AssertionError("stage 1's running statistics did not all move")
+
+    plain = model_from_config(cfg, seed=5)
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        for f in counters.values():
+            f.launches = 0
+        got = model.eval().stage1(images)
+        stage1_launches = {k: f.launches for k, f in counters.items()}
+        err = float((got - plain.eval().stage1(images)).abs().max())
+    atol, rtol = TOL_STAGE1_F32
+    print(f"trained model's stage 1 through its kept caches (launches {stage1_launches}) vs a "
+          f"model without the kernels on the same weights, float32: max_abs_err {err:.3e} "
+          f"(tol {atol} + {rtol} |x|)")
+    if stage1_launches != {k: n for k, n in TRAIN_PER_STEP.items()} or not (
+            err <= atol + rtol * float(got.abs().max())):
+        raise AssertionError("the fused stage-1 caches did not follow the trained weights")
+    del plain, state, step
+
+    def engine(dtype, kernels: bool):
+        e = InferenceEngine(model, dilation_pixels=1, dtype=dtype, fused_head=kernels,
+                            kernels=kernels)
+        e.model.pallas_roi_align = kernels
+        return e
+
+    engines = {"served bf16": engine(torch.bfloat16, True),
+               "plain bf16": engine(torch.bfloat16, False),
+               "served f32": engine(torch.float32, True),
+               "plain f32": engine(torch.float32, False)}
+    serving = {"conv_ln_act": cuda_head.conv_ln_act, "roi_align": cuda_roi_align.roi_align,
+               **counters}
+    per_forward = {"conv_ln_act": BOTTLENECK_UNITS, "roi_align": 1, **TRAIN_PER_STEP}
+    for f in serving.values():
+        f.launches = 0
+    for images_np, rois in (make_request(rng, 4, 3), make_request(rng, 8, 8)):
+        tag = f"A3 flagship, trained, batch {images_np.shape[0]} x {rois.shape[0]} rois"
+        o = {}
+        for name, e in engines.items():
+            before_n = {k: f.launches for k, f in serving.items()}
+            o[name] = _serve(e, images_np, rois)
+            got_n = {k: f.launches - before_n[k] for k, f in serving.items()}
+            want = per_forward if name.startswith("served") else dict.fromkeys(serving, 0)
+            if got_n != want:
+                raise AssertionError(f"{tag} {name}: launches {got_n}, expected {want}")
+        print(f"{tag}: launches per served forward {per_forward}")
+        _gates(tag, o)
+    served_launches = {k: f.launches for k, f in serving.items()}
+    del engines
+    torch.cuda.empty_cache()
+
+    med, times, _ = _time_steps(model, cfg, batches)
+    print(f"train step, flagship B0 + attention + boundary refinement, stage 1 unfrozen, bf16, "
+          f"batch 8 x 8 rois, mid 256: {med:.3f} ms/step, {8 / med * 1e3:.1f} img/s (median of "
+          f"{len(times)} steps after 2 of warmup, CUDA events; all {times}) [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return served_launches
+
+
 def main() -> None:
     import torch
 
@@ -2621,7 +3030,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 15))
+    phases = set(range(1, 16))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -2678,6 +3087,14 @@ def main() -> None:
         train_step_kernels(card, rng)
         time_train_steps(card)
         for name, n in train_launches.items():
+            launches[name] = launches.get(name, 0) + n
+
+    if 15 in phases:
+        torch.cuda.empty_cache()
+        for name, n in serve_rgb_family(card, rng).items():
+            launches[name] = launches.get(name, 0) + n
+        train_roi_family(card, rng)
+        for name, n in train_and_serve_a3_flagship(card, rng).items():
             launches[name] = launches.get(name, 0) + n
 
     for k in kernels:

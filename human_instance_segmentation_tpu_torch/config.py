@@ -609,14 +609,17 @@ def model_from_config(cfg: ExperimentConfig, seed: int = 0, device="cuda", **ove
     model's constructor (the tiny run's narrow widths, ``pallas_tail``,
     ``encoder_fused_blocks``).
 
-    The full-image pretrained flagship family is
-    :class:`HierarchicalInstanceSegmenter` with the JAX package's arguments
-    (JAX config.py:637-651) and ``pallas_roi_align=False``, the JAX model's
-    default, stated because the port's own default differs (ROADMAP C5).
-    Every other family, and a flagship config asking for a module the port
-    lacks, raises ``NotImplementedError`` naming the ROADMAP item."""
+    The JAX dispatch (JAX config.py:604-658): the full-image pretrained
+    family is :class:`HierarchicalInstanceSegmenter` with every head flag,
+    norm and activation (and ``pallas_roi_align=False``, the JAX model's
+    default, stated because the port's own default differs, ROADMAP C5);
+    the ROI-cropped pretrained family is
+    :class:`ROIPretrainedHierarchicalModel`; the other hierarchical configs
+    are :class:`PureRGBHierarchicalModel`. The baseline, variable-ROI and
+    multi-scale models raise ``NotImplementedError`` naming ROADMAP A8."""
     from .inference import init_weights, resolve_device
-    from .models.assembly import HierarchicalInstanceSegmenter
+    from .models.assembly import (HierarchicalInstanceSegmenter, PureRGBHierarchicalModel,
+                                  ROIPretrainedHierarchicalModel)
 
     m = cfg.model
     if not (m.use_rgb_hierarchical or m.use_hierarchical_unet_v2 or m.use_hierarchical):
@@ -624,29 +627,31 @@ def model_from_config(cfg: ExperimentConfig, seed: int = 0, device="cuda", **ove
             "the baseline and variable-ROI models are not ported yet (ROADMAP A8)")
     if m.multi_scale:
         raise NotImplementedError("the multi-scale RGB model is not ported yet (ROADMAP A8)")
-    if not (m.use_pretrained_unet and m.use_full_image_unet):
-        raise NotImplementedError(
-            "the ROI-pretrained and pure-RGB models are not ported yet (ROADMAP A8)")
-    missing = [name for name in ("use_attention_module", "use_boundary_refinement",
-                                 "use_progressive_upsampling", "use_subpixel_conv")
-               if getattr(m, name)]
-    if m.normalization_type.lower() not in ("layer", "layernorm", "layernorm2d"):
-        missing.append(f"normalization_type={m.normalization_type!r}")
-    if m.activation_function.lower() != "relu":
-        missing.append(f"activation_function={m.activation_function!r}")
-    if missing:
-        raise NotImplementedError(f"{', '.join(missing)} not ported yet (ROADMAP A3)")
     dev = resolve_device(device)
-    kwargs = dict(
-        encoder_variant=m.encoder_name, roi_size=_as_hw(m.roi_size),
-        mask_size=_as_hw(m.mask_size), image_size=_as_hw(m.image_size),
-        use_contour_detection=m.use_contour_detection,
-        use_distance_transform=m.use_distance_transform,
-        base_channels=m.hierarchical_base_channels, depth=m.hierarchical_depth,
-        mid_channels=m.head_mid_channels, freeze_pretrained=m.freeze_pretrained_weights,
-        norm=m.normalization_type, activation=m.activation_function,
-        pallas_roi_align=False)
+    roi, mask, img = _as_hw(m.roi_size), _as_hw(m.mask_size), _as_hw(m.image_size)
+    common = dict(norm=m.normalization_type, norm_groups=m.normalization_groups,
+                  activation=m.activation_function, activation_beta=m.activation_beta,
+                  use_attention_module=m.use_attention_module)
+    if m.use_pretrained_unet and m.use_full_image_unet:
+        cls = HierarchicalInstanceSegmenter
+        kwargs = dict(
+            encoder_variant=m.encoder_name, roi_size=roi, mask_size=mask, image_size=img,
+            use_contour_detection=m.use_contour_detection,
+            use_distance_transform=m.use_distance_transform,
+            use_boundary_refinement=m.use_boundary_refinement,
+            use_progressive_upsampling=m.use_progressive_upsampling,
+            use_subpixel_conv=m.use_subpixel_conv,
+            base_channels=m.hierarchical_base_channels, depth=m.hierarchical_depth,
+            mid_channels=m.head_mid_channels, freeze_pretrained=m.freeze_pretrained_weights,
+            pallas_roi_align=False, **common)
+    elif m.use_pretrained_unet:
+        cls = ROIPretrainedHierarchicalModel
+        kwargs = dict(encoder_variant=m.encoder_name, roi_size=roi, mask_size=mask,
+                      image_size=img, freeze_pretrained=m.freeze_pretrained_weights, **common)
+    else:
+        cls = PureRGBHierarchicalModel
+        kwargs = dict(roi_size=roi, mask_size=mask, image_size=img, **common)
     kwargs.update(overrides)
-    model = HierarchicalInstanceSegmenter(**kwargs)
+    model = cls(**kwargs)
     init_weights(model, seed)
     return model.to(dev).eval()

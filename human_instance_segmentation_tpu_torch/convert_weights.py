@@ -20,10 +20,9 @@ flips them back, so no flip happens here.
 
 Strict, like ``weights.from_jax_params``: a reference key that no port
 parameter takes raises, and with ``model`` given, so does a port parameter
-that no reference key fills or a shape that differs. Parts of a
-checkpoint the port does not have yet (the guided head, the attention
-module, the boundary refiner: ROADMAP A3) raise ``NotImplementedError``;
-their keys are never dropped or guessed.
+that no reference key fills or a shape that differs; keys are never
+dropped or guessed (where the JAX converter ignores a guided head's
+attention keys without ``use_attention_module``, this one raises).
 
 timm block naming:
   DepthwiseSeparableConv (stage 0): conv_dw,bn1, se, conv_pw,bn2
@@ -50,9 +49,6 @@ import torch
 from torch import nn
 
 from .models.efficientnet import _B0_STAGES, VARIANTS, round_repeats
-
-_A3 = "not ported yet (ROADMAP A3)"
-
 
 def strip_prefixes(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     """Strip the reference's wrapper prefixes (model. / unet.)."""
@@ -272,12 +268,10 @@ def convert_hierarchical_head_v2(sd, prefix: str, depth: int = 3,
                                  use_attention_module: bool = False) -> Dict[str, torch.Tensor]:
     """HierarchicalSegmentationHeadUNetV2 / ExtendedHierarchical... ->
     models.heads.HierarchicalHeadV2 keys (hierarchical_segmentation_unet.py:714-845,
-    hierarchical_segmentation_refinement.py:434-560). The attention module's
-    form of the target/non-target branch raises."""
+    hierarchical_segmentation_refinement.py:434-560), the attention module's
+    form of the target/non-target branch with ``use_attention_module``."""
     r = _reader(sd)
     t = f"{prefix}.target_vs_nontarget_branch"
-    if use_attention_module or f"{t}.1.conv.weight" in r:
-        raise NotImplementedError(f"{t}: the attention module of HierarchicalHeadV2 is {_A3}")
     # shared_features = Sequential(conv, norm, act, drop, res, drop, res)
     s = f"{prefix}.shared_features"
     p = [("shared_in", _conv_norm_act(r, f"{s}.0", f"{s}.1")),
@@ -289,11 +283,20 @@ def convert_hierarchical_head_v2(sd, prefix: str, depth: int = 3,
          ("upsample_out", _conv_p(r, f"{prefix}.upsample_bg_fg.3")),
          # fg_gate = Sequential(conv, act, drop, conv, act, conv, sigmoid)
          ("gate0", _conv_p(r, f"{prefix}.fg_gate.0")), ("gate1", _conv_p(r, f"{prefix}.fg_gate.3")),
-         ("gate2", _conv_p(r, f"{prefix}.fg_gate.5")),
-         # Sequential(res, drop, deconv, norm, act, drop, res, conv1x1)
-         ("tnt_res0", _res_block(r, f"{t}.0")), ("tnt_deconv", _deconv_p(r, f"{t}.2")),
-         ("tnt_norm", _norm(r, f"{t}.3")), ("tnt_res1", _res_block(r, f"{t}.6")),
-         ("tnt_out", _conv_p(r, f"{t}.7"))]
+         ("gate2", _conv_p(r, f"{prefix}.fg_gate.5"))]
+    if use_attention_module:
+        # ModuleList(res, satt, drop, deconv, norm, act, catt, drop, res, conv)
+        p += [("tnt_res0", _res_block(r, f"{t}.0")),
+              ("tnt_satt", _under("conv", _conv_p(r, f"{t}.1.conv"))),
+              ("tnt_deconv", _deconv_p(r, f"{t}.3")), ("tnt_norm", _norm(r, f"{t}.4")),
+              ("tnt_catt", {**_under("fc1", _conv_p(r, f"{t}.6.fc1")),
+                            **_under("fc2", _conv_p(r, f"{t}.6.fc2"))}),
+              ("tnt_res1", _res_block(r, f"{t}.8")), ("tnt_out", _conv_p(r, f"{t}.9"))]
+    else:
+        # Sequential(res, drop, deconv, norm, act, drop, res, conv1x1)
+        p += [("tnt_res0", _res_block(r, f"{t}.0")), ("tnt_deconv", _deconv_p(r, f"{t}.2")),
+              ("tnt_norm", _norm(r, f"{t}.3")), ("tnt_res1", _res_block(r, f"{t}.6")),
+              ("tnt_out", _conv_p(r, f"{t}.7"))]
     return _merge(p)
 
 
@@ -302,10 +305,9 @@ def convert_refined_head(sd, prefix: str, depth: int = 3,
     """RefinedHierarchicalSegmentationHead
     (hierarchical_segmentation_refinement.py:609-804) ->
     models.heads.RefinedHierarchicalHead keys, with whichever of the contour
-    and distance branches the state_dict has; a boundary refiner raises."""
+    branch, the distance branch and the boundary refiner the state_dict
+    has."""
     r = _reader(sd)
-    if f"{prefix}.boundary_refiner.edge_conv.0.weight" in r:
-        raise NotImplementedError(f"{prefix}.boundary_refiner: BoundaryRefinement is {_A3}")
     p = [("base_head", convert_hierarchical_head_v2(
         r, f"{prefix}.base_head", depth=depth, use_attention_module=use_attention_module))]
     c = f"{prefix}.contour_branch.contour_branch"
@@ -319,6 +321,38 @@ def convert_refined_head(sd, prefix: str, depth: int = 3,
                        ("d_res", _res_block(r, f"{d}.3")), ("out", _conv_p(r, f"{d}.4"))])
         dist["threshold"] = r.take(f"{prefix}.distance_decoder.threshold")
         p.append(("distance", dist))
+    b = f"{prefix}.boundary_refiner"
+    if f"{b}.edge_conv.0.weight" in r:
+        # edge_conv = Sequential(conv, norm, act, conv, norm, act, conv1x1)
+        edge = _merge([("edge0", _conv_p(r, f"{b}.edge_conv.0")),
+                       ("edge_norm0", _norm(r, f"{b}.edge_conv.1")),
+                       ("edge1", _conv_p(r, f"{b}.edge_conv.3")),
+                       ("edge_norm1", _norm(r, f"{b}.edge_conv.4")),
+                       ("edge_out", _conv_p(r, f"{b}.edge_conv.6"))])
+        edge["blend_weight"] = r.take(f"{b}.blend_weight")
+        p.append(("boundary", edge))
+    return _merge(p)
+
+
+def convert_guided_head(sd, prefix: str,
+                        use_attention_module: bool = False) -> Dict[str, torch.Tensor]:
+    """PretrainedUNetGuidedSegmentationHead
+    (hierarchical_segmentation_rgb.py:43-218) ->
+    models.heads.PretrainedUNetGuidedHead keys; its attention module with
+    ``use_attention_module``."""
+    r = _reader(sd)
+    fp, cls = f"{prefix}.feature_processor", f"{prefix}.final_classifier"
+    p = [("input_adjust", _conv_p(r, f"{prefix}.input_adjust")),
+         # feature_processor = Sequential(conv, norm, act, drop, res, drop, res)
+         ("fp_in", _conv_norm_act(r, f"{fp}.0", f"{fp}.1")),
+         ("fp_res0", _res_block(r, f"{fp}.4")), ("fp_res1", _res_block(r, f"{fp}.6")),
+         # final_classifier = Sequential(conv, norm, act, conv1x1)
+         ("cls0", _conv_norm_act(r, f"{cls}.0", f"{cls}.1")),
+         ("cls_out", _conv_p(r, f"{cls}.3"))]
+    if use_attention_module and f"{prefix}.attention_module.0.weight" in r:
+        # attention_module = Sequential(conv1x1, act, conv1x1, sigmoid)
+        p += [("att0", _conv_p(r, f"{prefix}.attention_module.0")),
+              ("att1", _conv_p(r, f"{prefix}.attention_module.2"))]
     return _merge(p)
 
 
@@ -348,22 +382,23 @@ def convert_flagship_checkpoint(state_dict: Mapping[str, Any], variant: Optional
     Layout: pretrained_unet.model.model.<smp keys> (wrapper at
     hierarchical_segmentation_unet.py:1919-1993; pretrained_unet.model.<smp
     keys> is taken too), pretrained_unet.output_conv,
-    rgb_feature_extractor.<seq>, feature_combiner, segmentation_head.<refined
-    head>. A guided-head checkpoint (no feature_combiner) raises."""
+    rgb_feature_extractor.<seq>, feature_combiner and segmentation_head.<refined
+    head>, or, without a feature_combiner, segmentation_head.<guided head>."""
     r = _Reader(state_dict)
-    if "feature_combiner.weight" not in r:
-        raise NotImplementedError(f"no feature_combiner: a PretrainedUNetGuidedHead checkpoint; "
-                                  f"that head is {_A3}")
     unet = r.sub("pretrained_unet.model.model.")
     if not unet.keys():  # already stripped single-wrap checkpoints
         unet = r.sub("pretrained_unet.model.")
-    state = _merge([
-        ("pretrained_unet", _unet(unet, variant)),
-        ("unet_wrapper.output_conv", _conv_p(r, "pretrained_unet.output_conv")),
-        ("rgb_extractor", convert_rgb_extractor(r, "rgb_feature_extractor")),
-        ("feature_combiner", _conv_p(r, "feature_combiner")),
-        ("head", convert_refined_head(r, "segmentation_head", depth=depth,
-                                      use_attention_module=use_attention_module))])
+    parts = [("pretrained_unet", _unet(unet, variant)),
+             ("unet_wrapper.output_conv", _conv_p(r, "pretrained_unet.output_conv")),
+             ("rgb_extractor", convert_rgb_extractor(r, "rgb_feature_extractor"))]
+    if "feature_combiner.weight" in r:
+        parts += [("feature_combiner", _conv_p(r, "feature_combiner")),
+                  ("head", convert_refined_head(r, "segmentation_head", depth=depth,
+                                                use_attention_module=use_attention_module))]
+    else:
+        parts.append(("head", convert_guided_head(r, "segmentation_head",
+                                                  use_attention_module=use_attention_module)))
+    state = _merge(parts)
     return _finish(r, state, model)
 
 

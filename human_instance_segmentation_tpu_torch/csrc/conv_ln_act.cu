@@ -600,7 +600,9 @@ cudaError_t launch_ln_act_t(const float* acc, const float* g, const float* be, c
   const size_t L = (size_t)P * Co;
   const size_t bytes = (L + LN_CLUSTER - 1) / LN_CLUSTER * sizeof(float);
   const int cache = bytes <= (size_t)LN_CACHE_MAX;
-  static size_t configured = 48 * 1024;
+  // the kernel's static shared memory counts against the same 48 KB default,
+  // so any cached chunk opts in (16 x 16 x 384 caches exactly 48 KB a block)
+  static size_t configured = 0;
   if (cache && bytes > configured) {
     cudaError_t err = cudaFuncSetAttribute(ln_act_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,

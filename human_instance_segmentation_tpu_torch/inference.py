@@ -76,7 +76,9 @@ def deployed_outputs(
     dilation_pixels: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits (N, mh, mw, 3), stage-1 logits (B, H, W, 2) or the aux dict,
-    rois) -> (instance_masks, binary_masks)."""
+    rois) -> (instance_masks, binary_masks); ``binary_masks`` is None for a
+    model without a full-image stage 1 (the pure-RGB and ROI-pretrained
+    families, whose aux has no full-image map)."""
     if dilation_pixels > 0:
         logits = mask_dilation_logit_boost(logits, dilation_pixels)
     instance = (logits.argmax(dim=-1) == 1).to(logits.dtype)[..., None]
@@ -86,13 +88,16 @@ def deployed_outputs(
         aux = full_image_logits
         if "person_prob_dense" in aux:  # fused-tail serving: (B, H, W)
             return instance, aux["person_prob_dense"][..., None]
-        full_image_logits = aux["full_image_logits"]
+        full_image_logits = aux.get("full_image_logits")
+    if full_image_logits is None:
+        return instance, None
     binary = torch.softmax(full_image_logits, dim=-1)[..., 0:1]
     return instance, binary
 
 
 class InferenceEngine:
-    """Bucketed inference for the flagship model on one device.
+    """Bucketed inference on one device for the flagship model, and for the
+    pure-RGB and ROI-pretrained hierarchical models (no binary masks then).
 
     The engine serves its own copy of ``model`` (``engine.model``), cast to
     ``dtype`` (float32 or bfloat16; LayerNorm2d statistics stay float32) on
@@ -149,6 +154,12 @@ class InferenceEngine:
         self.kernels = kernels
         self.scales: Optional[Dict[str, float]] = None
 
+    def _stage1_kernels(self) -> None:
+        unet = getattr(self.model, "pretrained_unet", None)
+        if unet is not None:
+            unet.tail_use_kernel = self.kernels
+            unet.encoder.set_fused_kernels(self.kernels)
+
     def calibrate(self, images: np.ndarray, rois: np.ndarray) -> None:
         """Record every eligible QConv's input abs-max on (images, rois),
         served unfused and un-quantized in the engine's dtype (and, for a
@@ -159,7 +170,7 @@ class InferenceEngine:
         images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
         set_head_fusion(self.model, False)
         set_int8_serving(self.model, False)
-        self.model.pretrained_unet.encoder.set_fused_kernels(self.kernels)
+        self._stage1_kernels()
         with torch.inference_mode(), calibration(self.model) as calib:
             self.model(images_t, rois_p)
         scales = collect_scales(calib)
@@ -172,8 +183,7 @@ class InferenceEngine:
         set_head_fusion(self.model, self.fused_head, self.kernels)
         set_int8_serving(self.model, self.quantize == "int8", self.scales, self.int8_deny,
                          self.kernels)
-        self.model.pretrained_unet.tail_use_kernel = self.kernels
-        self.model.pretrained_unet.encoder.set_fused_kernels(self.kernels)
+        self._stage1_kernels()
         with torch.inference_mode():
             logits, aux = self.model(images.to(self.dtype), rois.to(torch.float32))
             inst, binary = deployed_outputs(logits, aux, rois, self.dilation_pixels)
@@ -181,7 +191,8 @@ class InferenceEngine:
 
     def __call__(self, images: np.ndarray, rois: np.ndarray):
         """images (B, H, W, 3) in [0, 1]; rois (N, 5) normalised boxes ->
-        numpy (instance_masks (N, mh, mw, 1), binary_masks (B, H, W, 1))."""
+        numpy (instance_masks (N, mh, mw, 1), binary_masks (B, H, W, 1), or
+        None for a model without a full-image stage 1)."""
         n = rois.shape[0]
         if self.quantize == "int8" and self.scales is None:
             self.calibrate(images, rois)
@@ -189,22 +200,27 @@ class InferenceEngine:
         rois_p = pad_rois(np.asarray(rois, np.float32), bucket)
         images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
         inst, binary, _ = self.forward(images_t, torch.as_tensor(rois_p).to(self.device))
-        return inst[:n].float().cpu().numpy(), binary.float().cpu().numpy()
+        inst = inst[:n].float().cpu().numpy()
+        return inst, None if binary is None else binary.float().cpu().numpy()
 
     def predict_nchw(self, images: np.ndarray, rois: np.ndarray):
         """Reference-compatible entry point: images (B, 3, H, W) in [0, 1],
         rois (N, 5) -> instance_masks (N, 1, mh, mw), binary_masks
         (B, 1, H, W)."""
         inst, binary = self(np.transpose(np.asarray(images), (0, 2, 3, 1)), rois)
-        return np.transpose(inst, (0, 3, 1, 2)), np.transpose(binary, (0, 3, 1, 2))
+        return (np.transpose(inst, (0, 3, 1, 2)),
+                None if binary is None else np.transpose(binary, (0, 3, 1, 2)))
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Seeded initialisation from one ``torch.Generator``: convolution
     kernels LeCun-normal (std 1/sqrt(fan_in), as the JAX package's
-    ``lecun_normal``), conv biases 0, norm scales 1 and shifts 0, running
-    statistics 0/1, the stage-1 wrapper at [+1, -1], the distance
-    threshold at 0.3. Parameters are drawn in ``named_modules`` order."""
+    ``lecun_normal``; a conv marked with ``init_scale``, the boundary
+    refiner's, ``variance_scaling(init_scale, "fan_avg", "uniform")``), conv
+    biases 0 (or the conv's ``init_bias``), norm scales 1 and shifts 0,
+    running statistics 0/1, the stage-1 wrapper at [+1, -1], the distance
+    threshold at 0.3, the boundary blend at 0.01. Parameters are drawn in
+    ``named_modules`` order."""
     gen = torch.Generator().manual_seed(seed)
     fixed = {id(m.output_conv) for m in model.modules() if isinstance(m, PeopleSegUNetWrapper)}
     with torch.no_grad():
@@ -217,10 +233,16 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
                 fan_in = m.weight[0].numel()
             else:
                 continue
-            w = torch.randn(m.weight.shape, generator=gen) / float(np.sqrt(fan_in))
+            scale = getattr(m, "init_scale", None)
+            if scale is None:
+                w = torch.randn(m.weight.shape, generator=gen) / float(np.sqrt(fan_in))
+            else:  # variance_scaling(scale, "fan_avg", "uniform")
+                fan_avg = (fan_in + m.weight.shape[0] * m.weight[0, 0].numel()) / 2.0
+                limit = float(np.sqrt(3.0 * scale / fan_avg))
+                w = (torch.rand(m.weight.shape, generator=gen) * 2.0 - 1.0) * limit
             m.weight.copy_(w)
             if m.bias is not None:
-                m.bias.zero_()
+                m.bias.copy_(torch.tensor(getattr(m, "init_bias", 0.0)))
 
 
 def create_flagship(

@@ -18,18 +18,35 @@ zero-padded out-of-image samples, as in the JAX package) and gives
 ``aux["person_prob_dense"]``. ``encoder_fused_blocks=N`` is handed down to
 the stage-1 encoder (the first N MBConv blocks through the fused kernel).
 
-Stage 1 is frozen (``freeze_pretrained=True``, the JAX default,
+Stage 1 is frozen by default (``freeze_pretrained=True``, the JAX default,
 assembly.py:117): the UNet and the wrapper stay in eval mode after
 ``model.train()`` and run without autograd (``torch.no_grad``, where JAX
 has ``stop_gradient``, assembly.py:186-195, :253-263), so no gradient
 reaches them and, on the GPU, the fused tail and the fused MBConv blocks
-run inside every train step as they do when serving.
+run inside every train step as they do when serving. With
+``freeze_pretrained=False`` stage 1 trains: ``model.train()`` reaches it,
+its BatchNorms normalise with batch statistics and update their running
+ones, gradients reach it through the plain crops, and the fused stage-1
+kernels stay off in train mode (they fold running statistics), as the JAX
+gates keep them off.
+
+With no refinement flag, or ``use_guided_head``, the head is the JAX
+model's ``PretrainedUNetGuidedHead`` fed by the RGB features and the
+logit crop, with no ``feature_combiner`` (assembly.py:161-183).
+
+Also here, the two other hierarchical families of the JAX package's
+registry: :class:`PureRGBHierarchicalModel` (no stage 1; crops with
+``aligned=False`` into :class:`RGBFeatureExtractor`, assembly.py:354-384)
+and :class:`ROIPretrainedHierarchicalModel` (the people-segmentation UNet
+runs on each ROI crop, assembly.py:290-351). Both crop with the plain
+``ops.sampling.roi_align``, as the JAX models use no Pallas crop there.
 
 Public I/O is NHWC as in the JAX package; the modules run NCHW inside.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import torch
@@ -38,7 +55,7 @@ from torch import nn
 from ..ops import cuda_roi_align, sampling
 from ..ops.quant import QConv
 from .blocks import ConvNormAct, ResidualBlock, prequantize_for
-from .heads import RefinedHierarchicalHead
+from .heads import HierarchicalHeadV2, PretrainedUNetGuidedHead, RefinedHierarchicalHead
 from .unet import PeopleSegmentationUNet, PeopleSegUNetWrapper
 
 
@@ -55,15 +72,17 @@ class RGBPatchFeatureExtractor(nn.Module):
     a residual block after each conv, then a 1x1 projection."""
 
     def __init__(self, feature_dim: int = 256, norm: str = "layernorm2d",
-                 activation: str = "relu"):
+                 activation: str = "relu", norm_groups: int = 8, activation_beta: float = 1.0):
         super().__init__()
-        kw = dict(norm=norm, activation=activation)
+        kw = dict(norm=norm, activation=activation, activation_beta=activation_beta)
         ch = 3
         for i, out in enumerate((64, 128, 256)):
-            self.add_module(f"conv{i}", ConvNormAct(ch, out, **kw))
-            self.add_module(f"res{i}", ResidualBlock(out, **kw))
+            g = min(norm_groups, out)
+            self.add_module(f"conv{i}", ConvNormAct(ch, out, norm_groups=g, **kw))
+            self.add_module(f"res{i}", ResidualBlock(out, norm_groups=g, **kw))
             ch = out
-        self.proj = ConvNormAct(256, feature_dim, kernel=1, **kw)
+        self.proj = ConvNormAct(256, feature_dim, kernel=1,
+                                norm_groups=min(norm_groups, feature_dim), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(3):
@@ -72,6 +91,37 @@ class RGBPatchFeatureExtractor(nn.Module):
                 x = prequantize_for(cna.conv, x)
             x = getattr(self, f"res{i}")(cna(x))
         return self.proj(prequantize_for(self.proj.conv, x, k=1))
+
+
+class RGBFeatureExtractor(nn.Module):
+    """Standalone N-layer extractor of the pure-RGB model: 3 -> 64 -> 128 ->
+    192 -> out_channels (the first ``num_layers``), stride 1, a residual
+    block after each conv from the second on."""
+
+    def __init__(self, out_channels: int = 256, num_layers: int = 4, norm: str = "layernorm2d",
+                 norm_groups: int = 8, activation: str = "relu", activation_beta: float = 1.0):
+        super().__init__()
+        kw = dict(norm=norm, activation=activation, activation_beta=activation_beta)
+        self.num_layers = num_layers
+        ch = 3
+        for i, out in enumerate([64, 128, 192, out_channels][:num_layers]):
+            g = min(norm_groups, out)
+            self.add_module(f"conv{i}", ConvNormAct(ch, out, norm_groups=g, **kw))
+            if i >= 1:
+                self.add_module(f"res{i}", ResidualBlock(out, norm_groups=g, **kw))
+            ch = out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"conv{i}")(x)
+            if i >= 1:
+                x = getattr(self, f"res{i}")(x)
+        return x
+
+
+def _stage1_context(frozen: bool):
+    """``torch.no_grad()`` for a frozen stage 1 (JAX's ``stop_gradient``)."""
+    return torch.no_grad() if frozen else contextlib.nullcontext()
 
 
 class HierarchicalInstanceSegmenter(nn.Module):
@@ -89,44 +139,56 @@ class HierarchicalInstanceSegmenter(nn.Module):
                  unet_decoder_channels: Tuple[int, ...] = (256, 128, 64, 32, 16),
                  stage1_upsample_mode: str = "bilinear", pallas_roi_align: bool = True,
                  pallas_tail: bool = False, encoder_fused_blocks: int = 0,
-                 freeze_pretrained: bool = True):
+                 freeze_pretrained: bool = True, use_attention_module: bool = False,
+                 use_boundary_refinement: bool = False,
+                 use_progressive_upsampling: bool = False, use_subpixel_conv: bool = False,
+                 use_guided_head: bool = False, norm_groups: int = 8,
+                 activation_beta: float = 1.0):
         super().__init__()
-        if not (use_contour_detection or use_distance_transform):
-            # the JAX model then takes PretrainedUNetGuidedHead instead
-            raise NotImplementedError("PretrainedUNetGuidedHead is not ported yet")
-        if not freeze_pretrained:
-            # stage 1 would then train its BatchNorms on batch statistics
-            raise NotImplementedError(
-                "freeze_pretrained=False is not ported yet (ROADMAP A3: the port's BatchNorm2d "
-                "is eval only, so an unfrozen stage 1 would train on frozen statistics)")
         self.freeze_pretrained = freeze_pretrained
         self.roi_size = tuple(roi_size)
         self.mask_size = tuple(mask_size)
         self.image_size = tuple(image_size)
         self.pallas_roi_align = pallas_roi_align
+        kw = dict(norm=norm, norm_groups=norm_groups, activation=activation,
+                  activation_beta=activation_beta)
         self.pretrained_unet = PeopleSegmentationUNet(
             encoder_variant, unet_decoder_channels, upsample_mode=stage1_upsample_mode,
             pallas_tail=pallas_tail, encoder_fused_blocks=encoder_fused_blocks)
         self.unet_wrapper = PeopleSegUNetWrapper()
-        self.rgb_extractor = RGBPatchFeatureExtractor(feature_dim, norm, activation)
-        self.feature_combiner = QConv(feature_dim + 2, feature_dim, 1)
-        self.head = RefinedHierarchicalHead(
-            feature_dim, mid_channels, mask_size, use_contour_detection,
-            use_distance_transform, norm, activation, base_channels, depth)
+        self.rgb_extractor = RGBPatchFeatureExtractor(feature_dim, **kw)
+        self.use_refinement = any([
+            use_boundary_refinement, use_progressive_upsampling, use_subpixel_conv,
+            use_contour_detection, use_distance_transform]) and not use_guided_head
+        if self.use_refinement:
+            self.feature_combiner = QConv(feature_dim + 2, feature_dim, 1)
+            self.head = RefinedHierarchicalHead(
+                feature_dim, mid_channels, mask_size, use_contour_detection,
+                use_distance_transform, base_channels=base_channels, depth=depth,
+                use_attention_module=use_attention_module,
+                use_boundary_refinement=use_boundary_refinement,
+                use_progressive_upsampling=use_progressive_upsampling,
+                use_subpixel_conv=use_subpixel_conv, **kw)
+        else:
+            self.feature_combiner = None
+            self.head = PretrainedUNetGuidedHead(
+                feature_dim, mid_channels, mask_size,
+                use_attention_module=use_attention_module, **kw)
 
     def train(self, mode: bool = True) -> "HierarchicalInstanceSegmenter":
-        """Set the mode of stage 2; the frozen stage 1 (the UNet and its
-        wrapper) stays in eval mode, as the JAX model runs it with
-        ``train=False``."""
+        """Set the mode; a frozen stage 1 (the UNet and its wrapper) stays in
+        eval mode, as the JAX model runs it with ``train=False``."""
         super().train(mode)
-        self.pretrained_unet.eval()
-        self.unet_wrapper.eval()
+        if self.freeze_pretrained:
+            self.pretrained_unet.eval()
+            self.unet_wrapper.eval()
         return self
 
     def stage1(self, images: torch.Tensor) -> torch.Tensor:
         """Full-image two-channel person logits ``(B, H, W, 2)`` ([fg, bg] =
-        [+x, -x] at the wrapper's initial weights), without autograd."""
-        with torch.no_grad():
+        [+x, -x] at the wrapper's initial weights), without autograd when
+        stage 1 is frozen."""
+        with _stage1_context(self.freeze_pretrained):
             return _nhwc(self.unet_wrapper(self.pretrained_unet(_nchw(images))))
 
     def _crops(self, images: torch.Tensor, logits: torch.Tensor,
@@ -162,15 +224,19 @@ class HierarchicalInstanceSegmenter(nn.Module):
         crops (N, rh, rw, 2) -> (logits (N, mh, mw, 3), the head's aux),
         NHWC."""
         rgb_features = self.rgb_extractor(_nchw(roi_rgb))
-        combined = self.feature_combiner(torch.cat([rgb_features, _nchw(roi_bg_fg)], dim=1))
-        logits, aux = self.head(combined)
+        if self.feature_combiner is None:
+            logits, aux = self.head(rgb_features, _nchw(roi_bg_fg))
+        else:
+            combined = self.feature_combiner(torch.cat([rgb_features, _nchw(roi_bg_fg)], dim=1))
+            logits, aux = self.head(combined)
         return _nhwc(logits), {k: _nhwc(v) for k, v in aux.items()}
 
     def forward(self, images: torch.Tensor,
                 rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         if tuple(images.shape[1:3]) != self.image_size:
             raise ValueError(f"model built for {self.image_size}, got {tuple(images.shape[1:3])}")
-        with torch.no_grad():  # the frozen stage 1 and the crops, which need no gradient
+        # a frozen stage 1 and the crops need no gradient
+        with _stage1_context(self.freeze_pretrained):
             form, x1 = self.pretrained_unet(_nchw(images), raw=True)
             if form == "dense":  # x1 (B, H, W): the fused tail's one-channel logit map
                 roi_rgb, roi1 = self._crops(images, x1[..., None], rois)
@@ -182,9 +248,102 @@ class HierarchicalInstanceSegmenter(nn.Module):
                 roi_rgb, roi_bg_fg = self._crops(images, full_image_logits, rois)
 
         logits, aux = self.stage2(roi_rgb, roi_bg_fg)
+        aux["full_image_logits"] = full_image_logits
         if form == "dense":
             aux["person_prob_dense"] = person_prob
-        aux["full_image_logits"] = full_image_logits
         aux["roi_bg_fg"] = roi_bg_fg
         aux["roi_patches"] = roi_rgb
         return logits, aux
+
+
+class ROIPretrainedHierarchicalModel(nn.Module):
+    """The people-segmentation UNet on each ROI crop (JAX
+    ``ROIPretrainedHierarchicalModel``): RoIAlign RGB patch (``aligned=True``)
+    -> UNet -> wrapper -> 2-channel bg/fg logits -> a feature processor
+    (2 -> 64 -> 128, a residual block after each, -> ``feature_dim``) ->
+    ``HierarchicalHeadV2`` at mid 256. Stage 1 trains unless
+    ``freeze_pretrained`` (the registry's config trains it, BatchNorms
+    included). Same I/O contract as :class:`HierarchicalInstanceSegmenter`;
+    aux adds ``pretrained_bg_fg_logits`` and ``roi_patches``."""
+
+    def __init__(self, encoder_variant: str = "b3", roi_size: Tuple[int, int] = (64, 48),
+                 mask_size: Tuple[int, int] = (64, 48), image_size: Tuple[int, int] = (640, 640),
+                 feature_dim: int = 256, use_attention_module: bool = False,
+                 norm: str = "layernorm2d", norm_groups: int = 8, activation: str = "relu",
+                 activation_beta: float = 1.0, freeze_pretrained: bool = False,
+                 unet_decoder_channels: Tuple[int, ...] = (256, 128, 64, 32, 16)):
+        super().__init__()
+        self.freeze_pretrained = freeze_pretrained
+        self.roi_size, self.mask_size = tuple(roi_size), tuple(mask_size)
+        self.image_size = tuple(image_size)
+        kw = dict(norm=norm, activation=activation, activation_beta=activation_beta)
+        self.pretrained_unet = PeopleSegmentationUNet(encoder_variant, unet_decoder_channels)
+        self.unet_wrapper = PeopleSegUNetWrapper()
+        ch = 2
+        for i, out in enumerate((64, 128)):
+            g = min(norm_groups, out)
+            self.add_module(f"proc_conv{i}", ConvNormAct(ch, out, norm_groups=g, **kw))
+            self.add_module(f"proc_res{i}", ResidualBlock(out, norm_groups=g, **kw))
+            ch = out
+        self.proc_out = ConvNormAct(128, feature_dim, norm_groups=min(norm_groups, feature_dim),
+                                    **kw)
+        self.head = HierarchicalHeadV2(feature_dim, 256, mask_size,
+                                       use_attention_module=use_attention_module,
+                                       norm_groups=norm_groups, **kw)
+
+    def train(self, mode: bool = True) -> "ROIPretrainedHierarchicalModel":
+        """Set the mode; a frozen stage 1 stays in eval mode."""
+        super().train(mode)
+        if self.freeze_pretrained:
+            self.pretrained_unet.eval()
+            self.unet_wrapper.eval()
+        return self
+
+    def forward(self, images: torch.Tensor,
+                rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        rh, rw = self.roi_size
+        scale = (float(self.image_size[0]), float(self.image_size[1]))
+        patches = sampling.roi_align(images.contiguous(), rois, rh, rw, spatial_scale=scale,
+                                     aligned=True)
+        with _stage1_context(self.freeze_pretrained):
+            bg_fg = self.unet_wrapper(self.pretrained_unet(_nchw(patches)))
+        x = bg_fg
+        for i in range(2):
+            x = getattr(self, f"proc_res{i}")(getattr(self, f"proc_conv{i}")(x))
+        logits, aux = self.head(self.proc_out(x))
+        aux["pretrained_bg_fg_logits"] = bg_fg
+        aux = {k: _nhwc(v) for k, v in aux.items()}
+        aux["roi_patches"] = patches
+        return _nhwc(logits), aux
+
+
+class PureRGBHierarchicalModel(nn.Module):
+    """The RGB-only hierarchical model (JAX ``PureRGBHierarchicalModel``):
+    RoIAlign RGB patch with ``aligned=False`` -> :class:`RGBFeatureExtractor`
+    -> ``HierarchicalHeadV2`` at mid 256 (base 96, depth 3). No stage 1, so
+    aux has no full-image map; it adds ``roi_patches``."""
+
+    def __init__(self, roi_size: Tuple[int, int] = (28, 28),
+                 mask_size: Tuple[int, int] = (56, 56), image_size: Tuple[int, int] = (640, 640),
+                 feature_dim: int = 256, use_attention_module: bool = False,
+                 norm: str = "layernorm2d", norm_groups: int = 8, activation: str = "relu",
+                 activation_beta: float = 1.0):
+        super().__init__()
+        self.roi_size, self.mask_size = tuple(roi_size), tuple(mask_size)
+        self.image_size = tuple(image_size)
+        kw = dict(norm=norm, norm_groups=norm_groups, activation=activation,
+                  activation_beta=activation_beta)
+        self.rgb_extractor = RGBFeatureExtractor(feature_dim, **kw)
+        self.head = HierarchicalHeadV2(feature_dim, 256, mask_size,
+                                       use_attention_module=use_attention_module, **kw)
+
+    def forward(self, images: torch.Tensor,
+                rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        rh, rw = self.roi_size
+        scale = (float(self.image_size[0]), float(self.image_size[1]))
+        patches = sampling.roi_align(images.contiguous(), rois, rh, rw, spatial_scale=scale,
+                                     aligned=False)
+        logits, aux = self.head(self.rgb_extractor(_nchw(patches)))
+        aux = {k: _nhwc(v) for k, v in aux.items()}
+        aux["roi_patches"] = patches
+        return _nhwc(logits), aux

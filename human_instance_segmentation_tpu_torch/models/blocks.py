@@ -120,14 +120,15 @@ class ConvNormAct(_Fusable):
     """k x k conv (stride 1 or 2, padding k//2) -> norm -> activation."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
-                 norm: str = "layernorm2d", activation: str = "relu", use_bias: bool = True):
+                 norm: str = "layernorm2d", activation: str = "relu", use_bias: bool = True,
+                 norm_groups: int = 8, activation_beta: float = 1.0):
         super().__init__()
         self.features, self.kernel, self.stride = features, kernel, stride
         self.norm_type, self.activation = norm, activation
         self.conv = QConv(in_channels, features, kernel, stride=stride, padding=kernel // 2,
                           bias=use_bias)
-        self.norm = get_normalization(norm, features)
-        self.act = get_activation(activation)
+        self.norm = get_normalization(norm, features, min(norm_groups, features))
+        self.act = get_activation(activation, activation_beta)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.kernel
@@ -145,14 +146,16 @@ class ConvNormAct(_Fusable):
 class ResidualBlock(_Fusable):
     """conv3-norm-act-conv3-norm + skip -> act."""
 
-    def __init__(self, features: int, norm: str = "layernorm2d", activation: str = "relu"):
+    def __init__(self, features: int, norm: str = "layernorm2d", activation: str = "relu",
+                 norm_groups: int = 8, activation_beta: float = 1.0):
         super().__init__()
         self.features, self.norm_type, self.activation = features, norm, activation
+        g = min(norm_groups, features)
         self.conv1 = QConv(features, features, 3, padding=1)
-        self.norm1 = get_normalization(norm, features)
+        self.norm1 = get_normalization(norm, features, g)
         self.conv2 = QConv(features, features, 3, padding=1)
-        self.norm2 = get_normalization(norm, features)
-        self.act = get_activation(activation)
+        self.norm2 = get_normalization(norm, features, g)
+        self.act = get_activation(activation, activation_beta)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] == self.features and self._fusable(x):
@@ -220,6 +223,13 @@ class ConvTranspose2x(nn.Module):
 
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2)
+
+
+def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(B, C*r^2, H, W) -> (B, C, H*r, W*r), channels ordered (C, r, r)
+    major to minor: ``nn.PixelShuffle``, and the JAX ``pixel_shuffle`` on
+    NHWC."""
+    return F.pixel_shuffle(x, factor)
 
 
 def set_head_fusion(module: nn.Module, enabled: bool, kernel: bool = True) -> None:

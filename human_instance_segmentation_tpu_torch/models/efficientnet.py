@@ -1,9 +1,13 @@
 """EfficientNet encoders (NCHW) with the five UNet feature taps.
 
 Counterpart of the JAX package's ``models/efficientnet.py`` without its
-space-to-depth front: MBConv + squeeze-excite, SiLU, BatchNorm eps 1e-3, and
-TF ``'SAME'`` padding. ``EfficientNetEncoder(fused_blocks=N)`` runs the first
-N MBConv blocks through the fused kernel (``ops/cuda_mbconv``) in eval mode. At stride 2
+space-to-depth front: MBConv + squeeze-excite, SiLU, BatchNorm eps 1e-3
+(flax's, momentum 0.9: batch statistics and a running update in train
+mode, ``ops.norms.BatchNorm2d``), and TF ``'SAME'`` padding.
+``EfficientNetEncoder(fused_blocks=N)`` runs the first N MBConv blocks
+through the fused kernel (``ops/cuda_mbconv``) in eval mode only, as the
+JAX encoder gates it (``fused_blocks=0 if train``): the fused block folds
+the running statistics, so it cannot serve a training forward. At stride 2
 SAME padding is asymmetric (480 -> 240 with k=3 pads (0, 1), with k=5
 (1, 2)); a symmetric ``padding=k//2`` would shift every stride-2 output by
 a pixel, so :class:`Conv2dSame` pads explicitly and convolves unpadded.
@@ -93,7 +97,7 @@ class SqueezeExcite(nn.Module):
 
 
 class MBConv(nn.Module):
-    """Mobile inverted bottleneck with squeeze-excitation (eval form).
+    """Mobile inverted bottleneck with squeeze-excitation.
 
     The SE squeeze width is ``int(in_ch * se_ratio)`` of the block input,
     not of the expanded width.

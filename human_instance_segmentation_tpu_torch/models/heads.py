@@ -1,20 +1,24 @@
 """Hierarchical ROI segmentation heads, stage 2 (NCHW).
 
 Counterpart of the JAX package's ``models/heads.py``: ``EnhancedUNet``,
-``HierarchicalHeadV2`` with its unfused mask branch, ``ContourBranch``,
-``DistanceTransformDecoder`` and ``RefinedHierarchicalHead`` with the
-contour and distance branches. Heads return ``(final_logits, aux)`` with
+``HierarchicalHeadV2`` (with its optional attention module: spatial
+attention after ``tnt_res0``, channel attention after the ``tnt``
+upsample), the refinement modules (``BoundaryRefinement``,
+``ProgressiveUpsamplingDecoder``, ``SubPixelDecoder``, ``ContourBranch``,
+``DistanceTransformDecoder``), ``RefinedHierarchicalHead`` and
+``PretrainedUNetGuidedHead``. Heads return ``(final_logits, aux)`` with
 NCHW tensors; the assembly turns them into the JAX package's NHWC.
-``HierarchicalHeadV2`` drops whole channels (:class:`.blocks.Dropout2d`)
-where the JAX head does (heads.py:198-252): after ``shared_in`` and
-``shared_res0`` (``shared_drop0/1``), after ``gate0`` at half the rate
-(``gate_drop``), and around the ``tnt`` upsample (``tnt_drop0/1``); in eval
-mode these are the identity, and they hold no parameters.
+Every module takes the JAX heads' ``norm``, ``norm_groups``, ``activation``
+and ``activation_beta``. ``HierarchicalHeadV2`` and the guided head drop
+whole channels (:class:`.blocks.Dropout2d`) where the JAX heads do
+(heads.py:198-252, :690-694); in eval mode these are the identity, and
+they hold no parameters.
 
 The 1x1/3x3 convs the JAX package builds as ``QConv`` are
-:class:`..ops.quant.QConv` here too, and the producer-side int8
-quantization points (``prequantize_for``) sit where the JAX heads put them
-(heads.py:96, :107, :117, :123, :230-233).
+:class:`..ops.quant.QConv` here too (its plain ``nn.Conv`` are
+``nn.Conv2d``), and the producer-side int8 quantization points
+(``prequantize_for``) sit where the JAX heads put them (heads.py:96, :107,
+:117, :123, :230-233).
 """
 
 from __future__ import annotations
@@ -22,14 +26,16 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.activations import get_activation
+from ..ops.attention import ChannelAttention, SpatialAttention
 from ..ops.norms import get_normalization
 from ..ops.quant import QConv
 from ..ops.sampling import resize_bilinear
 from .blocks import (ConvNormAct, ConvTranspose2x, Dropout2d, ResidualBlock, max_pool_2x,
-                     prequantize_for)
+                     pixel_shuffle, prequantize_for)
 
 _NCHW = (2, 3)
 
@@ -40,14 +46,20 @@ def _resize_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return resize_bilinear(x, h, w, axes=_NCHW)
 
 
+def _kw(norm: str, norm_groups: int, activation: str, activation_beta: float) -> dict:
+    return dict(norm=norm, norm_groups=norm_groups, activation=activation,
+                activation_beta=activation_beta)
+
+
 class EnhancedUNet(nn.Module):
     """Depth-N UNet with two residual blocks per level and a sigmoid
     attention bottleneck; 2-class (bg/fg) logits."""
 
     def __init__(self, in_channels: int, base_channels: int = 96, depth: int = 3,
-                 norm: str = "layernorm2d", activation: str = "relu"):
+                 norm: str = "layernorm2d", activation: str = "relu", norm_groups: int = 8,
+                 activation_beta: float = 1.0):
         super().__init__()
-        kw = dict(norm=norm, activation=activation)
+        kw = _kw(norm, norm_groups, activation, activation_beta)
         chans = [base_channels * (2 ** i) for i in range(depth)]
         self.depth = depth
         for i in range(depth):
@@ -109,17 +121,24 @@ class HierarchicalHeadV2(nn.Module):
         final[0] = bgfg[0]
         final[1] = bgfg[1] + tnt[0] * P(fg)
         final[2] = bgfg[1] + tnt[1] * P(fg)
+    ``use_attention_module`` adds ``tnt_satt`` (spatial attention, k 7)
+    after ``tnt_res0`` and ``tnt_catt`` (channel attention, reduction 8)
+    after the tnt upsample. ``expose_shared`` adds the trunk's output to
+    aux as ``shared_features``.
     """
 
     def __init__(self, in_channels: int, mid_channels: int = 256,
                  mask_size: Tuple[int, int] = (56, 56), norm: str = "layernorm2d",
                  activation: str = "relu", base_channels: int = 96, depth: int = 3,
-                 dropout_rate: float = 0.1):
+                 dropout_rate: float = 0.1, use_attention_module: bool = False,
+                 norm_groups: int = 8, activation_beta: float = 1.0,
+                 expose_shared: bool = False):
         super().__init__()
-        kw = dict(norm=norm, activation=activation)
+        kw = _kw(norm, norm_groups, activation, activation_beta)
         mc = mid_channels
         self.mask_size = tuple(mask_size)
-        self.act = get_activation(activation)
+        self.expose_shared = expose_shared
+        self.act = get_activation(activation, activation_beta)
         self.shared_in = ConvNormAct(in_channels, mc, **kw)
         self.shared_drop0 = Dropout2d(dropout_rate)
         self.shared_res0 = ResidualBlock(mc, **kw)
@@ -127,18 +146,22 @@ class HierarchicalHeadV2(nn.Module):
         self.shared_res1 = ResidualBlock(mc, **kw)
         self.bg_vs_fg_unet = EnhancedUNet(mc, base_channels, depth, **kw)
         self.upsample_deconv = ConvTranspose2x(2, 32)
-        self.upsample_norm = get_normalization(norm, 32)
+        self.upsample_norm = get_normalization(norm, 32, min(norm_groups, 32))
         self.upsample_out = QConv(32, 2, 1)
         self.gate0 = QConv(2, mc // 4, 1)
         self.gate_drop = Dropout2d(dropout_rate * 0.5)
         self.gate1 = QConv(mc // 4, mc // 2, 1)
         self.gate2 = QConv(mc // 2, mc, 1)
         self.tnt_res0 = ResidualBlock(mc, **kw)
+        self.tnt_satt = SpatialAttention(7) if use_attention_module else None
         self.tnt_drop0 = Dropout2d(dropout_rate)
         self.tnt_deconv = ConvTranspose2x(mc, mc // 2)
-        self.tnt_norm = get_normalization(norm, mc // 2)
+        self.tnt_norm = get_normalization(norm, mc // 2, min(norm_groups, mc // 2))
+        self.tnt_catt = (ChannelAttention(mc // 2, 8, activation=activation,
+                                          activation_beta=activation_beta)
+                         if use_attention_module else None)
         self.tnt_drop1 = Dropout2d(dropout_rate)
-        self.tnt_res1 = ResidualBlock(mc // 2, **kw)
+        self.tnt_res1 = ResidualBlock(mc // 2, **dict(kw, norm_groups=min(norm_groups, mc // 2)))
         self.tnt_out = QConv(mc // 2, 2, 1)
 
     def forward(self, features: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -156,8 +179,12 @@ class HierarchicalHeadV2(nn.Module):
         g = act(self.gate1(prequantize_for(self.gate1, g, k=1)))
         fg_attention = torch.sigmoid(self.gate2(prequantize_for(self.gate2, g, k=1)))
 
-        t = self.tnt_drop0(self.tnt_res0(shared * fg_attention))
-        t = act(self.tnt_norm(self.tnt_deconv(t)))
+        t = self.tnt_res0(shared * fg_attention)
+        if self.tnt_satt is not None:
+            t = self.tnt_satt(t)
+        t = act(self.tnt_norm(self.tnt_deconv(self.tnt_drop0(t))))
+        if self.tnt_catt is not None:
+            t = self.tnt_catt(t)
         t = self.tnt_res1(self.tnt_drop1(t))
         tnt_logits = _resize_to(self.tnt_out(t), mh, mw)
 
@@ -172,18 +199,119 @@ class HierarchicalHeadV2(nn.Module):
             "bg_fg_logits_low": bg_fg_low,
             "target_nontarget_logits": tnt_logits,
             "fg_attention": fg_attention,
-            "shared_features": shared,
         }
+        if self.expose_shared:
+            aux["shared_features"] = shared
         return final, aux
+
+
+def _small_init(conv: nn.Conv2d) -> nn.Conv2d:
+    """Mark ``conv`` for the JAX modules' ``variance_scaling(0.01, "fan_avg",
+    "uniform")`` kernel init (``inference.init_weights`` reads the mark)."""
+    conv.init_scale = 0.01
+    return conv
+
+
+def _sqrt_zero_grad(s: torch.Tensor) -> torch.Tensor:
+    """``sqrt(s)`` for ``s >= 0`` whose gradient at ``s == 0`` is 0, not
+    ``inf * 0 = NaN``: the value is sqrt's bit for bit."""
+    pos = s > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, s, torch.ones_like(s))),
+                       torch.zeros_like(s))
+
+
+class BoundaryRefinement(nn.Module):
+    """Edge-gated residual refinement of the class logits: an edge map
+    (the channel mean of the probabilities' forward-difference magnitude,
+    min-max normalised over the whole batch) gates ``blend_weight *
+    edge_out(...)`` added to the logits.
+
+    One stated deviation (ROADMAP C9): where two neighbouring probabilities
+    are equal in both directions, the magnitude ``sqrt(dy^2 + dx^2)`` is
+    differentiated as 0 here; the JAX module's gradient there is NaN, and
+    in bf16, where such ties are common, it makes every train step
+    non-finite (the JAX step skips them all). The forward is the same.
+    """
+
+    def __init__(self, num_classes: int = 3, edge_channels: int = 32,
+                 norm: str = "layernorm2d", norm_groups: int = 8, activation: str = "relu",
+                 activation_beta: float = 1.0):
+        super().__init__()
+        g = min(norm_groups, edge_channels)
+        self.act = get_activation(activation, activation_beta)
+        self.edge0 = _small_init(nn.Conv2d(num_classes, edge_channels, 3, padding=1))
+        self.edge_norm0 = get_normalization(norm, edge_channels, g)
+        self.edge1 = _small_init(nn.Conv2d(edge_channels, edge_channels, 3, padding=1))
+        self.edge_norm1 = get_normalization(norm, edge_channels, g)
+        self.edge_out = _small_init(nn.Conv2d(edge_channels, num_classes, 1))
+        self.blend_weight = nn.Parameter(torch.tensor(0.01))
+
+    def forward(self, mask_logits: torch.Tensor) -> torch.Tensor:
+        probs = torch.softmax(mask_logits, dim=1)
+        dy = (probs[:, :, 1:] - probs[:, :, :-1]).abs()
+        dx = (probs[:, :, :, 1:] - probs[:, :, :, :-1]).abs()
+        dy = torch.cat([dy, dy[:, :, -1:]], dim=2)  # edge padding at the bottom
+        dx = torch.cat([dx, dx[:, :, :, -1:]], dim=3)  # and at the right
+        edges = _sqrt_zero_grad(dy ** 2 + dx ** 2).mean(dim=1, keepdim=True)
+        emin, emax = edges.amin(), edges.amax()
+        edges = torch.where(emax - emin < 1e-6, torch.zeros_like(edges),
+                            (edges - emin) / (emax - emin + 1e-6))
+        h = self.act(self.edge_norm0(self.edge0(mask_logits)))
+        h = self.act(self.edge_norm1(self.edge1(h)))
+        return mask_logits + self.blend_weight * self.edge_out(h) * edges
+
+
+class ProgressiveUpsamplingDecoder(nn.Module):
+    """Two 2x stages (transposed conv k 4, stride 2, flax's SAME padding ->
+    norm -> act -> residual block, halving the channels each time), a 1x1
+    projection to the classes, resized to the target size."""
+
+    def __init__(self, in_channels: int, num_classes: int = 3, norm: str = "layernorm2d",
+                 norm_groups: int = 8, activation: str = "relu",
+                 activation_beta: float = 1.0):
+        super().__init__()
+        kw = _kw(norm, norm_groups, activation, activation_beta)
+        self.act = get_activation(activation, activation_beta)
+        ch_in = in_channels
+        for i, ch in enumerate((in_channels // 2, in_channels // 4)):
+            # lax.conv_transpose with SAME padding at k 4, s 2 pads the
+            # zero-stuffed input by 2 on each side: torch's padding 1
+            self.add_module(f"stage{i}_deconv", nn.ConvTranspose2d(ch_in, ch, 4, stride=2,
+                                                                   padding=1))
+            self.add_module(f"stage{i}_norm", get_normalization(norm, ch, min(norm_groups, ch)))
+            self.add_module(f"stage{i}_res", ResidualBlock(ch, **kw))
+            ch_in = ch
+        self.proj = QConv(ch_in, num_classes, 1)
+
+    def forward(self, features: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+        x = features
+        for i in range(2):
+            x = getattr(self, f"stage{i}_deconv")(x)
+            x = self.act(getattr(self, f"stage{i}_norm")(x))
+            x = getattr(self, f"stage{i}_res")(x)
+        return _resize_to(self.proj(x), target_hw[0], target_hw[1])
+
+
+class SubPixelDecoder(nn.Module):
+    """3x3 conv to ``num_classes * r^2`` channels, then pixel shuffle by r."""
+
+    def __init__(self, in_channels: int, num_classes: int = 3, upscale_factor: int = 2):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.conv = QConv(in_channels, num_classes * upscale_factor ** 2, 3, padding=1)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        return pixel_shuffle(self.conv(features), self.upscale_factor)
 
 
 class ContourBranch(nn.Module):
     """Single-channel sigmoid contour map."""
 
     def __init__(self, in_channels: int, contour_channels: int = 64,
-                 norm: str = "layernorm2d", activation: str = "relu"):
+                 norm: str = "layernorm2d", activation: str = "relu", norm_groups: int = 8,
+                 activation_beta: float = 1.0):
         super().__init__()
-        kw = dict(norm=norm, activation=activation)
+        kw = _kw(norm, norm_groups, activation, activation_beta)
         self.c0 = ConvNormAct(in_channels, contour_channels, **kw)
         self.c1 = ConvNormAct(contour_channels, contour_channels, **kw)
         self.out = QConv(contour_channels, 1, 1)
@@ -196,9 +324,10 @@ class DistanceTransformDecoder(nn.Module):
     """Distance-map regression with a learned sharp-sigmoid threshold."""
 
     def __init__(self, in_channels: int, distance_channels: int = 128,
-                 norm: str = "layernorm2d", activation: str = "relu"):
+                 norm: str = "layernorm2d", activation: str = "relu", norm_groups: int = 8,
+                 activation_beta: float = 1.0):
         super().__init__()
-        kw = dict(norm=norm, activation=activation)
+        kw = _kw(norm, norm_groups, activation, activation_beta)
         self.d0 = ConvNormAct(in_channels, distance_channels, **kw)
         self.d_res = ResidualBlock(distance_channels, **kw)
         self.out = QConv(distance_channels, 1, 1)
@@ -211,20 +340,31 @@ class DistanceTransformDecoder(nn.Module):
 
 
 class RefinedHierarchicalHead(nn.Module):
-    """HierarchicalHeadV2 plus the contour and distance branches (the
-    flagship's refinement set; the JAX package's attention module and
-    boundary, progressive and sub-pixel refinements are not ported yet)."""
+    """HierarchicalHeadV2 plus the optional refinement modules, applied in
+    the JAX head's order: the progressive or (else) the sub-pixel decoder
+    replaces the logits, the boundary refinement refines them, and the
+    contour and distance branches read the shared features into aux."""
 
     def __init__(self, in_channels: int, mid_channels: int = 256,
                  mask_size: Tuple[int, int] = (56, 56), use_contour_detection: bool = False,
                  use_distance_transform: bool = False, norm: str = "layernorm2d",
-                 activation: str = "relu", base_channels: int = 96, depth: int = 3):
+                 activation: str = "relu", base_channels: int = 96, depth: int = 3,
+                 use_attention_module: bool = False, use_boundary_refinement: bool = False,
+                 use_progressive_upsampling: bool = False, use_subpixel_conv: bool = False,
+                 norm_groups: int = 8, activation_beta: float = 1.0,
+                 dropout_rate: float = 0.1):
         super().__init__()
-        kw = dict(norm=norm, activation=activation)
+        kw = _kw(norm, norm_groups, activation, activation_beta)
         self.mask_size = tuple(mask_size)
         self.base_head = HierarchicalHeadV2(
             in_channels, mid_channels, mask_size, base_channels=base_channels, depth=depth,
-            **kw)
+            dropout_rate=dropout_rate, use_attention_module=use_attention_module,
+            expose_shared=True, **kw)
+        self.progressive = (ProgressiveUpsamplingDecoder(mid_channels, 3, **kw)
+                            if use_progressive_upsampling else None)
+        self.subpixel = (SubPixelDecoder(mid_channels, 3)
+                         if use_subpixel_conv and not use_progressive_upsampling else None)
+        self.boundary = BoundaryRefinement(3, **kw) if use_boundary_refinement else None
         self.contour = ContourBranch(mid_channels, **kw) if use_contour_detection else None
         self.distance = (DistanceTransformDecoder(mid_channels, **kw)
                          if use_distance_transform else None)
@@ -233,6 +373,12 @@ class RefinedHierarchicalHead(nn.Module):
         mh, mw = self.mask_size
         logits, aux = self.base_head(features)
         shared = aux["shared_features"]
+        if self.progressive is not None:
+            logits = self.progressive(shared, (mh, mw))
+        elif self.subpixel is not None:
+            logits = _resize_to(self.subpixel(shared), mh, mw)
+        if self.boundary is not None:
+            logits = self.boundary(logits)
         if self.contour is not None:
             aux["contours"] = _resize_to(self.contour(shared), mh, mw)
         if self.distance is not None:
@@ -240,3 +386,66 @@ class RefinedHierarchicalHead(nn.Module):
             aux["distance_mask"] = _resize_to(dmask, mh, mw)
             aux["distance_map"] = _resize_to(dmap, mh, mw)
         return logits, aux
+
+
+class PretrainedUNetGuidedHead(nn.Module):
+    """Direct 3-class head guided by the stage-1 foreground probability
+    (the JAX model takes it when no refinement flag is set). ``forward(
+    features (N, C, h, w), bg_fg_mask (N, 2 or 1, h, w))``: channel 1 of a
+    two-channel mask is read as the foreground logit (the reference's
+    quirk, kept for checkpoint parity); aux ``bg_fg_logits`` are the log
+    probabilities of that mask, so the hierarchical loss still applies."""
+
+    def __init__(self, in_channels: int, mid_channels: int = 256,
+                 mask_size: Tuple[int, int] = (56, 56), dropout_rate: float = 0.1,
+                 use_attention_module: bool = False, norm: str = "layernorm2d",
+                 norm_groups: int = 8, activation: str = "relu",
+                 activation_beta: float = 1.0):
+        super().__init__()
+        kw = _kw(norm, norm_groups, activation, activation_beta)
+        mc = mid_channels
+        self.mask_size = tuple(mask_size)
+        self.act = get_activation(activation, activation_beta)
+        self.input_adjust = QConv(in_channels + 1, in_channels, 1)
+        self.fp_in = ConvNormAct(in_channels, mc, **kw)
+        self.fp_drop0 = Dropout2d(dropout_rate)
+        self.fp_res0 = ResidualBlock(mc, **kw)
+        self.fp_drop1 = Dropout2d(dropout_rate)
+        self.fp_res1 = ResidualBlock(mc, **kw)
+        if use_attention_module:
+            self.att0 = QConv(mc, mc // 4, 1)
+            self.att1 = QConv(mc // 4, 1, 1)
+        else:
+            self.att0 = self.att1 = None
+        self.cls0 = ConvNormAct(mc, mc // 2, **kw)
+        self.cls_out = nn.Conv2d(mc // 2, 3, 1)
+        self.cls_out.init_bias = (0.0, 0.0, -0.5)  # non-target rarer (JAX bias_init)
+
+    def forward(self, features: torch.Tensor,
+                bg_fg_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        mh, mw = self.mask_size
+        fg_logit = bg_fg_mask[:, 1:2] if bg_fg_mask.shape[1] == 2 else bg_fg_mask
+        fg_prob = torch.sigmoid(fg_logit)
+        fg_prob_ds = _resize_to(fg_prob, features.shape[2], features.shape[3])
+
+        x = self.input_adjust(torch.cat([features, fg_prob_ds], dim=1))
+        x = self.fp_drop0(self.fp_in(x))
+        x = self.fp_res1(self.fp_drop1(self.fp_res0(x)))
+        if self.att0 is not None:
+            a = torch.sigmoid(self.att1(self.act(self.att0(x))))
+            x = x * (a * (0.5 + 0.5 * fg_prob_ds))
+        final = _resize_to(self.cls_out(self.cls0(x)), mh, mw)
+
+        # the sigmoid of the resized logit, not a resized probability
+        if tuple(fg_logit.shape[2:]) != (mh, mw):
+            fg_prob_full = torch.sigmoid(_resize_to(fg_logit, mh, mw))
+        else:
+            fg_prob_full = fg_prob
+        bg_fg_logits = torch.cat([torch.log(1.0 - fg_prob_full + 1e-7),
+                                  torch.log(fg_prob_full + 1e-7)], dim=1)
+        aux = {
+            "bg_fg_logits": bg_fg_logits,
+            "target_nontarget_logits": final[:, 1:3],
+            "fg_prob": fg_prob_full,
+        }
+        return final, aux

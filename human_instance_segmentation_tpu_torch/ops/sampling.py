@@ -76,17 +76,18 @@ def roi_align(
     features (B, H, W, C); rois (N, 5) rows ``[batch_idx, x1, y1, x2, y2]``
     normalised to [0, 1]. Sentinel rois (batch_idx < 0) read image 0; the
     caller masks them. Returns (N, oh, ow, C) in the features' dtype; the
-    sampling runs in float32.
+    sampling runs in float32 (float64 for float64 features).
     """
     ssh, ssw = _as_hw(spatial_scale)
     B, H, W, _ = features.shape
-    rois = rois.to(torch.float32)
+    ct = torch.promote_types(features.dtype, torch.float32)
+    rois = rois.to(ct)
     batch_idx = rois[:, 0].to(torch.int64).clamp(0, B - 1)
     pos_y = grid_sample_positions(rois[:, 2] * ssh, rois[:, 4] * ssh, output_height, aligned)
     pos_x = grid_sample_positions(rois[:, 1] * ssw, rois[:, 3] * ssw, output_width, aligned)
     wy = bilinear_weight_matrix(pos_y, H)  # (N, oh, H)
     wx = bilinear_weight_matrix(pos_x, W)  # (N, ow, W)
-    sel = features.index_select(0, batch_idx).to(torch.float32)  # (N, H, W, C)
+    sel = features.index_select(0, batch_idx).to(ct)  # (N, H, W, C)
     t = torch.einsum("nyh,nhwc->nywc", wy, sel)
     out = torch.einsum("nxw,nywc->nyxc", wx, t)
     return out.to(features.dtype)
@@ -140,8 +141,9 @@ def resize_bilinear(
             return j * ((s - 1) / (o - 1))
         raise ValueError(f"unknown resize method: {method}")
 
-    wy = bilinear_weight_matrix(positions(height, h), h, "edge")  # (oh, h)
-    wx = bilinear_weight_matrix(positions(width, w), w, "edge")  # (ow, w)
-    xf = x.to(torch.float32).movedim((ay, ax), (-2, -1))  # (..., h, w)
+    ct = torch.promote_types(x.dtype, torch.float32)
+    wy = bilinear_weight_matrix(positions(height, h), h, "edge").to(ct)  # (oh, h)
+    wx = bilinear_weight_matrix(positions(width, w), w, "edge").to(ct)  # (ow, w)
+    xf = x.to(ct).movedim((ay, ax), (-2, -1))  # (..., h, w)
     y = torch.matmul(torch.matmul(wy, xf), wx.t())  # (..., oh, ow)
     return y.movedim((-2, -1), (ay, ax)).to(x.dtype)

@@ -20,8 +20,20 @@ A9), real COCO data (A4) and so its curated validation scenes; the
 end-of-run validation picture is skipped with a log line, as the JAX loop
 does when ``visualize`` fails (``visualize`` is A4).
 
-One deviation: ``--resume`` continues at the restored step and runs up to
-``--steps`` in all; the JAX loop counts ``--steps`` anew after a restore.
+``--tiny`` narrows the model as the JAX loop does: the shapes of every
+family, and :data:`TINY_MODEL`'s widths for the full-image flagship family
+only (the JAX loop clones the models that have ``mid_channels``; the
+pure-RGB and ROI-pretrained models keep their widths).
+
+Two deviations, both about ``--resume``:
+- it continues at the restored step and runs up to ``--steps`` in all; the
+  JAX loop counts ``--steps`` anew after a restore (ROADMAP C7);
+- with a ``stage_schedule`` it first applies the stage the checkpoint was
+  written under (the latest one whose epoch is at or below the epoch of
+  the checkpoint's last step), so the optimizer has the checkpoint's
+  parameter groups, and the run goes on as the uninterrupted run does;
+  the JAX loop, like the port before this repair, restores into a
+  one-group optimizer and fails (ROADMAP C8).
 """
 
 from __future__ import annotations
@@ -65,11 +77,14 @@ def run_training(
     config_modifications: Optional[Dict] = None,
     model_overrides: Optional[Dict] = None,
     return_state: bool = False,
+    steps_per_epoch: int = 100,
 ):
     """Train ``config_name``; returns the last metrics (and the final
     :class:`TrainState` with ``return_state``). ``model_overrides`` go to
     :func:`..config.model_from_config` (for example ``pallas_tail`` and
-    ``encoder_fused_blocks``, which change the route, not the function)."""
+    ``encoder_fused_blocks``, which change the route, not the function).
+    ``steps_per_epoch`` is the synthetic epoch's length (100, the JAX
+    loop's)."""
     import torch
 
     from ..config import (ConfigManager, _as_hw, _deep_merge, loss_config_from_experiment,
@@ -104,7 +119,8 @@ def run_training(
         cfg.model.hierarchical_depth = 2
         cfg.training.batch_size = max(devices or 1, 1)
         cfg.data.rois_per_image = 2
-        overrides = {**TINY_MODEL, **overrides}
+        if cfg.model.use_pretrained_unet and cfg.model.use_full_image_unet:
+            overrides = {**TINY_MODEL, **overrides}
 
     model = model_from_config(cfg, seed=0, device=dev, **overrides)
 
@@ -117,7 +133,6 @@ def run_training(
     logger = TrainLogger(f"{out_dir}/logs", cfg.name)
     logger.config(cfg.to_dict())
 
-    steps_per_epoch = 100  # synthetic data
     n_epochs = epochs if epochs is not None else cfg.training.num_epochs
     total_steps = steps if steps > 0 else n_epochs * steps_per_epoch
 
@@ -127,9 +142,37 @@ def run_training(
     tx = build_optimizer(schedule, t.optimizer, t.weight_decay, t.gradient_clip)
     state = TrainState.create(model, tx, seed=1)
 
+    # staged freezing: at configured epoch boundaries the parameter groups
+    # are relabelled and the optimizer rebuilt (moments reset), its schedule
+    # offset by the global step so the decay continues
+    stage_schedule = dict(t.stage_schedule or {})
+
+    def apply_stage(epoch: int) -> None:
+        flags = stage_schedule[epoch]
+        stage = StageConfig(
+            name=f"epoch{epoch}",
+            freeze_pretrained=bool(flags.get("freeze_pretrained", True)),
+            freeze_rgb_extractor=bool(flags.get("freeze_rgb_extractor", False)),
+            freeze_head=bool(flags.get("freeze_head", False)),
+            lr_scale=float(flags.get("lr_scale", 1.0)),
+        )
+        step_at_switch = epoch * steps_per_epoch
+        scaled = Transform("adamw", lambda s: schedule(s + step_at_switch) * stage.lr_scale,
+                           weight_decay=t.weight_decay, clip=t.gradient_clip)
+        state.optimizer = staged_optimizer({"train": scaled, "frozen": set_to_zero()}, model,
+                                           stage_rules(stage))
+        logger.text(f"stage change at epoch {epoch}: {flags}")
+
     ckpt_dir = f"{out_dir}/checkpoints"
     start = 0
-    if resume and latest_step(ckpt_dir) is not None:
+    saved = latest_step(ckpt_dir) if resume else None
+    if saved is not None:
+        # the stage the checkpoint was written under: its last step's epoch
+        # (C8); the loop applies later stages at their boundaries as usual
+        written_under = [e for e in stage_schedule if saved > 0 and e <= (saved - 1) //
+                         steps_per_epoch]
+        if written_under:
+            apply_stage(max(written_under))
         state, start = restore_checkpoint(ckpt_dir, state)
         logger.text(f"resumed from step {start}")
 
@@ -164,27 +207,6 @@ def run_training(
         n = max(sums["n"], 1.0)
         return {"val_miou": sums["iou_sum"] / n, "val_det50": sums["det50_sum"] / n,
                 "val_det70": sums["det70_sum"] / n, "val_n": n}
-
-    # staged freezing: at configured epoch boundaries the parameter groups
-    # are relabelled and the optimizer rebuilt (moments reset), its schedule
-    # offset by the global step so the decay continues
-    stage_schedule = dict(t.stage_schedule or {})
-
-    def apply_stage(epoch: int) -> None:
-        flags = stage_schedule[epoch]
-        stage = StageConfig(
-            name=f"epoch{epoch}",
-            freeze_pretrained=bool(flags.get("freeze_pretrained", True)),
-            freeze_rgb_extractor=bool(flags.get("freeze_rgb_extractor", False)),
-            freeze_head=bool(flags.get("freeze_head", False)),
-            lr_scale=float(flags.get("lr_scale", 1.0)),
-        )
-        step_at_switch = epoch * steps_per_epoch
-        scaled = Transform("adamw", lambda s: schedule(s + step_at_switch) * stage.lr_scale,
-                           weight_decay=t.weight_decay, clip=t.gradient_clip)
-        state.optimizer = staged_optimizer({"train": scaled, "frozen": set_to_zero()}, model,
-                                           stage_rules(stage))
-        logger.text(f"stage change at epoch {epoch}: {flags}")
 
     best_dir = f"{out_dir}/checkpoints_best"
     best_miou = -1.0

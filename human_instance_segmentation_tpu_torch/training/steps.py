@@ -22,11 +22,24 @@ compute something else.) The copies are made anew every step, so the fused
 stage-1 kernels, which keep operands prepared from the weights they see,
 rebuild them every step: the decay changes the frozen weights every step.
 
+Running statistics (the JAX ``batch_stats``: the BatchNorms of an
+unfrozen stage 1 or of a batchnorm head, ``AdaptiveInstanceNorm2d``) are
+train state. The forward runs under ``ops.norms.deferred_running_stats``,
+so the modules in train mode hand their new statistics over instead of
+writing their buffers (the JAX ``mutable=["batch_stats"]``), and the step
+writes them only when it keeps the update. In a bf16 step the forward
+reads bf16 copies of the statistics, as JAX's forward reads
+``_cast_floating(batch_stats)``, and the kept statistics are what JAX
+returns cast back to float32: a module in train mode gives ``0.9 *
+bf16(running)`` rounded to bf16 plus the float32 ``0.1 * batch`` term,
+every other statistic (a frozen stage 1's too) comes back as
+``bf16(running)``.
+
 The NaN guard: a step whose loss or gradients' global norm is not finite
-keeps the parameters, the optimizer state (its step count with it) and the
-loss state, advances ``state.step`` and counts one more ``skipped``. The
-decision is one host sync a step (``bool`` of a device scalar); the JAX
-step selects on the device instead.
+keeps the parameters, the running statistics, the optimizer state (its
+step count with it) and the loss state, advances ``state.step`` and counts
+one more ``skipped``. The decision is one host sync a step (``bool`` of a
+device scalar); the JAX step selects on the device instead.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ from torch.func import functional_call
 from ..losses.hierarchical import (HierarchicalLossState, RefinedLossConfig,
                                    refined_hierarchical_loss)
 from ..models.blocks import set_dropout_generator
+from ..ops.norms import deferred_running_stats, running_stat_modules
 from .optim import global_norm
 from .state import TrainState
 
@@ -94,32 +108,61 @@ def forward(model: nn.Module, images: torch.Tensor, rois: torch.Tensor,
     return logits.float(), {k: v.float() if v.is_floating_point() else v for k, v in aux.items()}
 
 
+def new_running_stats(model: nn.Module, collected: Dict, compute_dtype: Optional[str] = None):
+    """``[(buffer, new value, rounded)]`` for every running statistic of
+    ``model`` that a step changes, after a forward whose modules in train
+    mode handed theirs to ``collected`` (``ops.norms.deferred_running_stats``):
+    the collected value in float32, and in a bf16 step every statistic not
+    collected rounded through bf16, as the JAX step casts them (module
+    docstring). Rounding is idempotent, so a buffer this step rounded before
+    and nothing wrote since (its version unchanged) is left out: a frozen
+    stage 1 costs its ~350 rounding kernels once, not every step."""
+    cdt = _compute_dtype(compute_dtype)
+    out = []
+    for m in running_stat_modules(model):
+        for name in ("running_mean", "running_var"):
+            buf = getattr(m, name)
+            new = collected.get((m, name))
+            if new is not None:
+                out.append((buf, new.to(buf.dtype), False))
+            elif cdt is not None and getattr(buf, "_rounded_at", None) != buf._version:
+                out.append((buf, buf.to(cdt).to(buf.dtype), True))
+    return out
+
+
 def make_loss_fn(model: nn.Module, loss_cfg: RefinedLossConfig,
                  compute_dtype: Optional[str] = None):
     """``loss_fn(loss_state, generator, batch) -> (loss, (new_loss_state,
-    metrics))`` over ``model`` in its current mode; with ``compute_dtype``
-    (e.g. "bfloat16") the forward and backward run in that dtype while the
-    master parameters, their statistics and the loss stay float32."""
+    new_stats, metrics))`` over ``model`` in its current mode, as the JAX
+    loss returns; ``new_stats`` is :func:`new_running_stats`' list, and the
+    model's running statistics are left as they were. With
+    ``compute_dtype`` (e.g. "bfloat16") the forward and backward run in that
+    dtype while the master parameters, their statistics and the loss stay
+    float32. The images and boxes are taken in the parameters' dtype."""
+    param_dtype = next(model.parameters()).dtype
 
     def loss_fn(loss_state: HierarchicalLossState, generator: torch.Generator,
                 batch: Dict[str, torch.Tensor]):
         set_dropout_generator(model, generator)
-        rois = rois_from_boxes(batch["boxes"].float())
-        logits, aux = forward(model, batch["images"].float(), rois, compute_dtype)
+        rois = rois_from_boxes(batch["boxes"].to(param_dtype))
+        with deferred_running_stats() as collected:
+            logits, aux = forward(model, batch["images"].to(param_dtype), rois, compute_dtype)
+        new_stats = new_running_stats(model, collected, compute_dtype)
         b, k = batch["boxes"].shape[:2]
         mh, mw = batch["masks"].shape[-2:]
         targets = batch["masks"].reshape(b * k, mh, mw)
         valid = batch["valid"].reshape(b * k)
         loss, new_loss_state, metrics = refined_hierarchical_loss(
             logits, targets, aux, loss_state, loss_cfg, valid=valid)
-        return loss, (new_loss_state, metrics)
+        return loss, (new_loss_state, new_stats, metrics)
 
     return loss_fn
 
 
 def _apply_step(state: TrainState, grads: List[Optional[torch.Tensor]],
-                new_loss_state: HierarchicalLossState, loss: torch.Tensor) -> TrainState:
-    """The optimizer's update with the NaN-batch skip."""
+                new_loss_state: HierarchicalLossState, new_stats, loss: torch.Tensor) -> TrainState:
+    """The optimizer's update and the new running statistics, with the
+    NaN-batch skip."""
     present = [g for g in grads if g is not None]
     finite = torch.isfinite(loss)
     if present:
@@ -127,6 +170,10 @@ def _apply_step(state: TrainState, grads: List[Optional[torch.Tensor]],
     if bool(finite):  # the step's one host sync
         state.optimizer.step(grads)
         state.loss_state = new_loss_state
+        with torch.no_grad():
+            for buf, value, rounded in new_stats:
+                buf.copy_(value)
+                buf._rounded_at = buf._version if rounded else None
     else:
         state.skipped += 1
     state.step += 1
@@ -147,15 +194,15 @@ def make_train_step(
             raise ValueError("the state holds another model than this step's")
         model.train()
         device = next(model.parameters()).device
-        loss, (new_loss_state, metrics) = loss_fn(state.loss_state, state.generator,
-                                                  batch_to(batch, device))
+        loss, (new_loss_state, new_stats, metrics) = loss_fn(
+            state.loss_state, state.generator, batch_to(batch, device))
         params = state.optimizer.params
         needed = [i for i, p in enumerate(params) if p.requires_grad]
         found = torch.autograd.grad(loss, [params[i] for i in needed], allow_unused=True)
         grads: List[Optional[torch.Tensor]] = [None] * len(params)
         for i, g in zip(needed, found):
             grads[i] = g
-        state = _apply_step(state, grads, new_loss_state, loss.detach())
+        state = _apply_step(state, grads, new_loss_state, new_stats, loss.detach())
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

@@ -9,13 +9,23 @@ as follows:
 
 - conv ``kernel`` (kh, kw, Ci, Co), HWIO -> ``weight`` (Co, Ci, kh, kw), OIHW
   (depthwise (k, k, 1, C) -> (C, 1, k, k));
-- ``_TConv2x`` ``deconv/kernel`` (2, 2, Ci, Co) -> ConvTranspose2d
-  ``weight`` (Ci, Co, 2, 2) with the spatial taps flipped: lax.conv_transpose
-  cross-correlates the zero-stuffed input where torch's transposed conv
-  convolves (as ``convert_weights._deconv_p`` does the other way);
+- a transposed conv's kernel (``_TConv2x`` ``deconv/kernel`` (2, 2, Ci, Co),
+  the progressive decoder's ``stage{i}_deconv/kernel`` (4, 4, Ci, Co)) ->
+  ConvTranspose2d ``weight`` (Ci, Co, kh, kw) with the spatial taps
+  flipped: lax.conv_transpose cross-correlates the zero-stuffed input where
+  torch's transposed conv convolves (as ``convert_weights._deconv_p`` does
+  the other way);
 - norm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
-- BatchNorm ``mean``/``var`` -> ``running_mean``/``running_var``;
-- the distance branch's scalar ``threshold`` stays ``threshold``.
+- ``batch_stats`` ``mean``/``var`` (BatchNorm, AdaptiveInstanceNorm2d) ->
+  ``running_mean``/``running_var``;
+- scalars and the foreground-aware norm's affine pairs keep their names
+  (``threshold``, ``blend_weight``, ``fg_scale``, ``fg_bias``,
+  ``bg_scale``, ``bg_bias``).
+
+A ``MixedNormalization`` initialised for eval in JAX has no
+``InstanceNorm2d_0`` parameters (flax creates them in train mode only);
+with ``model`` given, the port's are filled with flax's initial values
+(scale 1, bias 0).
 """
 
 from __future__ import annotations
@@ -30,6 +40,11 @@ _RENAME = {
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
     ("params", "threshold"): "threshold",
+    ("params", "blend_weight"): "blend_weight",
+    ("params", "fg_scale"): "fg_scale",
+    ("params", "fg_bias"): "fg_bias",
+    ("params", "bg_scale"): "bg_scale",
+    ("params", "bg_bias"): "bg_bias",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -48,7 +63,7 @@ def _convert(collection: str, path: Tuple[str, ...], leaf: str, value: np.ndarra
     if collection == "params" and leaf == "kernel":
         if value.ndim != 4:
             raise ValueError(f"{'/'.join(path)}/kernel: expected a 4-D kernel, got {value.shape}")
-        if path and path[-1] == "deconv":
+        if path and (path[-1] == "deconv" or path[-1].endswith("_deconv")):
             w = value[::-1, ::-1].transpose(2, 3, 0, 1)
         else:
             w = value.transpose(3, 2, 0, 1)
@@ -78,6 +93,9 @@ def from_jax_params(variables: Mapping[str, Any],
             state[key] = t
     if model is not None:
         expected = model.state_dict()
+        for key, t in expected.items():  # a MixedNormalization initialised for eval
+            if key not in state and key.rsplit(".", 2)[-2:-1] == ["InstanceNorm2d_0"]:
+                state[key] = torch.ones_like(t) if key.endswith(".weight") else torch.zeros_like(t)
         unconsumed = sorted(set(state) - set(expected))
         unfilled = sorted(set(expected) - set(state))
         if unconsumed or unfilled:

@@ -1,5 +1,7 @@
 """The port's config registry and ``model_from_config`` against the JAX
-package's, and the import rule of the new modules.
+package's, and the import rule of the new modules. The pure-RGB and
+ROI-pretrained configs build the JAX dispatch's classes (PR 11); the
+baseline, variable-ROI and multi-scale models still raise.
 
 The registry must be equal name for name and field for field
 (``to_dict()``), as must the loss config each experiment describes. For the
@@ -24,6 +26,8 @@ import torch
 
 from human_instance_segmentation_tpu import config as jcfg
 from human_instance_segmentation_tpu_torch import config as pcfg
+from human_instance_segmentation_tpu_torch import inference
+from human_instance_segmentation_tpu_torch.ops.norms import get_normalization
 from human_instance_segmentation_tpu_torch.weights import from_jax_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -118,29 +122,120 @@ def test_model_from_config_is_seeded_and_takes_overrides():
     assert tail.pretrained_unet.pallas_tail and tail.pretrained_unet.encoder.fused_blocks == 3
 
 
-@pytest.mark.parametrize("name,item", [
-    ("baseline", "A8"),
-    ("rgb_hierarchical_unet_v2", "A8"),
-    ("rgb_hierarchical_unet_v2_pretrained_peopleseg_r64x48m64x48", "A8"),
-    ("rgb_hierarchical_unet_v2_attention_r64m64_refined_batchnorm", "A8"),
-    ("rgb_hierarchical_unet_v2_distillation_b0_from_b3", "A8"),
+def _strict_jax_load(jc, model, hw=(64, 64)):
+    """Load the JAX ``model_from_config`` variables of ``jc`` (shapes from
+    ``jax.eval_shape``, zeros) into ``model`` strictly."""
+    jm = jcfg.model_from_config(jc)
+    shapes = jax.eval_shape(lambda r: jm.init(r, jnp.zeros((1, *hw, 3)), jnp.zeros((1, 5)),
+                                              train=False), jax.random.PRNGKey(0))
+    variables = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    model.load_state_dict(from_jax_params(variables, model), strict=True)
+    return jm
+
+
+# The ids are the ones these cases had while only the baseline stayed out of
+# reach: the pure-RGB and ROI-pretrained families (ROADMAP A8 until this
+# slice) now build as the JAX dispatch builds them.
+@pytest.mark.parametrize("name,want", [
+    pytest.param("baseline", "A8", id="baseline-A8"),
+    pytest.param("rgb_hierarchical_unet_v2", "PureRGBHierarchicalModel",
+                 id="rgb_hierarchical_unet_v2-A8"),
+    pytest.param("rgb_hierarchical_unet_v2_pretrained_peopleseg_r64x48m64x48",
+                 "ROIPretrainedHierarchicalModel",
+                 id="rgb_hierarchical_unet_v2_pretrained_peopleseg_r64x48m64x48-A8"),
+    pytest.param("rgb_hierarchical_unet_v2_attention_r64m64_refined_batchnorm",
+                 "PureRGBHierarchicalModel",
+                 id="rgb_hierarchical_unet_v2_attention_r64m64_refined_batchnorm-A8"),
+    pytest.param("rgb_hierarchical_unet_v2_distillation_b0_from_b3", "PureRGBHierarchicalModel",
+                 id="rgb_hierarchical_unet_v2_distillation_b0_from_b3-A8"),
 ])
-def test_other_families_raise(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        pcfg.model_from_config(pcfg.ConfigManager.get_config(name), device="cpu")
+def test_other_families_raise(name, want, monkeypatch):
+    """The baseline still raises, naming A8; the other hierarchical configs
+    build the JAX dispatch's class and load its variables strictly (the
+    seeded draw is skipped: the load overwrites every leaf)."""
+    monkeypatch.setattr(inference, "init_weights", lambda model, seed=0: None)
+    pc = pcfg.ConfigManager.get_config(name)
+    if want == "A8":
+        with pytest.raises(NotImplementedError, match=want):
+            pcfg.model_from_config(pc, device="cpu")
+        return
+    jc = jcfg.ConfigManager.get_config(name)
+    for c in (pc, jc):
+        c.model.image_size = (64, 64)  # no parameter depends on it
+    model = pcfg.model_from_config(pc, device="cpu")
+    jm = _strict_jax_load(jc, model)
+    assert type(model).__name__ == type(jm).__name__ == want
+    assert model.roi_size == tuple(jm.roi_size) and model.mask_size == tuple(jm.mask_size)
+    if want == "ROIPretrainedHierarchicalModel":
+        assert model.freeze_pretrained is jm.freeze_pretrained is False
+    assert not model.training
 
 
+@pytest.mark.parametrize("name", ["rgb_hierarchical_unet_v2_multiscale", "variable_roi"])
+def test_multiscale_and_variable_roi_raise(name):
+    """The multi-scale and variable-ROI models stay in ROADMAP A8."""
+    cfg = pcfg.ConfigManager.get_config("rgb_hierarchical_unet_v2")
+    if name == "variable_roi":
+        cfg.model.use_rgb_hierarchical = cfg.model.use_hierarchical_unet_v2 = False
+        cfg.model.variable_roi_sizes = {"layer_34": 28}
+    else:
+        cfg.model.multi_scale = True
+    with pytest.raises(NotImplementedError, match="A8"):
+        pcfg.model_from_config(cfg, device="cpu")
+
+
+def test_every_rgb_family_config_builds(monkeypatch):
+    """Every registered config of the pure-RGB and ROI-pretrained families
+    builds the JAX dispatch's class with the config's sizes, norm,
+    activation, attention flag and (ROI-pretrained) encoder and freezing
+    (constructed on the meta device, weights not drawn)."""
+    monkeypatch.setattr(inference, "init_weights", lambda model, seed=0: None)
+    n = 0
+    for name in pcfg.ConfigManager.list_configs():
+        m = pcfg.ConfigManager.get_config(name).model
+        hier = m.use_rgb_hierarchical or m.use_hierarchical_unet_v2 or m.use_hierarchical
+        if not hier or m.multi_scale or (m.use_pretrained_unet and m.use_full_image_unet):
+            continue
+        jm = jcfg.model_from_config(jcfg.ConfigManager.get_config(name))
+        with torch.device("meta"):
+            model = pcfg.model_from_config(pcfg.ConfigManager.get_config(name), device="meta")
+        assert type(model).__name__ == type(jm).__name__, name
+        assert (model.roi_size, model.mask_size, model.image_size) == (
+            tuple(jm.roi_size), tuple(jm.mask_size), tuple(jm.image_size)), name
+        head = model.head
+        assert (head.tnt_satt is not None) == jm.use_attention_module, name
+        assert type(head.tnt_norm) is type(get_normalization(jm.norm, 16, jm.norm_groups)), name
+        if type(jm).__name__ == "ROIPretrainedHierarchicalModel":
+            assert model.freeze_pretrained == jm.freeze_pretrained, name
+            assert len(model.pretrained_unet.encoder.stages[1]) == {"b3": 3}[jm.encoder_variant]
+        n += 1
+    assert n >= 40
+
+
+# The ids are the ones these cases had while the flags were refused (ROADMAP
+# A3): each flag now builds, and the flagship with it loads the JAX model's
+# variables strictly.
 @pytest.mark.parametrize("mods", [
     {"use_attention_module": True}, {"use_boundary_refinement": True},
     {"use_progressive_upsampling": True}, {"use_subpixel_conv": True},
     {"normalization_type": "batchnorm"}, {"activation_function": "swish"},
     {"freeze_pretrained_weights": False},
 ])
-def test_flagship_modules_not_ported_raise(mods):
-    cfg = pcfg._deep_merge(pcfg.ConfigManager.get_config(TREES[0]), {"model": mods})
-    cfg.model.encoder_name = "tiny"
-    with pytest.raises(NotImplementedError, match="A3"):
-        pcfg.model_from_config(cfg, device="cpu")
+def test_flagship_modules_not_ported_raise(mods, monkeypatch):
+    monkeypatch.setattr(inference, "init_weights", lambda model, seed=0: None)
+    pc = pcfg._deep_merge(pcfg.ConfigManager.get_config(TREES[0]), {"model": mods})
+    jc = jcfg._deep_merge(jcfg.ConfigManager.get_config(TREES[0]), {"model": mods})
+    for c in (pc, jc):
+        c.model.encoder_name = "tiny"
+        c.model.image_size = (64, 64)
+    model = pcfg.model_from_config(pc, device="cpu")
+    _strict_jax_load(jc, model)
+    assert model.freeze_pretrained == pc.model.freeze_pretrained_weights
+    head = model.head
+    assert (head.base_head.tnt_satt is not None) == pc.model.use_attention_module
+    assert (head.boundary is not None) == pc.model.use_boundary_refinement
+    assert (head.progressive is not None) == pc.model.use_progressive_upsampling
+    assert (head.subpixel is not None) == pc.model.use_subpixel_conv
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal on a host without CUDA")

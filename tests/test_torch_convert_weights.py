@@ -447,6 +447,18 @@ class _Inverse:
             i += 1
         self.conv(f"{prefix}segmentation_head.0", p["seg_head"])
 
+    def guided_head(self, prefix, h):
+        fp, cls = f"{prefix}.feature_processor", f"{prefix}.final_classifier"
+        self.conv(f"{prefix}.input_adjust", h["input_adjust"])
+        self.cna(f"{fp}.0", f"{fp}.1", h["fp_in"])
+        self.res(f"{fp}.4", h["fp_res0"])
+        self.res(f"{fp}.6", h["fp_res1"])
+        self.cna(f"{cls}.0", f"{cls}.1", h["cls0"])
+        self.conv(f"{cls}.3", h["cls_out"])
+        if "att0" in h:
+            self.conv(f"{prefix}.attention_module.0", h["att0"])
+            self.conv(f"{prefix}.attention_module.2", h["att1"])
+
     def enhanced_unet(self, prefix, p, depth):
         self.cna(f"{prefix}.encoders.0.0", f"{prefix}.encoders.0.1", p["enc0_in"])
         self.res(f"{prefix}.encoders.0.3", p["enc0_res0"])
@@ -479,8 +491,12 @@ class _Inverse:
                      rp[f"conv{i}"])
             self.res(f"rgb_feature_extractor.{ri}", rp[f"res{i}"])
         self.cna("rgb_feature_extractor.12", "rgb_feature_extractor.13", rp["proj"])
+        h = p["head"]
+        if "feature_combiner" not in p:
+            self.guided_head("segmentation_head", h)
+            return {k: np.array(v, order="C") for k, v in self.sd.items()}
         self.conv("feature_combiner", p["feature_combiner"])
-        h, b = p["head"], "segmentation_head.base_head"
+        b = "segmentation_head.base_head"
         bh = h["base_head"]
         self.cna(f"{b}.shared_features.0", f"{b}.shared_features.1", bh["shared_in"])
         self.res(f"{b}.shared_features.4", bh["shared_res0"])
@@ -492,11 +508,21 @@ class _Inverse:
         for g, i in (("gate0", 0), ("gate1", 3), ("gate2", 5)):
             self.conv(f"{b}.fg_gate.{i}", bh[g])
         t = f"{b}.target_vs_nontarget_branch"
-        self.res(f"{t}.0", bh["tnt_res0"])
-        self.deconv(f"{t}.2", bh["tnt_deconv"])
-        self.norm(f"{t}.3", bh["tnt_norm"])
-        self.res(f"{t}.6", bh["tnt_res1"])
-        self.conv(f"{t}.7", bh["tnt_out"])
+        if "tnt_satt" in bh:  # ModuleList(res, satt, drop, deconv, norm, act, catt, drop, res, conv)
+            self.res(f"{t}.0", bh["tnt_res0"])
+            self.conv(f"{t}.1.conv", bh["tnt_satt"]["conv"])
+            self.deconv(f"{t}.3", bh["tnt_deconv"])
+            self.norm(f"{t}.4", bh["tnt_norm"])
+            self.conv(f"{t}.6.fc1", bh["tnt_catt"]["fc1"])
+            self.conv(f"{t}.6.fc2", bh["tnt_catt"]["fc2"])
+            self.res(f"{t}.8", bh["tnt_res1"])
+            self.conv(f"{t}.9", bh["tnt_out"])
+        else:
+            self.res(f"{t}.0", bh["tnt_res0"])
+            self.deconv(f"{t}.2", bh["tnt_deconv"])
+            self.norm(f"{t}.3", bh["tnt_norm"])
+            self.res(f"{t}.6", bh["tnt_res1"])
+            self.conv(f"{t}.7", bh["tnt_out"])
         c = "segmentation_head.contour_branch.contour_branch"
         self.cna(f"{c}.0", f"{c}.1", h["contour"]["c0"])
         self.cna(f"{c}.3", f"{c}.4", h["contour"]["c1"])
@@ -506,6 +532,13 @@ class _Inverse:
         self.res(f"{d}.3", h["distance"]["d_res"])
         self.conv(f"{d}.4", h["distance"]["out"])
         self.sd["segmentation_head.distance_decoder.threshold"] = h["distance"]["threshold"]
+        if "boundary" in h:
+            e, bp = "segmentation_head.boundary_refiner", h["boundary"]
+            for name, i in (("edge0", 0), ("edge1", 3), ("edge_out", 6)):
+                self.conv(f"{e}.edge_conv.{i}", bp[name])
+            self.norm(f"{e}.edge_conv.1", bp["edge_norm0"])
+            self.norm(f"{e}.edge_conv.4", bp["edge_norm1"])
+            self.sd[f"{e}.blend_weight"] = bp["blend_weight"]
         return {k: np.array(v, order="C") for k, v in self.sd.items()}
 
 
@@ -636,10 +669,14 @@ def test_convert_round_trip_structure():
 @pytest.mark.parametrize("case", ["unconsumed", "missing", "guided_head", "attention_module",
                                   "attention_flag", "boundary_refiner", "unfilled", "bad_shape"])
 def test_flagship_converter_raises(flagship, case):
-    """A key no port parameter takes, a key the converter needs, a head the
-    port does not have yet (guided head, attention module, boundary refiner:
-    ROADMAP A3), and with ``model``: a port parameter left unfilled, a
-    shape that differs."""
+    """A key no port parameter takes, a key the converter needs, and with
+    ``model``: a port parameter left unfilled, a shape that differs. The
+    guided head, the attention module and the boundary refiner convert now
+    (``test_a3_heads_convert_like_jax``); a checkpoint that holds only part
+    of one raises: no feature_combiner reads the head as a guided head whose
+    keys are missing, an attention key without ``use_attention_module`` is
+    taken by nothing, ``use_attention_module`` on a plain head misses the
+    attention keys, a lone edge conv misses the rest of the refiner."""
     _, _, sd = flagship
     sd = dict(sd)
     kw, err, match = {}, KeyError, None
@@ -651,17 +688,17 @@ def test_flagship_converter_raises(flagship, case):
         match = "rgb_feature_extractor.13.weight"
     elif case == "guided_head":
         del sd["feature_combiner.weight"], sd["feature_combiner.bias"]
-        err, match = NotImplementedError, "A3"
+        match = "segmentation_head.input_adjust.weight"
     elif case == "attention_module":
         sd["segmentation_head.base_head.target_vs_nontarget_branch.1.conv.weight"] = np.zeros(
             (1, 2, 7, 7), np.float32)
-        err, match = NotImplementedError, "A3"
+        match = r"target_vs_nontarget_branch\.1\.conv\.weight"
     elif case == "attention_flag":
-        kw, err, match = {"use_attention_module": True}, NotImplementedError, "A3"
+        kw, match = {"use_attention_module": True}, r"target_vs_nontarget_branch\.1\.conv"
     elif case == "boundary_refiner":
         sd["segmentation_head.boundary_refiner.edge_conv.0.weight"] = np.zeros(
             (1, 1, 3, 3), np.float32)
-        err, match = NotImplementedError, "A3"
+        match = r"boundary_refiner\.edge_conv\.1\.weight"
     elif case == "unfilled":  # a checkpoint without the contour branch
         for k in [k for k in sd if ".contour_branch." in k]:
             del sd[k]
@@ -671,6 +708,39 @@ def test_flagship_converter_raises(flagship, case):
         kw, err, match = {"model": _tiny_port()}, ValueError, "threshold"
     with pytest.raises(err, match=match):
         cw.convert_flagship_checkpoint(sd, variant="tiny", **kw)
+
+
+A3_HEADS = {
+    "attention_boundary": dict(use_attention_module=True, use_boundary_refinement=True),
+    "guided": dict(use_guided_head=True),
+    "guided_attention": dict(use_guided_head=True, use_attention_module=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(A3_HEADS))
+def test_a3_heads_convert_like_jax(case):
+    """``convert_hierarchical_head_v2``'s attention form, the boundary
+    refiner of ``convert_refined_head`` and ``convert_guided_head``, through
+    ``convert_flagship_checkpoint``: a reference-layout state_dict made from
+    JAX variables converts to exactly ``from_jax_params`` of the JAX
+    converter's output, which is the port model's full state_dict."""
+    flags = A3_HEADS[case]
+    jmodel = JaxSegmenter(encoder_variant="tiny", stage1_upsample_mode="nearest", **TINY,
+                          **flags)
+    v = fast_init(jmodel, jnp.zeros((1, 64, 96, 3)), jnp.zeros((1, 5)), train=False, seed=5)
+    sd = _Inverse().flagship(_perturbed(v, seed=6), VARIANTS["tiny"][1])
+    att = flags.get("use_attention_module", False)
+    port = create_flagship(variant="tiny", device="cpu", stage1_upsample_mode="nearest", seed=0,
+                           **TINY, **flags)
+    want = from_jax_params(jcw.convert_flagship_checkpoint(sd, variant="tiny",
+                                                           use_attention_module=att), port)
+    got = cw.convert_flagship_checkpoint(sd, variant="tiny", use_attention_module=att,
+                                         model=port)
+    assert set(got) == set(want) == set(port.state_dict())
+    for k, t in want.items():
+        assert got[k].dtype == t.dtype and got[k].shape == t.shape, k
+        assert torch.equal(got[k], t), k
+    port.load_state_dict(got, strict=True)
 
 
 def test_stage1_converter_raises(oracle):

@@ -132,7 +132,7 @@ def test_batchnorm_eval(rng, eps):
          "batch_stats": {"mean": (0.5 * rng.standard_normal(c)).astype(np.float32),
                          "var": (rng.random(c) + 0.5).astype(np.float32)}}
     ref = fnn.BatchNorm(use_running_average=True, epsilon=eps).apply(v, jnp.asarray(x))
-    bn = BatchNorm2d(c, eps)
+    bn = BatchNorm2d(c, eps).eval()  # running statistics (train mode uses the batch's)
     with torch.no_grad():
         bn.weight.copy_(torch.from_numpy(v["params"]["scale"]))
         bn.bias.copy_(torch.from_numpy(v["params"]["bias"]))

@@ -192,7 +192,7 @@ def test_train_step_matches_jax(ref, which):
     ls = (HierarchicalLossState.create() if which == "fresh" else HierarchicalLossState(
         **{k: torch.tensor(v) for k, v in WARM.items()}, initialized=torch.tensor(True)))
     model.train()
-    loss, (new_ls, metrics) = psteps.make_loss_fn(model, loss_cfg)(
+    loss, (new_ls, _, metrics) = psteps.make_loss_fn(model, loss_cfg)(
         ls, torch.Generator().manual_seed(0), psteps.batch_to(ref["batches"][0], "cpu"))
     np.testing.assert_allclose(float(loss.detach()), r["loss"], rtol=RTOL, atol=ATOL)
     assert set(metrics) == set(r["metrics"])
@@ -293,11 +293,25 @@ def test_fused_stage1_follows_the_decayed_weights(ref):
     assert float((after - before).abs().max()) > 1e-3
 
 
-def test_unfrozen_stage1_raises():
+def test_unfrozen_stage1_raises(ref):
+    """Refused until the BatchNorm train mode landed; now an unfrozen stage
+    1 trains: ``train()`` reaches it, a gradient reaches its parameters, and
+    a step moves its parameters and its running statistics (their parity
+    with JAX: tests/test_torch_batch_stats.py)."""
     cfg = _tiny(pcfg.ConfigManager.get_config(FLAGSHIP))
     cfg.model.freeze_pretrained_weights = False
-    with pytest.raises(NotImplementedError, match="A3"):
-        pcfg.model_from_config(cfg, device="cpu", **TINY_MODEL)
+    model = pcfg.model_from_config(cfg, device="cpu", **TINY_MODEL)
+    load_jax_params(model, ref["variables"])
+    model.train()
+    assert model.pretrained_unet.training and model.unet_wrapper.training
+    stem = model.pretrained_unet.encoder.stem_conv.weight.detach().clone()
+    stats = model.pretrained_unet.encoder.stem_bn.running_mean.clone()
+    state = TrainState.create(model, _port_tx(), seed=1)
+    state, _ = psteps.make_train_step(model, pcfg.loss_config_from_experiment(cfg))(
+        state, ref["batches"][0])
+    assert state.skipped == 0
+    assert not torch.equal(model.pretrained_unet.encoder.stem_conv.weight.detach(), stem)
+    assert not torch.equal(model.pretrained_unet.encoder.stem_bn.running_mean, stats)
 
 
 def test_dropout2d_drops_whole_channels():
@@ -446,6 +460,45 @@ def test_checkpoint_resume_is_bit_exact(ref, tmp_path):
         assert torch.equal(a, b)
     for k, v in state.loss_state.state_dict().items():
         assert torch.equal(v, state2.loss_state.state_dict()[k]), k
+
+
+STAGED = {
+    # (stage_schedule, steps_per_epoch, steps before the restore, steps in all)
+    "stage_at_0": ({0: {"freeze_pretrained": True}}, 100, 2, 4),
+    "stage_after_restore": ({1: {"freeze_pretrained": True, "lr_scale": 0.5}}, 2, 2, 4),
+    "restored_under_stage": ({0: {"freeze_head": False}, 1: {"freeze_rgb_extractor": True}},
+                             2, 3, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGED))
+def test_staged_resume_is_bit_exact(case, tmp_path):
+    """ROADMAP C8: a run with a ``stage_schedule``, stopped and resumed from
+    its checkpoint, ends bit for bit where the uninterrupted run ends:
+    parameters, running statistics, optimizer state, loss state and the
+    last loss. The cases: a stage from step 0, a stage that starts at the
+    restored step (applied by the resumed loop) and a checkpoint written
+    under a later stage than the first."""
+    from human_instance_segmentation_tpu_torch.training.loop import run_training
+
+    schedule, spe, first, total = STAGED[case]
+    kw = dict(synthetic=True, tiny=True, device="cpu", steps_per_epoch=spe, return_state=True,
+              config_modifications={"training": {"stage_schedule": schedule}})
+    whole, ws = run_training(FLAGSHIP, steps=total, output_dir=str(tmp_path / "a"), **kw)
+    run_training(FLAGSHIP, steps=first, output_dir=str(tmp_path / "b"), **kw)
+    resumed, rs = run_training(FLAGSHIP, steps=total, output_dir=str(tmp_path / "b"),
+                               resume=True, **kw)
+    assert rs.step == ws.step == total and rs.skipped == ws.skipped == 0
+    assert resumed["total_loss"] == whole["total_loss"]
+    for (n, a), b in zip(ws.model.state_dict().items(), rs.model.state_dict().values()):
+        assert torch.equal(a, b), n
+    wo, ro = ws.optimizer.state_dict(), rs.optimizer.state_dict()
+    assert wo["count"] == ro["count"] and len(wo["count"]) == 2  # the staged groups
+    for slot in ("mu", "nu"):
+        for k, t in wo[slot].items():
+            assert torch.equal(t, ro[slot][k]), (slot, k)
+    for k, v in ws.loss_state.state_dict().items():
+        assert torch.equal(v, rs.loss_state.state_dict()[k]), k
 
 
 def test_checkpoints_keep_the_newest(ref, tmp_path):
