@@ -20,7 +20,8 @@ package beside the script; it imports nothing of JAX. Phases:
    ``fused_head=False`` and ``pallas_roi_align=False`` (the plain path) in
    float32 and in bf16 (see :func:`serve_and_compare`); repeated at
    ``mid_channels=256``;
-5. timing: batch 32 x 1 ROI forwards, kernel path vs plain path;
+5. timing: batch 32 x 1 ROI forwards, kernel path vs plain path, each
+   engine warmed by ``InferenceEngine.warmup`` at the timed shape;
 6. int8 kernels (:func:`check_int8_kernels`): (a) the s8 conv (qconv2d)
    against its plain version at ten shapes of the slice (both regimes of
    the kernel, every ragged channel count; float, int8, unaligned, NCHW-memory
@@ -75,7 +76,8 @@ package beside the script; it imports nothing of JAX. Phases:
     :func:`time_train_steps`): (a) ``run_training`` on the deployed B0
     config at 480 x 640, synthetic, bf16, 5 steps, with ``pallas_tail`` and
     ``encoder_fused_blocks=6`` (every step finite, launches of the run
-    asserted, the checkpoint restored to an equal state, the trained model
+    asserted: a stage-1 forward a step, a validation batch and the
+    end-of-run picture, the checkpoint restored to an equal state, the trained model
     served against its plain path with phase 4's gates); (b) the train step
     with both stage-1 kernels against the same weights without them in
     float32 and bf16 (6 + 6 ``fused_mbconv`` and 1 ``tail`` launch a step;
@@ -99,7 +101,25 @@ package beside the script; it imports nothing of JAX. Phases:
     no stage-1 kernel launched, its stage 1 then served through the kept
     fused caches against a model without the kernels on the trained
     weights, and the trained model served (bf16 and float32) against its
-    plain path under phase 4's gates with launches per forward; ms per step.
+    plain path under phase 4's gates with launches per forward; ms per step;
+16. training on COCO data, the deployed config of phase 14 (:func:`coco_tree`,
+    :func:`loader_alone`, :func:`train_on_coco`, :func:`fed_step_times`,
+    :func:`learnability`): (a) synthetic COCO trees written by the port's
+    generator at 480 x 640 (64 train, 16 val images), the native mask
+    codec required; (b) ``ThreadedLoader`` alone for one epoch with the
+    config's workers and augmentation, images per second, the batch
+    contract, and ``prefetch_to_device`` equal to the host batches; (c)
+    ``run_training`` on that tree, 2 epochs of 8 steps: finite, validation
+    and the curated 1/2/3/5-person renders at both epochs, the end-of-run
+    picture, last and best checkpoints restored, the fused stage-1 launches
+    equal to the run's stage-1 forwards, ``training.metrics`` on the card
+    equal to the CPU's; (d) ms per train step fed by the loader, by batches
+    already on the card and by the loader through ``prefetch_to_device``,
+    in turns, with the host's wait for a batch and the device idle share,
+    a difference of medians called resolved only where it exceeds the
+    spread between quartiles of both feeds; (e) the JAX package's learnability test on the port (tiny model, 64 x
+    64, Adam, 15 epochs): the loss falls below 0.7 x its first value and
+    target mIoU passes 0.25.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -1218,9 +1238,11 @@ def time_forwards(served, plain, card: str, rng) -> None:
     rois_t = torch.tensor(pad_rois(rois, batch), device="cuda")
     times = {"kernel": [], "plain": []}
     engines = {"kernel": served, "plain": plain}
+    for engine in engines.values():  # the timed shape, before any timing
+        engine.warmup(batch=batch, buckets=(batch,))
     for name in ("plain", "kernel", "kernel", "plain"):
         times[name].append(median_ms(lambda: engines[name].forward(images_t, rois_t),
-                                     reps=TIMING_REPS // 2))
+                                     reps=TIMING_REPS // 2, warmup=0))
     for name, ms in times.items():
         med = statistics.median(ms)
         busy, kernels, _ = forward_profile(engines[name], images_t, rois_t)
@@ -2223,8 +2245,8 @@ def train_entry_point(card: str, rng) -> dict:
     """Phase 14 (a): ``run_training`` on the deployed B0 config at 480 x 640,
     synthetic, bf16, 5 steps, with the fused tail and the six fused encoder
     blocks. Gates: every step finite (``skipped == 0``), the launches of the
-    run (5 train steps and the 2 validation batches, one stage-1 forward
-    each), the last checkpoint restoring into a fresh state to an equal
+    run (5 train steps, the 2 validation batches and the end-of-run picture,
+    one stage-1 forward each), the last checkpoint restoring into a fresh state to an equal
     state, and the trained model served through ``InferenceEngine(bf16,
     fused_head=True)`` passing the phase 4 gates against its own plain path.
     Returns the launch counts of the run."""
@@ -2253,7 +2275,7 @@ def train_entry_point(card: str, rng) -> dict:
                                   model_overrides=TRAIN_KERNELS, return_state=True)
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
-    forwards = TRAIN_STEPS + 2  # and the two held-out validation batches
+    forwards = TRAIN_STEPS + 2 + 1  # + the two validation batches and the end-of-run picture
     want = {k: n * forwards for k, n in TRAIN_PER_STEP.items()}
     rows = [json.loads(line) for f in sorted((out / "logs").glob("*.jsonl"))
             for line in f.read_text().splitlines()]
@@ -2989,6 +3011,427 @@ def train_and_serve_a3_flagship(card: str, rng) -> dict:
     return served_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training on COCO data
+# ---------------------------------------------------------------------------
+
+PHASE16_DIR = ROOT / "build" / "phase16_coco"
+# the synthetic COCO trees of 16a, written by the port's generator at the
+# flagship's 480 x 640: (images, seed); the val seed gives images with 1, 2,
+# 3 and 5 instances, so every curated scene is there
+COCO_TRAIN = (64, 0)
+COCO_VAL = (16, 1)
+COCO_MAX_INSTANCES = 5
+PHASE16_STEPS = 16  # two epochs of 64 // 8 steps
+# 16d: steps of each fed run per round, the first FED_DRAIN untimed (they
+# drain what the loader built while another run had the card); four rounds
+# a feed, in an order that gives each the same neighbours
+FED_DRAIN = 6
+FED_STEPS = 8
+FED_ROUNDS = ("loader", "on card", "loader + prefetch", "loader + prefetch", "on card",
+              "loader") * 2
+# the batch contract (training/steps.py) at the deployed config
+BATCH_CONTRACT = {"images": ((8, *IMAGE_HW, 3), "float32"), "boxes": ((8, 8, 4), "float32"),
+                  "masks": ((8, 8, *MASK_HW), "int32"), "valid": ((8, 8), "float32"),
+                  "image_id": ((8,), "int64")}
+
+
+def coco_tree(card: str) -> dict:
+    """Phase 16 (a): write the train and val trees with the port's
+    ``generate_synthetic_coco``; print how long it took, the val set's
+    instance counts and whether the native codec loaded (it must)."""
+    import shutil
+    from collections import Counter
+
+    from human_instance_segmentation_tpu_torch.data import COCOIndex, native
+    from human_instance_segmentation_tpu_torch.data.synthetic import generate_synthetic_coco
+
+    shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = {}
+    sizes = (COCO_TRAIN, COCO_VAL)
+    for split, (n, seed) in zip(("train", "val"), sizes):
+        ann, imgs = generate_synthetic_coco(str(PHASE16_DIR / split), n_images=n,
+                                            image_size=IMAGE_HW,
+                                            max_instances=COCO_MAX_INSTANCES, seed=seed)
+        tree[split] = (ann, imgs)
+    wall = time.perf_counter() - t0
+    lib = native.get_lib()
+    val = COCOIndex(tree["val"][0])
+    counts = Counter(len(val.get_ann_ids(i, iscrowd=False)) for i in val.get_img_ids())
+    print(f"synthetic COCO at {IMAGE_HW[0]}x{IMAGE_HW[1]}: {sizes[0][0]} train + {sizes[1][0]} val "
+          f"images (max {COCO_MAX_INSTANCES} instances) written in {wall:.3f} s; val images by "
+          f"instance count {dict(sorted(counts.items()))}; native codec "
+          f"{'loaded: ' + lib._name if lib is not None else 'NOT loaded: ' + str(native.build_error)}"
+          f" [{card}]")
+    if lib is None:
+        raise AssertionError(f"the native mask codec did not load: {native.build_error}")
+    return tree
+
+
+def coco_config(tree: dict):
+    """The deployed config at 480 x 640 on the tree of 16a."""
+    from human_instance_segmentation_tpu_torch.config import ConfigManager, _deep_merge
+
+    return _deep_merge(ConfigManager.get_config(TRAIN_CONFIG), coco_mods(tree))
+
+
+def coco_mods(tree: dict) -> dict:
+    mods = json.loads(json.dumps(TRAIN_MODS))
+    mods.setdefault("data", {}).update(
+        train_annotation=tree["train"][0], train_img_dir=tree["train"][1],
+        val_annotation=tree["val"][0], val_img_dir=tree["val"][1])
+    mods.setdefault("training", {})["validate_every"] = 1
+    return mods
+
+
+def coco_dataset(cfg, split: str, augment: bool):
+    from human_instance_segmentation_tpu_torch.config import _as_hw
+    from human_instance_segmentation_tpu_torch.data import (AugmentConfig,
+                                                            COCOInstanceSegmentationDataset,
+                                                            DatasetConfig)
+
+    d = cfg.data
+    ann, imgs = ((d.train_annotation, d.train_img_dir) if split == "train"
+                 else (d.val_annotation, d.val_img_dir))
+    ds_cfg = DatasetConfig(image_size=_as_hw(cfg.model.image_size),
+                           mask_size=_as_hw(cfg.model.mask_size),
+                           rois_per_image=d.rois_per_image, roi_padding=d.roi_padding)
+    aug = (AugmentConfig(heavy=d.use_heavy_augmentation)
+           if augment and d.use_augmentation else None)
+    return COCOInstanceSegmentationDataset(ann, imgs, ds_cfg, augment=aug)
+
+
+def loader_alone(card: str, tree: dict) -> list:
+    """Phase 16 (b): ``ThreadedLoader`` over the train set with the config's
+    workers, prefetch and augmentation, one epoch: images per second, ms per
+    batch, the batch contract's shapes and dtypes; then the same batches
+    through ``prefetch_to_device(size=2)``, equal on the card to the host's.
+    Returns the host batches."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.data.loader import (ThreadedLoader,
+                                                                   prefetch_to_device)
+
+    cfg = coco_config(tree)
+    ds = coco_dataset(cfg, "train", augment=True)
+    bs = cfg.training.batch_size
+    loader = ThreadedLoader(ds, bs, num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch)
+    t0 = time.perf_counter()
+    host = list(loader.epoch(0))
+    wall = time.perf_counter() - t0
+    n_img = len(host) * bs
+    print(f"ThreadedLoader, {cfg.data.num_workers} workers, prefetch {cfg.data.prefetch}, "
+          f"augmentation {'heavy' if cfg.data.use_heavy_augmentation else 'light'}: one epoch of "
+          f"{len(host)} batches x {bs} images ({IMAGE_HW[0]}x{IMAGE_HW[1]}, "
+          f"{cfg.data.rois_per_image} rois, masks {MASK_HW[0]}x{MASK_HW[1]}) in {wall:.3f} s: "
+          f"{n_img / wall:.1f} images/s, "
+          f"{1e3 * wall / len(host):.2f} ms per batch (host clock, threads started cold) [{card}]")
+    if len(host) != len(ds) // bs:
+        raise AssertionError(f"{len(host)} batches, expected {len(ds) // bs}")
+    for b in host:
+        got = {k: (tuple(v.shape), str(v.dtype)) for k, v in b.items()}
+        want = {k: (tuple(s), d) for k, (s, d) in BATCH_CONTRACT.items()}
+        if got != want:
+            raise AssertionError(f"batch {got} does not meet the contract {want}")
+    t0 = time.perf_counter()
+    on_dev = list(prefetch_to_device(iter(host), size=2, device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = len(on_dev) == len(host) and all(
+        v.is_cuda and torch.equal(v.cpu(), torch.from_numpy(h[k]))
+        for d, h in zip(on_dev, host) for k, v in d.items())
+    print(f"prefetch_to_device(size=2) of the {len(host)} batches to the card: {wall:.3f} s, equal "
+          f"to the host batches {same}")
+    if not same:
+        raise AssertionError("prefetch_to_device changed a batch")
+    return host
+
+
+def stage1_forwards_of_run(cfg, steps: int, validations: int, curated: int) -> int:
+    """Stage-1 forwards in ``run_training`` on COCO data: one a train step;
+    at each validation one a padded val batch and one a curated render; one
+    for the end-of-run picture."""
+    import math
+
+    val_batches = math.ceil(len(coco_dataset(cfg, "val", augment=False)) /
+                            cfg.training.batch_size)
+    return steps + validations * (val_batches + curated) + 1
+
+
+def train_on_coco(card: str, tree: dict) -> dict:
+    """Phase 16 (c): ``run_training`` of the deployed config on the tree of
+    16a, 2 epochs of 8 steps with ``validate_every=1``. Gates: every loss
+    finite and ``skipped == 0``; ``val_miou`` logged at both epochs; a
+    curated grid and its ``_aux.png`` for every label at both epochs;
+    ``val_step16.png``; the last and the best checkpoints restored into a
+    fresh state, the last equal to the trained state, the best at its
+    logged validation; the launches of the fused stage-1 kernels equal to
+    the run's stage-1 forwards times their launches a forward; and the
+    trained model's metric sums on one val batch, ``training.metrics`` on
+    the card against the same on the CPU (``bincount`` counts exact).
+    Returns the launches."""
+    import json as _json
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import model_from_config
+    from human_instance_segmentation_tpu_torch.data import padded_batch_iterator
+    from human_instance_segmentation_tpu_torch.training import metrics as tmetrics
+    from human_instance_segmentation_tpu_torch.training import steps as tsteps
+    from human_instance_segmentation_tpu_torch.training.checkpoint import restore_checkpoint
+    from human_instance_segmentation_tpu_torch.training.loop import curated_scenes, run_training
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      constant_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    cfg = coco_config(tree)
+    steps = PHASE16_STEPS
+    out = ROOT / "build" / "phase16_run"
+    shutil.rmtree(out, ignore_errors=True)
+    counters = train_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    metrics, state = run_training(TRAIN_CONFIG, steps=steps, output_dir=str(out), device="cuda",
+                                  config_modifications=coco_mods(tree),
+                                  model_overrides=TRAIN_KERNELS, return_state=True)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    val_ds = coco_dataset(cfg, "val", augment=False)
+    labels = [lab for lab, _ in curated_scenes(val_ds.samples)]
+    spe = len(coco_dataset(cfg, "train", augment=False)) // cfg.training.batch_size
+    epochs = steps // spe
+    forwards = stage1_forwards_of_run(cfg, steps, epochs, len(labels))
+    want = {k: n * forwards for k, n in TRAIN_PER_STEP.items()}
+    rows = [_json.loads(line) for f in sorted((out / "logs").glob("*.jsonl"))
+            for line in f.read_text().splitlines()]
+    losses = [r["total_loss"] for r in rows if "total_loss" in r]
+    val_rows = [(r["step"], r["val_miou"]) for r in rows if "val_miou" in r]
+    viz = out / "visualizations"
+    pictures = sorted(p.name for p in viz.glob("*.png"))
+    want_pictures = sorted([f"epoch{e:04d}_{lab}{s}.png" for e in range(epochs) for lab in labels
+                            for s in ("", "_aux")] + [f"val_step{steps}.png"])
+    print(f"run_training {TRAIN_CONFIG} on COCO ({len(val_ds)} val images; curated {labels}), "
+          f"{IMAGE_HW[0]}x{IMAGE_HW[1]}, {steps} steps = {epochs} epochs of {spe}, "
+          f"{cfg.training.compute_dtype}: {wall:.1f} s (model build, loader, steps, validation, "
+          f"renders, checkpoints); logged losses {losses}, skipped {state.skipped}, val mIoU by "
+          f"step {val_rows}; {len(pictures)} pictures; launches {launches} (expected {want}: "
+          f"{TRAIN_PER_STEP} per stage-1 forward x {forwards} = {steps} steps + {epochs} x "
+          f"(val batches + {len(labels)} curated) + 1 end-of-run) [{card}]")
+    if state.skipped or state.step != steps or not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"training went wrong: step {state.step}, skipped {state.skipped}, "
+                             f"losses {losses}")
+    if [s for s, _ in val_rows] != [spe * (e + 1) for e in range(epochs)]:
+        raise AssertionError(f"val_miou not logged at every epoch: {val_rows}")
+    if pictures != want_pictures or len(labels) != 4:
+        raise AssertionError(f"pictures {pictures}, expected {want_pictures}")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+
+    def fresh_restored(directory):
+        fresh = TrainState.create(model_from_config(cfg, seed=1, device="cuda", **TRAIN_KERNELS),
+                                  build_optimizer(constant_schedule(0.0)), seed=2)
+        return restore_checkpoint(str(directory), fresh)
+
+    def equal(a_state, b_state) -> bool:
+        a, b = a_state.model.state_dict(), b_state.model.state_dict()
+        return (a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+                and a_state.step == b_state.step and a_state.skipped == b_state.skipped
+                and all(torch.equal(a_state.optimizer.mu[k], b_state.optimizer.mu[k])
+                        and torch.equal(a_state.optimizer.nu[k], b_state.optimizer.nu[k])
+                        for k in a_state.optimizer.mu)
+                and torch.equal(a_state.generator.get_state(), b_state.generator.get_state()))
+
+    last, last_step = fresh_restored(out / "checkpoints")
+    best, best_step = fresh_restored(out / "checkpoints_best")
+    best_meta = _json.loads((out / "checkpoints_best" / f"metadata_{best_step}.json").read_text())
+    top_step, top = max(val_rows, key=lambda r: (r[1], -r[0]))
+    ok = (last_step == steps and equal(last, state) and best_step == top_step
+          and best_meta["val_miou"] == top and (best_step != steps or equal(best, state)))
+    print(f"last checkpoint (step {last_step}) restored equal to the trained state "
+          f"{equal(last, state)}; best checkpoint step {best_step}, val mIoU "
+          f"{best_meta['val_miou']} (the best logged: step {top_step}, {top})"
+          f"{', equal to the trained state' if best_step == steps else ''}")
+    if not ok:
+        raise AssertionError("a checkpoint does not restore to what the run logged")
+    del last, best
+
+    # the validation metrics on the card against the CPU on the same logits
+    vb = tsteps.batch_to(next(padded_batch_iterator(val_ds, cfg.training.batch_size)), "cuda")
+    logits, _ = tsteps.eval_forward(state.model, vb["images"], vb["boxes"])
+    mh, mw = vb["masks"].shape[-2:]
+    targets, valid = vb["masks"].reshape(-1, mh, mw), vb["valid"].reshape(-1)
+    on_dev = tmetrics.batch_metrics(logits, targets, valid)
+    on_cpu = tmetrics.batch_metrics(logits.cpu(), targets.cpu(), valid.cpu())
+    exact = all(torch.equal(on_dev[k].cpu(), on_cpu[k]) for k in ("cm3", "cm_bgfg", "cm_tnt"))
+    rel = max(float((on_dev[k].cpu() - on_cpu[k]).abs() / on_cpu[k].abs().clamp(min=1e-30))
+              for k in on_cpu if on_cpu[k].dim() == 0)
+    print(f"training.metrics.batch_metrics on the card vs the CPU on one val batch of "
+          f"{targets.numel()} pixels: confusion matrices equal {exact} (cm3 "
+          f"{on_dev['cm3'].long().tolist()}), largest relative difference of the sums {rel:.2e} "
+          f"(tol 1e-6); finalize_metrics target_miou "
+          f"{tmetrics.finalize_metrics(on_dev)['target_miou']:.4f}")
+    if not exact or rel > 1e-6:
+        raise AssertionError("the metric sums on the card differ from the CPU's")
+    del state
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fed_step_times(card: str, tree: dict, host: list) -> None:
+    """Phase 16 (d): the deployed bf16 train step (kernels, mid 256) fed by
+    ``ThreadedLoader(...).forever()`` over the train set (augmentation on),
+    by batches already on the card (phase 14c's way), and by the loader
+    through ``prefetch_to_device(size=2)``, in turns in one call: the median
+    ms per step and its quartiles (host clock from the request for a batch
+    to the step's end, synchronised), the host's wait in ``next(batches)``,
+    and the device idle share: busy time from ``torch.profiler`` over 3
+    steps of each against the median step (phase 14c's rule; the profiled
+    steps themselves run slower, since the profiler records every host op).
+    A difference of two feeds' medians is printed as resolved only where it
+    is larger than the spread between quartiles of each feed."""
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from human_instance_segmentation_tpu_torch.config import (loss_config_from_experiment,
+                                                              model_from_config)
+    from human_instance_segmentation_tpu_torch.data.loader import (ThreadedLoader,
+                                                                   prefetch_to_device)
+    from human_instance_segmentation_tpu_torch.training import steps as tsteps
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      build_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    cfg = coco_config(tree)
+    t = cfg.training
+    model = model_from_config(cfg, seed=0, device="cuda", **TRAIN_KERNELS)
+    tx = build_optimizer(build_schedule(t.learning_rate, t.num_epochs, len(host), t.scheduler,
+                                        t.min_lr, t.warmup_epochs),
+                         t.optimizer, t.weight_decay, t.gradient_clip)
+    state = TrainState.create(model, tx)
+    step = tsteps.make_train_step(model, loss_config_from_experiment(cfg), t.compute_dtype)
+
+    def loader_stream():
+        return ThreadedLoader(coco_dataset(cfg, "train", augment=True), t.batch_size,
+                              num_workers=cfg.data.num_workers,
+                              prefetch=cfg.data.prefetch).forever()
+
+    feeds = {"loader": loader_stream(),
+             "on card": itertools.cycle([tsteps.batch_to(b, "cuda") for b in host[:4]]),
+             "loader + prefetch": prefetch_to_device(loader_stream(), size=2, device="cuda")}
+    step_ms = {name: [] for name in feeds}
+    wait_ms = {name: [] for name in feeds}
+
+    def run(name: str, n: int, keep: bool) -> None:
+        nonlocal state
+        for _ in range(n):
+            t0 = time.perf_counter()
+            batch = next(feeds[name])
+            t1 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if keep:
+                step_ms[name].append(1e3 * (t2 - t0))
+                wait_ms[name].append(1e3 * (t1 - t0))
+
+    for name in FED_ROUNDS:
+        run(name, FED_DRAIN, keep=False)
+        run(name, FED_STEPS, keep=True)
+    quartiles = {name: statistics.quantiles(step_ms[name], n=4) for name in feeds}
+    for name in feeds:
+        run(name, FED_DRAIN, keep=False)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(name, TRAIN_PROFILE_STEPS, keep=False)
+            wall = 1e3 * (time.perf_counter() - t0) / TRAIN_PROFILE_STEPS
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy = sum(e.self_device_time_total for e in events) / (TRAIN_PROFILE_STEPS * 1e3)
+        q1, med, q3 = quartiles[name]
+        print(f"train step {t.compute_dtype} fed by {name}, B0 {IMAGE_HW[0]}x{IMAGE_HW[1]}, "
+              f"batch {t.batch_size} x {cfg.data.rois_per_image} rois, mid 256, fused stage 1: "
+              f"{med:.3f} ms/step, {t.batch_size / med * 1e3:.1f} img/s (median of "
+              f"{len(step_ms[name])} steps in {FED_ROUNDS.count(name)} rounds after {FED_DRAIN} "
+              f"each, host clock to the synchronised end; quartiles {q1:.3f} / {q3:.3f}, spread "
+              f"{q3 - q1:.3f}; all {[round(x, 3) for x in step_ms[name]]}); host wait in "
+              f"next(batches) median {statistics.median(wait_ms[name]):.3f} ms, max "
+              f"{max(wait_ms[name]):.3f}; device busy {busy:.3f} ms per step "
+              f"({100 * (1 - busy / med):.1f}% idle against the median step; {wall:.3f} ms per "
+              f"profiled step) [{card}]")
+    for a, b in (("loader", "on card"), ("loader + prefetch", "loader"),
+                 ("loader + prefetch", "on card")):
+        diff = quartiles[a][1] - quartiles[b][1]
+        spread = max(quartiles[a][2] - quartiles[a][0], quartiles[b][2] - quartiles[b][0])
+        print(f"fed by {a} against {b}: medians differ by {diff:+.3f} ms "
+              f"({100 * diff / quartiles[b][1]:+.1f}%), the larger spread between quartiles "
+              f"{spread:.3f} ms: {'resolved' if abs(diff) > spread else 'unresolved'}")
+    if state.skipped:
+        raise AssertionError(f"{state.skipped} fed steps were skipped")
+    for name in ("loader", "loader + prefetch"):  # stops the loaders' threads
+        feeds[name].close()
+    del feeds, state, model, step
+    torch.cuda.empty_cache()
+
+
+def learnability(card: str) -> None:
+    """Phase 16 (e): the JAX package's ``tests/test_learnability.py`` on the
+    port: the tiny flagship with every part trainable, synthetic COCO of 8
+    images at 64 x 64 (2 instances at most), Adam 3e-3 with clip 1.0 in
+    float32, 15 epochs at batch 4. Gates (the JAX test's): the last loss
+    below 0.7 x the first, target mIoU above 0.25."""
+    import numpy as np
+
+    from human_instance_segmentation_tpu_torch.data import (COCOInstanceSegmentationDataset,
+                                                            DatasetConfig, batch_iterator)
+    from human_instance_segmentation_tpu_torch.data.synthetic import generate_synthetic_coco
+    from human_instance_segmentation_tpu_torch.inference import create_flagship
+    from human_instance_segmentation_tpu_torch.losses.hierarchical import RefinedLossConfig
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      constant_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+    from human_instance_segmentation_tpu_torch.training.steps import (make_eval_step,
+                                                                      make_train_step)
+
+    root = ROOT / "build" / "phase16_learn"
+    ann, img_dir = generate_synthetic_coco(str(root), n_images=8, image_size=(64, 64),
+                                           max_instances=2)
+    ds = COCOInstanceSegmentationDataset(ann, img_dir, DatasetConfig(
+        image_size=(64, 64), mask_size=(32, 24), rois_per_image=2, min_roi_size=4))
+    if len(ds) != 8:
+        raise AssertionError(f"{len(ds)} samples, expected 8")
+    model = create_flagship(variant="tiny", roi_size=(16, 12), mask_size=(32, 24),
+                            image_size=(64, 64), base_channels=16, depth=2, mid_channels=32,
+                            feature_dim=32, unet_decoder_channels=(32, 24, 16, 16, 8),
+                            freeze_pretrained=False, seed=0, device="cuda")
+    state = TrainState.create(model, build_optimizer(constant_schedule(3e-3), "adam", 0.0, 1.0))
+    step = make_train_step(model, RefinedLossConfig())
+    eval_step = make_eval_step(model)
+    t0 = time.perf_counter()
+    losses = []
+    for epoch in range(15):
+        for batch in batch_iterator(ds, batch_size=4, shuffle=True, seed=epoch):
+            state, m = step(state, batch)
+            losses.append(float(m["total_loss"]))
+    sums = None
+    for batch in batch_iterator(ds, batch_size=4, shuffle=True, seed=99):
+        s = {k: float(v) for k, v in eval_step(batch).items()}
+        sums = s if sums is None else {k: sums[k] + s[k] for k in sums}
+    miou = sums["iou_sum"] / max(sums["n"], 1.0)
+    print(f"learnability (tiny flagship, all trainable, 8 synthetic images at 64x64, Adam 3e-3, "
+          f"15 epochs = {len(losses)} steps, float32): {time.perf_counter() - t0:.1f} s; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (gate < 0.7 x first = "
+          f"{0.7 * losses[0]:.4f}), target mIoU {miou:.4f} (gate > 0.25), skipped "
+          f"{state.skipped} [{card}]")
+    if not (np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0] and miou > 0.25):
+        raise AssertionError("the tiny model did not learn")
+
+
 def main() -> None:
     import torch
 
@@ -3030,7 +3473,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 16))
+    phases = set(range(1, 17))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -3096,6 +3539,16 @@ def main() -> None:
         train_roi_family(card, rng)
         for name, n in train_and_serve_a3_flagship(card, rng).items():
             launches[name] = launches.get(name, 0) + n
+
+    if 16 in phases:
+        torch.cuda.empty_cache()
+        tree = coco_tree(card)
+        host = loader_alone(card, tree)
+        for name, n in train_on_coco(card, tree).items():
+            launches[name] = launches.get(name, 0) + n
+        fed_step_times(card, tree, host)
+        del host
+        learnability(card)
 
     for k in kernels:
         if k["name"] in TRAIN_PER_STEP and 14 in phases:

@@ -203,6 +203,21 @@ class InferenceEngine:
         inst = inst[:n].float().cpu().numpy()
         return inst, None if binary is None else binary.float().cpu().numpy()
 
+    def warmup(self, batch: int = 1, buckets: Tuple[int, ...] = (1, 2, 4, 8, 16)) -> None:
+        """One zero batch through :meth:`forward` for each ROI bucket, on the
+        engine's device and in its dtype (the JAX engine's ``warmup``, which
+        compiles one program per bucket): here it builds the CUDA kernels and
+        their cached operands and warms cuDNN and the allocator. An int8
+        engine serves it with whatever scales it has (dynamic ones before
+        calibration); it neither calibrates nor records scales."""
+        ih, iw = self.model.image_size
+        images = torch.zeros((batch, ih, iw, 3), dtype=self.dtype, device=self.device)
+        box = torch.tensor([[0.0, 0.25, 0.25, 0.75, 0.75]], device=self.device)
+        for b in buckets:
+            self.forward(images, box.repeat(b, 1))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def predict_nchw(self, images: np.ndarray, rois: np.ndarray):
         """Reference-compatible entry point: images (B, 3, H, W) in [0, 1],
         rois (N, 5) -> instance_masks (N, 1, mh, mw), binary_masks

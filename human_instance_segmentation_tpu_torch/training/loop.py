@@ -1,47 +1,73 @@
 """Training CLI: config lookup -> model -> schedule and optimizer -> the step
-loop with periodic validation, best-mIoU checkpoints and early stopping.
+loop with periodic validation, curated renders, best-mIoU checkpoints and
+early stopping.
 
 Counterpart of the JAX package's ``training/loop.py`` on one device:
 
     python -m human_instance_segmentation_tpu_torch.training.loop \\
         --config rgb_hierarchical_unet_v2_fullimage_pretrained_peopleseg_r64x48m128x96_disttrans_contdet_baware_from_b0 \\
-        --steps 2 --synthetic [--tiny] [--device cpu] [--resume] \\
+        [--synthetic] [--steps N | --epochs N] [--tiny] [--device cpu] [--resume] \\
         [--config_modifications JSON]
 
 It runs on the GPU unless ``--device cpu`` is given (no CUDA raises).
-``--synthetic`` trains on generated batches, with two fixed held-out
-synthetic batches as the validation set. Kept from the JAX loop: staged
-freezing (``training.stage_schedule``), progressive loss features
-(``training.feature_schedule``, the step rebuilt at each activation
-epoch), validation at every ``validate_every`` epochs and at the end,
-best-mIoU checkpoints, early stopping and ``--resume``. Not ported yet,
-and refused with ``NotImplementedError``: more than one device (ROADMAP
-A9), real COCO data (A4) and so its curated validation scenes; the
-end-of-run validation picture is skipped with a log line, as the JAX loop
-does when ``visualize`` fails (``visualize`` is A4).
+Without ``--synthetic`` it trains on a COCO tree, as the JAX loop does: the
+person annotations and images that ``data.train_annotation`` /
+``data.train_img_dir`` name (set them with ``--config_modifications
+'{"data": {...}}'``; ``python -m human_instance_segmentation_tpu_torch.data.synthetic``
+writes a tree to try it on), augmented as ``data.use_augmentation`` and
+``data.use_heavy_augmentation`` say, fed by ``data.ThreadedLoader`` with
+``data.num_workers`` threads, an epoch being ``len(dataset) // batch_size``
+steps (the schedule spans that length). Validation runs over the whole val
+set (``data.val_annotation``, padded batches) at every ``validate_every``
+epochs and at the end, and renders the curated scenes each time: the first
+val images with 1, 2, 3 and 5 instances, drawn by ``visualize.validation_grid``
+and ``visualize.auxiliary_report`` into
+``visualizations/epoch{e:04d}_{label}.png`` and ``..._aux.png``, the
+reference's visual-regression tool. ``--synthetic`` trains on generated
+batches, with two fixed held-out synthetic batches as the validation set
+and no curated scenes. Both end with ``visualizations/val_step{n}.png``
+of the last train batch's first image. A render that fails is logged and
+never ends the run.
+
+Kept from the JAX loop: staged freezing (``training.stage_schedule``),
+progressive loss features (``training.feature_schedule``, the step rebuilt
+at each activation epoch), best-mIoU checkpoints, early stopping and
+``--resume``. Refused with ``NotImplementedError``: more than one device
+(ROADMAP A9).
 
 ``--tiny`` narrows the model as the JAX loop does: the shapes of every
 family, and :data:`TINY_MODEL`'s widths for the full-image flagship family
 only (the JAX loop clones the models that have ``mid_channels``; the
 pure-RGB and ROI-pretrained models keep their widths).
 
-Two deviations, both about ``--resume``:
-- it continues at the restored step and runs up to ``--steps`` in all; the
-  JAX loop counts ``--steps`` anew after a restore (ROADMAP C7);
-- with a ``stage_schedule`` it first applies the stage the checkpoint was
-  written under (the latest one whose epoch is at or below the epoch of
-  the checkpoint's last step), so the optimizer has the checkpoint's
-  parameter groups, and the run goes on as the uninterrupted run does;
-  the JAX loop, like the port before this repair, restores into a
-  one-group optimizer and fails (ROADMAP C8).
+Deviations from the JAX loop:
+- ``--resume`` continues at the restored step and runs up to ``--steps``
+  in all; the JAX loop counts ``--steps`` anew after a restore (ROADMAP
+  C7). On COCO data the loader starts at the restored step's epoch and
+  skips the batches of it already taken;
+- with a ``stage_schedule``, ``--resume`` first applies the stage the
+  checkpoint was written under (the latest one whose epoch is at or below
+  the epoch of the checkpoint's last step), so the optimizer has the
+  checkpoint's parameter groups, and the run goes on as the uninterrupted
+  run does; the JAX loop restores into a one-group optimizer and fails
+  (ROADMAP C8);
+- a curated scene's aux panels get the per-ROI aux maps only; the JAX loop
+  hands over the full-image logits too, and ``auxiliary_report`` then fails
+  on the second ROI of a model with a full-image stage 1 (ROADMAP C10);
+- a COCO train set with fewer usable images than one batch raises
+  ``ValueError``; the JAX loop takes ``max(len(ds) // batch_size, 1)``
+  steps an epoch, and its loader, which drops the last partial batch,
+  then yields no batch, so its ``forever()`` waits without end (ROADMAP
+  C11).
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -64,6 +90,66 @@ def synthetic_batches(batch: int, k: int, image_hw, mask_hw,
         }
 
 
+def validation_sums(eval_step, batches) -> Dict[str, float]:
+    """The eval step's sums over ``batches``, added on the host."""
+    sums = None
+    for vb in batches:
+        m = {k: float(v) for k, v in eval_step(vb).items()}
+        sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
+    return sums
+
+
+def curated_scenes(samples, wanted=(1, 2, 3, 5)) -> List[Tuple[str, int]]:
+    """``[(label, index)]`` of the first val sample with each wanted instance
+    count (``samples``: the dataset's ``(image_id, ann_ids)`` list), as the
+    JAX loop selects them."""
+    found: Dict[int, int] = {}
+    for si, (_, ann_ids) in enumerate(samples):
+        c = len(ann_ids)
+        if c in wanted and c not in found:
+            found[c] = si
+        if len(found) == len(wanted):
+            break
+    return [(f"{c}person", idx) for c, idx in sorted(found.items())]
+
+
+def render_sample(model, image: np.ndarray, boxes: np.ndarray, gt_masks: np.ndarray,
+                  path: str, aux_path: Optional[str] = None) -> None:
+    """Write ``visualize.validation_grid`` of one sample (image (H, W, 3),
+    boxes (K, 4), gt masks (K, mh, mw)) to ``path`` and, with ``aux_path``,
+    ``visualize.auxiliary_report`` of its ROIs: the model's eval forward in
+    float32 (``steps.eval_forward``), its outputs moved to the host."""
+    import torch
+
+    from ..visualize import auxiliary_report, save_image, validation_grid
+    from .steps import eval_forward
+
+    dev = next(model.parameters()).device
+    logits, aux = eval_forward(model, torch.as_tensor(image[None]).to(dev),
+                               torch.as_tensor(boxes[None]).to(dev))
+    logits_np = logits.cpu().numpy()
+    binary = None
+    if "full_image_logits" in aux:
+        binary = torch.softmax(aux["full_image_logits"], dim=-1)[0, ..., 0:1].cpu().numpy()
+    save_image(path, validation_grid(image, gt_masks, logits_np, boxes, binary_mask=binary))
+    if aux_path is None:
+        return
+    ih, iw = image.shape[:2]
+    crops = []
+    for box in boxes:
+        x1, y1 = int(box[0] * iw), int(box[1] * ih)
+        x2 = max(int(box[2] * iw), x1 + 2)
+        y2 = max(int(box[3] * ih), y1 + 2)
+        crops.append(image[max(y1, 0):y2, max(x1, 0):x2])
+    hmax = max(c.shape[0] for c in crops)
+    wmax = max(c.shape[1] for c in crops)
+    crops = np.stack([np.pad(c, ((0, hmax - c.shape[0]), (0, wmax - c.shape[1]), (0, 0)))
+                      for c in crops])
+    # the per-ROI maps only (C10): a full-image map has the batch's length
+    per_roi = {k: v.cpu().numpy() for k, v in aux.items() if v.shape[0] == logits.shape[0]}
+    auxiliary_report(crops, logits_np, per_roi, aux_path, gt_masks=gt_masks)
+
+
 def run_training(
     config_name: str,
     steps: int = 0,
@@ -84,7 +170,8 @@ def run_training(
     :func:`..config.model_from_config` (for example ``pallas_tail`` and
     ``encoder_fused_blocks``, which change the route, not the function).
     ``steps_per_epoch`` is the synthetic epoch's length (100, the JAX
-    loop's)."""
+    loop's); on COCO data an epoch is ``len(dataset) // batch_size``
+    steps."""
     import torch
 
     from ..config import (ConfigManager, _as_hw, _deep_merge, loss_config_from_experiment,
@@ -101,9 +188,6 @@ def run_training(
     if devices and devices > 1:
         raise NotImplementedError("training on more than one device is not ported yet "
                                   "(ROADMAP A9)")
-    if not synthetic:
-        raise NotImplementedError("training on COCO data is not ported yet (ROADMAP A4: the "
-                                  "data pipeline and visualize); pass --synthetic")
     dev = resolve_device(device)
 
     cfg = ConfigManager.get_config(config_name)
@@ -134,6 +218,22 @@ def run_training(
     logger.config(cfg.to_dict())
 
     n_epochs = epochs if epochs is not None else cfg.training.num_epochs
+    # real data defines the epoch, before the schedule, so that its decay
+    # spans the true training length (the JAX loop's order)
+    if not synthetic:
+        from ..data import COCOInstanceSegmentationDataset, DatasetConfig
+        from ..data.augment import AugmentConfig
+
+        ds_cfg = DatasetConfig(image_size=(ih, iw), mask_size=(mh, mw), rois_per_image=k,
+                               roi_padding=cfg.data.roi_padding)
+        ds = COCOInstanceSegmentationDataset(
+            cfg.data.train_annotation, cfg.data.train_img_dir, ds_cfg,
+            augment=AugmentConfig(heavy=cfg.data.use_heavy_augmentation)
+            if cfg.data.use_augmentation else None)
+        if len(ds) < batch_size:
+            raise ValueError(f"{cfg.data.train_annotation}: {len(ds)} usable images, fewer "
+                             f"than one batch of {batch_size}")
+        steps_per_epoch = len(ds) // batch_size
     total_steps = steps if steps > 0 else n_epochs * steps_per_epoch
 
     t = cfg.training
@@ -191,19 +291,55 @@ def run_training(
     train_step = make_train_step(model, loss_cfg, compute_dtype)
     eval_step = make_eval_step(model)
 
-    batches = synthetic_batches(batch_size, k, (ih, iw), (mh, mw))
-    for _ in range(start):  # a resumed run sees the batches it has not seen yet
-        next(batches)
-    # fixed held-out batches (a distinct seed) stand in for the val set
-    val_gen = synthetic_batches(batch_size, k, (ih, iw), (mh, mw), seed=1234)
-    val_fixed = [next(val_gen) for _ in range(2)]
+    curated: List[Tuple[str, int]] = []
+    if synthetic:
+        batches = synthetic_batches(batch_size, k, (ih, iw), (mh, mw))
+        for _ in range(start):  # a resumed run sees the batches it has not seen yet
+            next(batches)
+        # fixed held-out batches (a distinct seed) stand in for the val set
+        val_gen = synthetic_batches(batch_size, k, (ih, iw), (mh, mw), seed=1234)
+        val_fixed = [next(val_gen) for _ in range(2)]
+
+        def val_iter():
+            return iter(val_fixed)
+    else:
+        from ..data import padded_batch_iterator
+        from ..data.loader import ThreadedLoader
+
+        loader = ThreadedLoader(ds, batch_size, num_workers=cfg.data.num_workers, shuffle=True,
+                                prefetch=cfg.data.prefetch)
+        def coco_batches(first_epoch: int):
+            # ``loader.forever()`` from the epoch of the restored step
+            for e in itertools.count(first_epoch):
+                yield from loader.epoch(e)
+
+        batches = coco_batches(start // steps_per_epoch)
+        for _ in range(start % steps_per_epoch):  # the batches a resumed run has taken
+            next(batches)
+        val_ds = COCOInstanceSegmentationDataset(cfg.data.val_annotation, cfg.data.val_img_dir,
+                                                 ds_cfg)
+
+        def val_iter():
+            return padded_batch_iterator(val_ds, batch_size)
+
+        curated = curated_scenes(val_ds.samples)
+        if curated:
+            logger.text("curated validation scenes: "
+                        + ", ".join(f"{lab}=val[{idx}]" for lab, idx in curated))
+
+    def render_curated(epoch: int) -> None:
+        try:
+            for label, idx in curated:
+                s = val_ds[idx]
+                stem = f"{out_dir}/visualizations/epoch{epoch:04d}_{label}"
+                render_sample(model, s["image"], s["boxes"], s["masks"], f"{stem}.png",
+                              f"{stem}_aux.png")
+        except Exception as e:  # a render never ends a run
+            logger.text(f"curated visualization skipped: {e!r}")
 
     def validation_sweep() -> Dict[str, float]:
-        """Target mIoU and detection rates over the held-out batches."""
-        sums = None
-        for vb in val_fixed:
-            m = {k2: float(v) for k2, v in eval_step(vb).items()}
-            sums = m if sums is None else {k2: sums[k2] + m[k2] for k2 in sums}
+        """Target mIoU and detection rates over the val set."""
+        sums = validation_sums(eval_step, val_iter())
         n = max(sums["n"], 1.0)
         return {"val_miou": sums["iou_sum"] / n, "val_det50": sums["det50_sum"] / n,
                 "val_det70": sums["det70_sum"] / n, "val_n": n}
@@ -217,6 +353,7 @@ def run_training(
     t0 = time.perf_counter()
     i = start
     stopped_early = False
+    host_batch = None
     while i < total_steps and not stopped_early:
         epoch = i // steps_per_epoch
         if i % steps_per_epoch == 0 and epoch in stage_schedule:
@@ -226,7 +363,8 @@ def run_training(
             train_step = make_train_step(model, loss_cfg, compute_dtype)
             logger.text(f"progressive activation at epoch {epoch}: "
                         f"{active_features(feature_schedule, epoch)} active")
-        state, metrics = train_step(state, next(batches))
+        host_batch = next(batches)
+        state, metrics = train_step(state, host_batch)
         if i % 20 == 0 or i == total_steps - 1:
             last_metrics = {k2: float(v) for k2, v in metrics.items()}
             dt = time.perf_counter() - t0
@@ -243,6 +381,7 @@ def run_training(
         finished = i == total_steps
         if (at_epoch_end and (epoch + 1) % max(t.validate_every, 1) == 0) or finished:
             vm = validation_sweep()
+            render_curated(epoch)
             last_metrics.update(vm)
             logger.metrics(i, vm)
             logger.text(f"epoch {epoch}: val mIoU {vm['val_miou']:.4f} "
@@ -262,7 +401,15 @@ def run_training(
     last_metrics["eval_miou"] = last_metrics.get("val_miou", 0.0)
     last_metrics["best_val_miou"] = best_miou
     last_metrics["skipped"] = float(state.skipped)
-    logger.text("visualization skipped: visualize is not ported yet (ROADMAP A4)")
+    batches.close()  # stops the loader's threads
+    try:  # the last train batch's first image
+        if host_batch is None:
+            raise ValueError("no step ran")
+        render_sample(model, np.asarray(host_batch["images"][0]),
+                      np.asarray(host_batch["boxes"][0]), np.asarray(host_batch["masks"][0]),
+                      f"{out_dir}/visualizations/val_step{i}.png")
+    except Exception as e:  # a render never ends a run
+        logger.text(f"visualization skipped: {e!r}")
     save_checkpoint(ckpt_dir, state, i)
     logger.text(f"done: {i} steps, final loss {last_metrics.get('total_loss', float('nan')):.4f}, "
                 f"eval mIoU {last_metrics['eval_miou']:.4f}")

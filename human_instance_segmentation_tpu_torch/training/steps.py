@@ -234,22 +234,27 @@ def stack_batches(batches):
     return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
 
 
+def eval_forward(model: nn.Module, images: torch.Tensor, boxes: torch.Tensor):
+    """``(logits, aux)`` of ``model`` in eval mode and float32 without
+    autograd (JAX's ``model.apply(train=False)``) on (B, H, W, 3) images and
+    (B, K, 4) boxes, its mode restored after: the eval step's forward, and
+    the curated renders' (the fused stage-1 kernels run in both)."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return model(images.float(), rois_from_boxes(boxes.float()))
+    finally:
+        model.train(was_training)
+
+
 def make_eval_step(model: nn.Module):
     """``eval_step(batch) -> sums`` of per-ROI target IoU, detection at 0.5
-    and 0.7, the ROI count and pixel accuracy, the model in eval mode and
-    float32 (its mode is restored after)."""
+    and 0.7, the ROI count and pixel accuracy, through :func:`eval_forward`."""
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
-        was_training = model.training
-        model.eval()
-        try:
-            device = next(model.parameters()).device
-            batch = batch_to(batch, device)
-            with torch.no_grad():
-                logits, _ = model(batch["images"].float(),
-                                  rois_from_boxes(batch["boxes"].float()))
-        finally:
-            model.train(was_training)
+        batch = batch_to(batch, next(model.parameters()).device)
+        logits, _ = eval_forward(model, batch["images"], batch["boxes"])
         b, k = batch["boxes"].shape[:2]
         mh, mw = batch["masks"].shape[-2:]
         targets = batch["masks"].reshape(b * k, mh, mw)

@@ -122,11 +122,19 @@ def test_predict_nchw_and_buckets(pair):
 
 
 def test_import_does_not_load_jax():
-    code = ("import sys\n"
-            "import human_instance_segmentation_tpu_torch\n"
-            "import human_instance_segmentation_tpu_torch.weights\n"
-            "import human_instance_segmentation_tpu_torch.models\n"
-            "import human_instance_segmentation_tpu_torch.ops\n"
+    """Every module of the port, found by walking the package (so modules a
+    later change adds are covered too), imports in a fresh interpreter
+    without loading jax, flax or the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import human_instance_segmentation_tpu_torch as p\n"
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "want = {'data', 'data.loader', 'data.native', 'visualize', 'training.metrics',\n"
+            "        'training.profiling', 'training.loop', 'config', 'convert_weights',\n"
+            "        'inference'}\n"
+            "missing = {w for w in want if p.__name__ + '.' + w not in names}\n"
+            "assert not missing, missing\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'human_instance_segmentation_tpu')]\n"
             "assert not bad, bad\n")
@@ -189,6 +197,47 @@ def test_engine_leaves_the_callers_model_alone():
     inst_f, binary_f = InferenceEngine(fresh, device="cpu", dilation_pixels=1)(images, ROIS)
     np.testing.assert_array_equal(binary, binary_f)
     np.testing.assert_array_equal(inst, inst_f)
+
+
+def test_warmup_changes_no_output_and_no_calibration():
+    """``InferenceEngine.warmup`` serves zero batches at each bucket: a
+    float32 engine's outputs on a real request are the same after it, and
+    an int8 engine is neither calibrated by it (its scales stay None, its
+    first real request calibrates on that request) nor changed by it once
+    calibrated (the same scales, the same outputs)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small ops: intra-op threads only contend with other workers
+    try:
+        _check_warmup()
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _check_warmup():
+    port = create_flagship(variant="tiny", device="cpu", seed=0, pallas_tail=True, **TINY)
+    images = np.random.default_rng(11).random((2, 64, 96, 3), dtype=np.float32)
+    f32 = InferenceEngine(port, device="cpu", dilation_pixels=1)
+    before = f32(images, ROIS)
+    f32.warmup(batch=2, buckets=(1, 4))
+    after = f32(images, ROIS)
+    for a, b in zip(before, after):
+        np.testing.assert_array_equal(a, b)
+
+    def int8_engine():
+        return InferenceEngine(port, device="cpu", dilation_pixels=1, fused_head=True,
+                               quantize="int8", kernels=False)
+
+    warmed, cold = int8_engine(), int8_engine()
+    warmed.warmup(buckets=(1, 4))
+    assert warmed.scales is None
+    got, want = warmed(images, ROIS), cold(images, ROIS)  # each calibrates on the request
+    assert warmed.scales == cold.scales and warmed.scales
+    scales = dict(warmed.scales)
+    warmed.warmup(buckets=(2,))
+    assert warmed.scales == scales
+    for a, b, c in zip(got, want, warmed(images, ROIS)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
 
 
 @pytest.mark.parametrize("pallas_tail", [False, True])

@@ -706,9 +706,15 @@ def test_cli_refuses_without_cuda(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """More than one device is refused (A9). COCO data is ported now: without
+    ``--synthetic`` the loop reads the configured annotations, so a missing
+    file is the error (tests/test_torch_coco_training.py trains on a tree)."""
     from human_instance_segmentation_tpu_torch.training.loop import run_training
 
     with pytest.raises(NotImplementedError, match="A9"):
         run_training(FLAGSHIP, steps=1, synthetic=True, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        run_training(FLAGSHIP, steps=1, synthetic=False, device="cpu")
+    missing = str(tmp_path / "no_such_annotations.json")
+    with pytest.raises(FileNotFoundError, match="no_such_annotations"):
+        run_training(FLAGSHIP, steps=1, synthetic=False, device="cpu", tiny=True,
+                     output_dir=str(tmp_path / "run"),
+                     config_modifications={"data": {"train_annotation": missing}})
