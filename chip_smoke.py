@@ -120,13 +120,43 @@ package beside the script; it imports nothing of JAX. Phases:
     spread between quartiles of both feeds; (e) the JAX package's learnability test on the port (tiny model, 64 x
     64, Adam, 15 epochs): the loss falls below 0.7 x its first value and
     target mIoU passes 0.25.
+17. the deployment tools on the deployed B0 flagship at 480 x 640, head mid
+    128 (:func:`deployment_tools`): (a) ``export.fold_batch_stats``, the
+    folded model served with the kernels (bf16 and float32, ``fused_head``,
+    the fused tail, six fused blocks) against the unfolded one on its plain
+    path under phase 4's gates, launches per forward asserted; (b)
+    ``export_model`` with buckets (1, 2, 4, 8, 16) on the card, timed; (c)
+    ``load_exported`` against the live float32 plain path (binary within
+    2e-4, instance agreement >= 0.995), 33 ROIs chunked equal to the
+    in-bucket calls; (d) ms per artifact call beside the engine's; (e)
+    ``run_harness`` (artifact and ``--config``) and ``run_validation`` over
+    phase 16a's val tree;
+18. distillation: (a) ``run_distillation`` on
+    ``rgb_hierarchical_unet_v2_distillation_b0_from_b7_temp_prog`` at its
+    sizes (B0 from B7, 640 x 640, batch 8, bf16), synthetic, 2 epochs x 4
+    steps, 2 stages unfrozen at epoch 1, the teacher with the fused tail and
+    the largest number of fused blocks every block admits
+    (:func:`admissible_fused_blocks`, printed for B7 and B3): finite steps,
+    the temperature schedule, the launches of a teacher forward a step plus
+    one validation sweep, the optimizer rebuilt at epoch 1, checkpoints
+    restored with their distillation state (:func:`distillation_run`); (b)
+    the KD step with the teacher's kernels against the same teacher without
+    them in float32 and bf16 by phase 14b's rule (:func:`distill_step_kernels`);
+    (c) ms per bf16 KD step, the teacher's share, device busy time, idle
+    share and peak memory (:func:`time_distill_steps`); (d)
+    ``make_hierarchical_distill_step`` at bench.py's shapes (teacher mid
+    256, student mid 128 with its frozen stage 1, batch 4 x 2 ROIs): finite
+    steps, launches per step, every kernel call against its plain version,
+    ms per step (:func:`hierarchical_distill`).
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
 
 It prints a JSON line of per-kernel results (launches on the served paths,
 max abs error, kernel, plain and library or chain times, and the bound: the
-least time the card could take for the same work), then as its last line
+least time the card could take for the same work; for the stage-1 kernels
+and the crop also their launches in phase 18's distillation and per
+distillation step), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -3432,6 +3462,699 @@ def learnability(card: str) -> None:
         raise AssertionError("the tiny model did not learn")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the deployment tools (export, harness, validate)
+# ---------------------------------------------------------------------------
+
+PHASE17_DIR = ROOT / "build" / "phase17"
+EXPORT_BUCKETS = (1, 2, 4, 8, 16)
+# the served "_fast" family's head width (bench.py), with the stage-1 kernels
+DEPLOY_MID = 128
+DEPLOY_KERNELS = {"pallas_tail": True, "encoder_fused_blocks": 6}
+# an artifact (float32 plain path, BatchNorm folded) against the live
+# unfolded float32 plain path: the JAX export test's atol on the person
+# probability, and instance masks equal or agreeing on MIN_AGREE of pixels
+EXPORT_ATOL = 2e-4
+
+
+def deployed_flagship():
+    """The deployed B0 flagship at 480 x 640, head mid 128, with the fused
+    tail and six fused encoder blocks, seeded; its stage-1 running
+    statistics moved off 0 and 1 (seeded) so that the fold changes every
+    BatchNorm."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.inference import create_flagship
+    from human_instance_segmentation_tpu_torch.ops.norms import BatchNorm2d
+
+    model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                            image_size=IMAGE_HW, mid_channels=DEPLOY_MID, seed=0,
+                            **DEPLOY_KERNELS)
+    gen = torch.Generator().manual_seed(17)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                c = m.running_mean.numel()
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    return model
+
+
+def _live_plain(model, images, rois, dilation: int):
+    """The deployed outputs of ``export.plain_copy(model)`` (float32, every
+    kernel route off) on one padded bucket, numpy."""
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.export import DeployedForward, plain_copy
+    from human_instance_segmentation_tpu_torch.inference import pad_rois, roi_bucket
+
+    fn = DeployedForward(plain_copy(model), dilation)
+    n = rois.shape[0]
+    rois_p = torch.as_tensor(pad_rois(np.asarray(rois, np.float32), roi_bucket(n))).cuda()
+    with torch.no_grad():
+        inst, binary = fn(torch.as_tensor(images).cuda(), rois_p)
+    return inst[:n].cpu().numpy(), binary.cpu().numpy()
+
+
+def deployment_tools(card: str, rng, tree: dict) -> dict:
+    """Phase 17 on the deployed B0 flagship at 480 x 640 (:func:`deployed_flagship`):
+    (a) ``export.fold_batch_stats`` on a copy, the folded model served with
+    the kernels (bf16 and float32, ``fused_head``, the fused tail, six fused
+    blocks) against the unfolded one on its plain path under phase 4's
+    gates, launches per forward asserted; (b) ``export_model`` with buckets
+    (1, 2, 4, 8, 16) on the card, its time printed; (c) ``load_exported``
+    against the live float32 plain path (binary within ``EXPORT_ATOL``,
+    instance masks equal or agreeing on ``MIN_AGREE``), 33 ROIs chunked equal
+    to the in-bucket calls; (d) ms per artifact call beside the engine's;
+    (e) ``run_harness`` with the artifact and with ``--config``, and
+    ``run_validation``, over phase 16a's val tree. Returns the launch counts
+    of the served forwards."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.export import (collect_bn_eps, export_model,
+                                                              fold_batch_stats, load_exported)
+    from human_instance_segmentation_tpu_torch.harness import run_harness
+    from human_instance_segmentation_tpu_torch.inference import InferenceEngine
+    from human_instance_segmentation_tpu_torch.ops import cuda_head, cuda_roi_align
+    from human_instance_segmentation_tpu_torch.validate import run_validation
+
+    shutil.rmtree(PHASE17_DIR, ignore_errors=True)
+    model = deployed_flagship()
+    eps = collect_bn_eps(model)
+    folded = fold_batch_stats(copy.deepcopy(model), eps)
+    print(f"fold_batch_stats: {len(eps)} BatchNorms (eps {sorted(set(eps.values()))})")
+
+    def engine(m, dtype, kernels: bool):
+        e = InferenceEngine(m, dilation_pixels=1, dtype=dtype, fused_head=kernels,
+                            kernels=kernels)
+        e.model.pallas_roi_align = kernels
+        return e
+
+    engines = {"served bf16": engine(folded, torch.bfloat16, True),
+               "plain bf16": engine(model, torch.bfloat16, False),
+               "served f32": engine(folded, torch.float32, True),
+               "plain f32": engine(model, torch.float32, False)}
+    counters = dict(train_counters(), conv_ln_act=cuda_head.conv_ln_act,
+                    roi_align=cuda_roi_align.roi_align)
+    for f in counters.values():
+        f.launches = 0
+    served_forwards = 0
+    for images, rois in (make_request(rng, 4, 3), make_request(rng, 8, 8)):
+        o = {name: _serve(e, images, rois) for name, e in engines.items()}
+        served_forwards += 2
+        _gates(f"folded model with the kernels vs unfolded plain, batch {images.shape[0]} x "
+               f"{rois.shape[0]} rois", o)
+    launches = {k: f.launches for k, f in counters.items()}
+    per_forward = {"mbconv_sums": 6, "mbconv_apply": 6, "tail": 1,
+                   "conv_ln_act": BOTTLENECK_UNITS, "roi_align": 1}
+    want = {k: n * served_forwards for k, n in per_forward.items()}
+    print(f"served folded forwards: launches {launches} (expected {want}: {per_forward} per "
+          f"forward x {served_forwards})")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    del engines, folded
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    art = export_model(str(PHASE17_DIR / "artifact"), model, IMAGE_HW, ROI_HW, MASK_HW,
+                       dilation_pixels=1, roi_buckets=EXPORT_BUCKETS, config_name=TRAIN_CONFIG)
+    export_s = time.perf_counter() - t0
+    sizes = {p.name: p.stat().st_size for p in sorted(Path(art).iterdir())}
+    print(f"export_model on the card, buckets {EXPORT_BUCKETS}: {export_s:.2f} s (one trace with "
+          f"the ROI count dynamic, saved per bucket); files {sizes} [{card}]")
+    t0 = time.perf_counter()
+    call, meta = load_exported(art, device="cuda")
+    images, rois = make_request(rng, 1, 3)
+    call(images, rois)  # loads the bucket of 4
+    print(f"load_exported + first call: {time.perf_counter() - t0:.2f} s; metadata keys "
+          f"{sorted(meta)}")
+    for n in (3, 16):
+        images, rois = make_request(rng, 1, n)
+        inst, binary = call(images, rois)
+        ref_inst, ref_bin = _live_plain(model, images, rois, 1)
+        err = float(np.abs(binary - ref_bin).max())
+        agree = _agreement(inst, ref_inst)
+        print(f"artifact vs the live float32 plain path, 1 x {n} rois: binary max_abs_err "
+              f"{err:.3e} (tol {EXPORT_ATOL}), instance agreement {agree:.6f} (min {MIN_AGREE}), "
+              f"fg share {inst.mean():.4f}")
+        if inst.shape != (n, *MASK_HW, 1) or binary.shape != (1, *IMAGE_HW, 1):
+            raise AssertionError(f"bad artifact output shapes {inst.shape}, {binary.shape}")
+        if not (err <= EXPORT_ATOL and agree >= MIN_AGREE):
+            raise AssertionError("the artifact disagrees with the live plain path")
+    images, rois = make_request(rng, 1, 33)
+    inst, binary = call(images, rois)
+    chunks_equal = inst.shape == (33, *MASK_HW, 1) and all(
+        np.array_equal(inst[s:s + 16], call(images, rois[s:s + 16])[0]) for s in (0, 16, 32))
+    print(f"33 rois over buckets {EXPORT_BUCKETS}: chunked, equal to the in-bucket calls chunk by "
+          f"chunk: {chunks_equal}")
+    if not chunks_equal:
+        raise AssertionError("the chunked artifact call differs from the in-bucket calls")
+
+    images, rois = make_request(rng, 1, 4)
+    timed = {"artifact (float32 plain, folded)": lambda: call(images, rois)}
+    for name, dtype, kernels in (("engine bf16 with the kernels", torch.bfloat16, True),
+                                 ("engine float32 plain", torch.float32, False)):
+        e = engine(model, dtype, kernels)
+        e(images, rois)
+        timed[name] = (lambda e=e: e(images, rois))
+    times = {name: median_ms(fn, reps=10) for name, fn in timed.items()}
+    print("ms per call, 1 x 4 rois at 480x640, numpy in and out (host copies included): "
+          + "; ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" [{card}]")
+    del timed
+    torch.cuda.empty_cache()
+
+    val_ann, val_dir = tree["val"]
+    n_img = min(8, len(list(Path(val_dir).glob("*.jpg"))))
+    for label, kw in (("artifact", dict(artifact=art)), ("--config", {})):
+        t0 = time.perf_counter()
+        written = run_harness(val_dir, str(PHASE17_DIR / f"harness_{label.strip('-')}"),
+                              annotations_path=val_ann, dilation=1, device="cuda", **kw)
+        print(f"run_harness ({label}) over the val tree: {len(written)} PNGs in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if len(written) != n_img or not all(Path(w).stat().st_size for w in written):
+            raise AssertionError(f"run_harness ({label}) wrote {len(written)} of {n_img} PNGs")
+    t0 = time.perf_counter()
+    report = run_validation(TRAIN_CONFIG, annotations=val_ann, image_dir=val_dir, batch_size=4,
+                            device="cuda", cm_png_dir=str(PHASE17_DIR / "cm"))
+    print(f"run_validation over the val tree: {time.perf_counter() - t0:.2f} s, target mIoU "
+          f"{report['target_miou']:.4f}, {report['num_samples']:.0f} rois")
+    pngs = sorted(p.name for p in (PHASE17_DIR / "cm").glob("*.png"))
+    if not (np.isfinite([v for v in report.values() if isinstance(v, float)]).all()
+            and report["num_samples"] > 0 and pngs == ["cm3.png", "cm_bgfg.png", "cm_tnt.png"]):
+        raise AssertionError(f"run_validation went wrong: {report}, {pngs}")
+    del model, call
+    shutil.rmtree(PHASE17_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: distillation
+# ---------------------------------------------------------------------------
+
+DISTILL_CONFIG = "rgb_hierarchical_unet_v2_distillation_b0_from_b7_temp_prog"
+DISTILL_EPOCHS, DISTILL_SPE = 2, 4
+DISTILL_MODS = {"distillation": {"unfreeze_schedule": {"1": 2}}}
+DISTILL_VAL_BATCHES = 2  # the synthetic run's held-out batches
+# bench.py's hierarchical KD shapes (scripts/exp_b0_fast_deployed.py:41-44)
+HIER_TEACHER_MID, HIER_STUDENT_MID, HIER_BATCH, HIER_ROIS = 256, 128, 4, 2
+# launches in one distillation step, filled by phase 18 (a) and (d)
+DISTILL_PER_STEP: dict = {}
+
+
+def admissible_fused_blocks(variant: str) -> int:
+    """The largest N such that each of the first N MBConv blocks of the
+    ``variant`` encoder fits the fused kernel's shared memory in both passes
+    and both dtypes (``ops/cuda_mbconv._SMEM_LIMIT``)."""
+    from human_instance_segmentation_tpu_torch.models.efficientnet import EfficientNetEncoder
+    from human_instance_segmentation_tpu_torch.ops import _build, cuda_mbconv
+
+    lib = _build.library()
+    enc = EfficientNetEncoder(variant)
+    n = 0
+    for name in (nm for names in enc.stages for nm in names):
+        b = getattr(enc, name)
+        expand = b.expand_conv is not None
+        ci = b.expand_conv.weight.shape[1] if expand else b.dw_conv.weight.shape[0]
+        co = b.project_conv.weight.shape[0]
+        need = max(lib.mbconv_smem_bytes_for(ci, c, b.kernel, b.stride, elem, int(expand), apply)
+                   for elem in (4, 2) for apply, c in ((0, 0), (1, co)))
+        if need > cuda_mbconv._SMEM_LIMIT:
+            break
+        n += 1
+    return n
+
+
+def distill_teacher_kernels() -> dict:
+    """The binary teacher's route flags: the fused tail and the largest
+    admissible number of fused blocks of B7, printed with B3's."""
+    n7, n3 = admissible_fused_blocks("b7"), admissible_fused_blocks("b3")
+    print(f"fused MBConv blocks every block admits (shared memory): B7 {n7}, B3 {n3}")
+    if n7 < 1:
+        raise AssertionError("no B7 block admits the fused MBConv kernel")
+    return {"pallas_tail": True, "encoder_fused_blocks": n7}
+
+
+def distillation_run(card: str, teacher_kernels: dict) -> dict:
+    """Phase 18 (a): ``run_distillation`` on ``DISTILL_CONFIG`` at its own
+    sizes (B0 student, B7 teacher, 640 x 640, batch 8, bf16), synthetic, 2
+    epochs x 4 steps, an unfreeze of 2 stages at epoch 1, the teacher with
+    the fused tail and the admissible fused blocks. Gates: every step
+    finite, the temperature of each epoch the schedule's, the fused stage-1
+    launches equal to a teacher forward per step plus one teacher sweep of
+    the validation batches, the optimizer rebuilt at epoch 1 (its step count
+    is epoch 1's), the run's newest checkpoint restored with its
+    distillation state (equal to the final state where it is the last
+    epoch's) and the final state through a checkpoint equal to itself.
+    Returns the launch counts of the run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import ConfigManager, _deep_merge
+    from human_instance_segmentation_tpu_torch.losses.distillation import (DistillationConfig,
+                                                                           DistillationState,
+                                                                           scheduled_temperature)
+    from human_instance_segmentation_tpu_torch.training.checkpoint import (latest_step,
+                                                                          restore_checkpoint,
+                                                                          save_checkpoint)
+    from human_instance_segmentation_tpu_torch.training.distill import build_student_teacher
+    from human_instance_segmentation_tpu_torch.training.distill_loop import (DECODER,
+                                                                            run_distillation)
+    from human_instance_segmentation_tpu_torch.training.optim import (constant_schedule,
+                                                                      distillation_optimizer)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    out = ROOT / "build" / "phase18_run"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = _deep_merge(ConfigManager.get_config(DISTILL_CONFIG), DISTILL_MODS)
+    counters = train_counters()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    metrics, state = run_distillation(DISTILL_CONFIG, epochs=DISTILL_EPOCHS,
+                                      steps_per_epoch=DISTILL_SPE, synthetic=True,
+                                      output_dir=str(out), config_modifications=DISTILL_MODS,
+                                      teacher_overrides=teacher_kernels, return_state=True)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    n = teacher_kernels["encoder_fused_blocks"]
+    per_forward = {"mbconv_sums": n, "mbconv_apply": n, "tail": 1}
+    steps = DISTILL_EPOCHS * DISTILL_SPE
+    want = {k: v * (steps + DISTILL_VAL_BATCHES) for k, v in per_forward.items()}
+    rows = [json.loads(line) for f in sorted((out / "logs").glob("*.jsonl"))
+            for line in f.read_text().splitlines()]
+    temps = [r["temperature"] for r in rows if "temperature" in r]
+    kd = DistillationConfig(initial_temperature=cfg.distillation.initial_temperature,
+                            final_temperature=cfg.distillation.final_temperature,
+                            schedule_type=cfg.distillation.temperature_schedule)
+    want_t = [scheduled_temperature(kd, e, DISTILL_EPOCHS) for e in range(DISTILL_EPOCHS)]
+    log = "".join(f.read_text() for f in (out / "logs").glob("*.log"))
+    print(f"run_distillation {DISTILL_CONFIG} (B0 from B7, {cfg.model.image_size}, batch "
+          f"{cfg.training.batch_size}, {cfg.training.compute_dtype}), synthetic, {DISTILL_EPOCHS} "
+          f"epochs x {DISTILL_SPE} steps, teacher {teacher_kernels}: {wall:.1f} s (models, steps, "
+          f"validation, checkpoints); losses by epoch {[r.get('total_loss') for r in rows]}, "
+          f"temperatures {temps} (schedule {want_t}), best student mIoU "
+          f"{metrics['best_student_miou']:.4f}, teacher mIoU {metrics['teacher_miou']:.4f}, "
+          f"eliminated {metrics['eliminated']}, skipped {state.skipped}; launches {launches} "
+          f"(expected {want}: {per_forward} per teacher forward x ({steps} steps + "
+          f"{DISTILL_VAL_BATCHES} validation batches, one sweep)); optimizer steps "
+          f"{state.optimizer.count} [{card}]")
+    if state.skipped or state.step != steps or not all(
+            np.isfinite(r["total_loss"]) for r in rows if "total_loss" in r):
+        raise AssertionError(f"distillation went wrong: step {state.step}, skipped "
+                             f"{state.skipped}, rows {rows}")
+    if temps != [float(np.float32(t)) for t in want_t]:
+        raise AssertionError(f"temperatures {temps}, expected {want_t}")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    if not ("epoch 1: unfroze last 2 encoder stages" in log
+            and state.optimizer.count["encoder_train"] == DISTILL_SPE
+            and state.optimizer.count["train"] == DISTILL_SPE):
+        raise AssertionError(f"the optimizer was not rebuilt at epoch 1: {state.optimizer.count}")
+    DISTILL_PER_STEP.update(per_forward)
+
+    def fresh(num_unfrozen: int):
+        student, _ = build_student_teacher(cfg.distillation.student_encoder, "tiny",
+                                           device="cuda", decoder_channels=DECODER)
+        return TrainState.create(student, distillation_optimizer(
+            student, constant_schedule(0.0), num_unfrozen), seed=9,
+            distill_state=DistillationState.create())
+
+    def equal(a, b) -> bool:
+        sa, sb = a.model.state_dict(), b.model.state_dict()
+        oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+        return (a.step == b.step and a.skipped == b.skipped and sa.keys() == sb.keys()
+                and all(torch.equal(sa[k], sb[k]) for k in sa) and oa["count"] == ob["count"]
+                and all(oa[s].keys() == ob[s].keys()
+                        and all(torch.equal(oa[s][k], ob[s][k]) for k in oa[s])
+                        for s in ("mu", "nu"))
+                and all(torch.equal(v, b.distill_state.state_dict()[k])
+                        for k, v in a.distill_state.state_dict().items()))
+
+    saved = latest_step(str(out / "checkpoints"))
+    meta = json.loads((out / "checkpoints" / f"metadata_{saved}.json").read_text())
+    restored, _ = restore_checkpoint(str(out / "checkpoints"), fresh(meta["num_unfrozen"]))
+    last = saved == DISTILL_EPOCHS
+    ok = equal(restored, state) if last else restored.step == saved * DISTILL_SPE
+    save_checkpoint(str(out / "final"), state, steps)
+    again, _ = restore_checkpoint(str(out / "final"), fresh(2))
+    print(f"newest checkpoint: epoch {saved} (metadata {meta}), restored with its distillation "
+          f"state {restored.distill_state.state_dict()}: "
+          f"{'equal to the final state' if last else 'at its step'} {ok}; the final state "
+          f"through a checkpoint equal: {equal(again, state)}")
+    if not (ok and equal(again, state)):
+        raise AssertionError("a restored distillation state differs")
+    del state, restored, again
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _distill_models(teacher_kernels: dict):
+    """The B0 student and the B7 teacher at the config's widths, and the same
+    teacher weights without the kernel flags (``kernels=False`` too)."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.training.distill import build_student_teacher
+    from human_instance_segmentation_tpu_torch.training.distill_loop import DECODER
+
+    student, teacher = build_student_teacher("b0", "b7", device="cuda", decoder_channels=DECODER,
+                                             teacher_overrides=teacher_kernels)
+    _, plain = build_student_teacher("tiny", "b7", device="cuda", decoder_channels=DECODER)
+    plain.tail_use_kernel = False
+    plain.encoder.set_fused_kernels(False)
+    a, b = teacher.state_dict(), plain.state_dict()
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("the two teachers do not hold the same weights")
+    return student, teacher, plain
+
+
+def _distill_batches(n: int, seed: int):
+    from human_instance_segmentation_tpu_torch.config import ConfigManager, _as_hw
+    from human_instance_segmentation_tpu_torch.training.distill_loop import (
+        synthetic_binary_batches)
+
+    cfg = ConfigManager.get_config(DISTILL_CONFIG)
+    gen = synthetic_binary_batches(cfg.training.batch_size, _as_hw(cfg.model.image_size), seed)
+    return [next(gen) for _ in range(n)]
+
+
+def _distill_loss_and_grads(student, teacher, batch, dtype: str, delta=None):
+    """One evaluation of the binary KD loss and the student's gradients
+    (its statistics handed over, not written), and the teacher logits it
+    saw as (B, H, W); ``delta(t)`` is added to the teacher logits when
+    given."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.losses.distillation import (DistillationConfig,
+                                                                           DistillationState)
+    from human_instance_segmentation_tpu_torch.training import distill
+
+    t = distill.teacher_copy(teacher, dtype)
+    seen = {}
+
+    def hook(module, inputs, out):
+        form, y = out
+        if delta is not None:
+            y = y + delta(y).to(y.dtype)
+        seen["t"] = (y if form == "dense" else y[:, 0]).float()
+        return form, y
+
+    handle = t.register_forward_hook(hook)
+    try:
+        student.train()
+        loss, _ = distill.make_distill_loss_fn(student, t, DistillationConfig(), dtype)(
+            DistillationState.create(4.0, 0.5, 0.3, device="cuda"),
+            distill.batch_to(batch, "cuda"))
+        params = list(student.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        handle.remove()
+    flat = torch.cat([(g if g is not None else torch.zeros_like(p)).flatten()
+                      for p, g in zip(params, grads)])
+    return float(loss.detach()), flat.detach(), seen["t"]
+
+
+def distill_step_kernels(card: str, teacher_kernels: dict) -> None:
+    """Phase 18 (b): the binary KD step's loss and student gradients with
+    the teacher's kernels against the same teacher weights without them,
+    TF32 off, by phase 14b's rule: in float32 the teacher logits within
+    ``TOL_STAGE1_F32`` and the loss and gradients within twice the effect
+    of a teacher-logit error at that tolerance; in bf16 the kernel path no
+    further from the float32 plain path than twice the bf16 plain path's own
+    distance plus the float32 bound."""
+    import torch
+
+    student, teacher, plain = _distill_models(teacher_kernels)
+    batch = _distill_batches(1, seed=3)[0]
+    res = {(path, dtype): _distill_loss_and_grads(student, t, batch, dtype)
+           for path, t in (("kernels", teacher), ("plain", plain))
+           for dtype in ("float32", "bfloat16")}
+    lk, gk, xk = res[("kernels", "float32")]
+    lp, gp, xp = res[("plain", "float32")]
+    atol, rtol = TOL_STAGE1_F32
+    x_err = (xk - xp).abs()
+    x_ok = bool((x_err <= atol + rtol * xp.abs()).all())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def shift(x):
+        return atol + rtol * x.abs()
+
+    def random_sign(x):
+        s = torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1
+        return s * (atol + rtol * x.abs())
+
+    effects = [_distill_loss_and_grads(student, plain, batch, "float32", d)
+               for d in (shift, random_sign)]
+    l_bound = 2 * max(abs(le - lp) for le, _, _ in effects)
+    g_bound = 2 * max(float((ge - gp).norm()) for _, ge, _ in effects)
+    l_err, g_err = abs(lk - lp), float((gk - gp).norm())
+    print(f"distill step float32 (B0 from B7, batch 8, 640x640), teacher kernels vs plain: "
+          f"teacher logits max_abs_err {float(x_err.max()):.3e} (tol {atol} + {rtol} |x|, max "
+          f"|x| {float(xp.abs().max()):.2f}); loss {lk:.7f} vs {lp:.7f}, |diff| {l_err:.3e} "
+          f"(bound {l_bound:.3e}); student gradients |diff| {g_err:.3e} of |g| "
+          f"{float(gp.norm()):.3e} (bound {g_bound:.3e})")
+    if not (x_ok and l_err <= l_bound and g_err <= g_bound):
+        raise AssertionError("float32 distill step: the kernel path is outside its bound")
+    lkb, gkb, _ = res[("kernels", "bfloat16")]
+    lpb, gpb, _ = res[("plain", "bfloat16")]
+    lb_bound = 2 * abs(lpb - lp) + l_bound
+    gb_bound = 2 * float((gpb - gp).norm()) + g_bound
+    lb_err, gb_err = abs(lkb - lp), float((gkb - gp).norm())
+    print(f"distill step bfloat16 vs the float32 plain path: kernels loss {lkb:.6f}, |diff| "
+          f"{lb_err:.3e} (bound {lb_bound:.3e}: twice the bf16 plain path's {abs(lpb - lp):.3e} "
+          f"plus the float32 bound); student gradients |diff| {gb_err:.3e} (bound "
+          f"{gb_bound:.3e})")
+    if not (lb_err <= lb_bound and gb_err <= gb_bound):
+        raise AssertionError("bf16 distill step: the kernel path is outside its bound")
+    del res, effects, student, teacher, plain
+    torch.cuda.empty_cache()
+
+
+def _timed_steps(runs: dict, batches, reps: int = 10) -> dict:
+    """Median ms per step of each ``{name: [state, step]}``, CUDA events,
+    the runs in turns, after 3 steps of warmup each."""
+    import torch
+
+    for run in runs.values():
+        for i in range(3):
+            run[0], _ = run[1](run[0], batches[i % len(batches)])
+    torch.cuda.synchronize()
+    times = {name: [] for name in runs}
+    names = list(runs)
+    for i in range(reps):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            run = runs[name]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run[0], _ = run[1](run[0], batches[i % len(batches)])
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    for name, run in runs.items():
+        if run[0].skipped:
+            raise AssertionError(f"{name}: {run[0].skipped} timed steps were skipped")
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _busy_ms(run, batches, steps: int = TRAIN_PROFILE_STEPS):
+    """Device busy ms per step and kernels per step (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            run[0], _ = run[1](run[0], batches[i % len(batches)])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return (sum(e.self_device_time_total for e in events) / (steps * 1e3),
+            sum(e.count for e in events) // steps)
+
+
+def time_distill_steps(card: str, teacher_kernels: dict) -> None:
+    """Phase 18 (c): ms per bf16 binary KD step (B0 from B7, batch 8, 640 x
+    640; median of 10 after 3 of warmup, batches on the card), the teacher
+    with its kernels and plain in turns; the teacher's bf16 forward alone
+    and its share of the step; device busy time and idle share over 3
+    steps; peak memory."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import ConfigManager, _as_hw
+    from human_instance_segmentation_tpu_torch.losses.distillation import (DistillationConfig,
+                                                                           DistillationState)
+    from human_instance_segmentation_tpu_torch.training import distill
+    from human_instance_segmentation_tpu_torch.training.distill_loop import DECODER
+    from human_instance_segmentation_tpu_torch.training.optim import (build_schedule,
+                                                                      distillation_optimizer)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+    from human_instance_segmentation_tpu_torch.training.steps import batch_to
+
+    cfg = ConfigManager.get_config(DISTILL_CONFIG)
+    t = cfg.training
+    batches = [batch_to(b, "cuda") for b in _distill_batches(4, seed=7)]
+    student, teacher, plain = _distill_models(teacher_kernels)
+    runs = {}
+    for name, tch in (("kernels", teacher), ("plain", plain)):
+        # one student per route (the same seed): a step updates its model
+        s = student if name == "kernels" else distill.build_student_teacher(
+            "b0", "tiny", device="cuda", decoder_channels=DECODER)[0]
+        opt = distillation_optimizer(s, build_schedule(t.learning_rate, t.num_epochs, 100,
+                                                       t.scheduler, t.min_lr), 0)
+        runs[name] = [TrainState.create(s, opt, distill_state=DistillationState.create(
+            10.0, 0.7, 0.3)), distill.make_distill_train_step(s, tch, DistillationConfig(),
+                                                               t.compute_dtype)]
+    torch.cuda.reset_peak_memory_stats()
+    med = _timed_steps(runs, batches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    images = batches[0]["images"].to(torch.bfloat16)
+    teacher_ms = {}
+    for name, tch in (("kernels", teacher), ("plain", plain)):
+        t16 = distill.teacher_copy(tch, "bfloat16")
+        with torch.no_grad():
+            teacher_ms[name] = median_ms(lambda: distill.unet_logits(t16, images), reps=10)
+        del t16
+    n_img = batches[0]["images"].shape[0]
+    for name, run in runs.items():
+        busy, kernels = _busy_ms(run, batches)
+        print(f"distill step bf16, B0 from B7 at {_as_hw(cfg.model.image_size)}, batch {n_img}, "
+              f"teacher {name}: {med[name]:.3f} ms/step, {n_img / med[name] * 1e3:.1f} img/s "
+              f"(median of 10 after 3 of warmup, CUDA events); teacher bf16 forward alone "
+              f"{teacher_ms[name]:.3f} ms ({100 * teacher_ms[name] / med[name]:.1f}% of the "
+              f"step); device busy {busy:.3f} ms per step ({100 * (1 - busy / med[name]):.1f}% "
+              f"idle), {kernels} kernels per step [{card}]")
+    print(f"  peak memory over both routes' timed steps {peak:.2f} GiB (max_memory_allocated)")
+    del runs, student, teacher, plain
+    torch.cuda.empty_cache()
+
+
+def hierarchical_distill(card: str, rng) -> dict:
+    """Phase 18 (d): ``make_hierarchical_distill_step`` at bench.py's shapes
+    (B0 at 480 x 640, roi 64 x 48, mask 128 x 96, batch 4 x 2 ROIs): the
+    teacher flagship at mid 256 and the student at mid 128 with its frozen
+    stage 1, both with the fused tail and six fused blocks, the teacher's
+    crops through the RoIAlign kernel. Gates: finite steps, launches per
+    step (both stage 1s, the teacher's crop), every kernel call of a step
+    against its plain version on that call's operands (float32; phase 9 and
+    12's tolerances, the crops within ``TOL_ROI_F32``); ms per step against
+    the same models without the kernels. Returns the launch counts of the
+    timed and checked steps."""
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager,
+                                                              loss_config_from_experiment)
+    from human_instance_segmentation_tpu_torch.inference import create_flagship
+    from human_instance_segmentation_tpu_torch.ops import cuda_mbconv, cuda_roi_align, cuda_tail
+    from human_instance_segmentation_tpu_torch.ops.sampling import roi_align as roi_align_plain
+    from human_instance_segmentation_tpu_torch.training.distill import (
+        make_hierarchical_distill_step)
+    from human_instance_segmentation_tpu_torch.training.loop import synthetic_batches
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      build_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+    from human_instance_segmentation_tpu_torch.training.steps import batch_to
+
+    loss_cfg = loss_config_from_experiment(ConfigManager.get_config(TRAIN_CONFIG))
+    gen = synthetic_batches(HIER_BATCH, HIER_ROIS, IMAGE_HW, MASK_HW, seed=5)
+    batches = [next(gen) for _ in range(4)]
+
+    def build(mid: int, seed: int, kernels: bool):
+        m = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                            image_size=IMAGE_HW, mid_channels=mid, seed=seed,
+                            pallas_roi_align=kernels, pallas_tail=kernels,
+                            encoder_fused_blocks=6 if kernels else 0)
+        if not kernels:
+            m.pretrained_unet.tail_use_kernel = False
+            m.pretrained_unet.encoder.set_fused_kernels(False)
+        return m
+
+    runs = {}
+    for kernels in (True, False):
+        student = build(HIER_STUDENT_MID, 0, kernels)
+        teacher = build(HIER_TEACHER_MID, 1, kernels)
+        tx = build_optimizer(build_schedule(1e-3, 1, 100, "cosine", 1e-6), "adamw", 1e-4, 5.0)
+        runs["kernels" if kernels else "plain"] = [
+            TrainState.create(student, tx), make_hierarchical_distill_step(
+                student, teacher, loss_cfg, temperature=4.0, alpha=0.7, aux_weight=0.3)]
+
+    counters = dict(train_counters(), roi_align=cuda_roi_align.roi_align)
+    real = (cuda_mbconv.fused_mbconv, cuda_tail.tail, cuda_roi_align.roi_align_pair)
+    checks = {"fused_mbconv": [], "tail": [], "roi_align_pair": []}
+
+    def within(y, yp, tol):
+        atol_, rtol_ = tol
+        return float(((y.float() - yp.float()).abs() - atol_ - rtol_ * yp.float().abs()).max())
+
+    def spy_mbconv(x, *ops, **kw):
+        y = real[0](x, *ops, **kw)
+        checks["fused_mbconv"].append(within(y, cuda_mbconv.fused_mbconv_plain(x, *ops, **kw),
+                                             TOL_MBCONV["float32"]) <= 0)
+        return y
+
+    def spy_tail(x, *ops, packed=None):
+        cuda_tail.tail = real[1]  # the wrapper counts its launches on its own name
+        try:
+            y = real[1](x, *ops, packed=packed)
+        finally:
+            cuda_tail.tail = spy_tail
+        checks["tail"].append(within(y, cuda_tail.tail_plain(x, *ops), TOL_TAIL["float32"]) <= 0)
+        return y
+
+    def spy_pair(first, second, rois, oh, ow, spatial_scale=(640.0, 640.0), aligned=False):
+        a, b = real[2](first, second, rois, oh, ow, spatial_scale=spatial_scale, aligned=aligned)
+        for got, m in ((a, first), (b, second)):
+            want = roi_align_plain(m, rois, oh, ow, spatial_scale=spatial_scale, aligned=aligned)
+            checks["roi_align_pair"].append(float((got - want).abs().max()) <= TOL_ROI_F32)
+        return a, b
+
+    for f in counters.values():
+        f.launches = 0
+    cuda_mbconv.fused_mbconv, cuda_tail.tail, cuda_roi_align.roi_align_pair = (
+        spy_mbconv, spy_tail, spy_pair)
+    try:
+        run = runs["kernels"]
+        losses = []
+        for b in batches[:2]:
+            run[0], m = run[1](run[0], b)
+            losses.append(float(m["total_loss"]))
+    finally:
+        cuda_mbconv.fused_mbconv, cuda_tail.tail, cuda_roi_align.roi_align_pair = real
+    launches = {k: f.launches for k, f in counters.items()}
+    per_step = {"mbconv_sums": 12, "mbconv_apply": 12, "tail": 2, "roi_align": 1}
+    want = {k: 2 * v for k, v in per_step.items()}
+    print(f"hierarchical KD, teacher mid {HIER_TEACHER_MID} -> student mid {HIER_STUDENT_MID}, "
+          f"B0 {IMAGE_HW[0]}x{IMAGE_HW[1]}, batch {HIER_BATCH} x {HIER_ROIS} rois: losses "
+          f"{losses}, launches {launches} (expected {want}: {per_step} per step x 2); each "
+          f"kernel call within its plain version's tolerance: "
+          f"{ {k: f'{sum(v)}/{len(v)}' for k, v in checks.items()} }")
+    if not np.isfinite(losses).all() or run[0].skipped:
+        raise AssertionError(f"hierarchical KD steps went wrong: {losses}")
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    if [len(checks[k]) for k in checks] != [24, 4, 4] or not all(
+            all(v) for v in checks.values()):
+        raise AssertionError(f"a kernel call disagrees with its plain version: {checks}")
+    DISTILL_PER_STEP["roi_align"] = per_step["roi_align"]
+    dev_batches = [batch_to(b, "cuda") for b in batches]
+    med = _timed_steps(runs, dev_batches)
+    for name, r in runs.items():
+        busy, kernels = _busy_ms(r, dev_batches)
+        print(f"hierarchical KD step float32, {name} stage-1 routes: {med[name]:.3f} ms/step "
+              f"(median of 10 after 3 of warmup, CUDA events), device busy {busy:.3f} ms "
+              f"({100 * (1 - busy / med[name]):.1f}% idle), {kernels} kernels per step [{card}]")
+    del runs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3473,7 +4196,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 17))
+    phases = set(range(1, 19))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -3550,10 +4273,31 @@ def main() -> None:
         del host
         learnability(card)
 
+    if 17 in phases:
+        torch.cuda.empty_cache()
+        if 16 not in phases:
+            tree = coco_tree(card)
+        for name, n in deployment_tools(card, rng, tree).items():
+            launches[name] = launches.get(name, 0) + n
+
+    if 18 in phases:
+        torch.cuda.empty_cache()
+        teacher_kernels = distill_teacher_kernels()
+        distill_launches = distillation_run(card, teacher_kernels)
+        distill_step_kernels(card, teacher_kernels)
+        time_distill_steps(card, teacher_kernels)
+        for name, n in hierarchical_distill(card, rng).items():
+            distill_launches[name] = distill_launches.get(name, 0) + n
+        for name, n in distill_launches.items():
+            launches[name] = launches.get(name, 0) + n
+
     for k in kernels:
         if k["name"] in TRAIN_PER_STEP and 14 in phases:
             k["train_launches"] = train_launches[k["name"]]
             k["train_launches_per_step"] = TRAIN_PER_STEP[k["name"]]
+        if k["name"] in DISTILL_PER_STEP:
+            k["distill_launches"] = distill_launches.get(k["name"], 0)
+            k["distill_launches_per_step"] = DISTILL_PER_STEP[k["name"]]
         k["launches"] = launches.get(k["name"], 0)
         if k["name"] in PER_FORWARD:
             k["launches_per_forward"] = PER_FORWARD[k["name"]]

@@ -1,7 +1,7 @@
-"""Losses: segmentation, hierarchical with refinement terms, distance-aware.
+"""Losses: segmentation, hierarchical with refinement terms, distance-aware,
+distillation.
 
-Counterpart of the JAX package's ``losses`` without ``distillation``
-(ROADMAP A7).
+Counterpart of the JAX package's ``losses``.
 """
 
 from .distance_aware import (
@@ -10,6 +10,17 @@ from .distance_aware import (
     boundary_distance_weights,
     distance_aware_loss,
     instance_separation_weights,
+)
+from .distillation import (
+    DistillationConfig,
+    DistillationState,
+    binary_dice_loss,
+    feature_matching_loss,
+    hierarchical_distillation_loss,
+    scheduled_temperature,
+    unet_distillation_loss,
+    update_adaptive_weights,
+    yolo_distillation_loss,
 )
 from .hierarchical import (
     HierarchicalLossConfig,
@@ -40,4 +51,7 @@ __all__ = [
     "DistanceAwareLossConfig", "distance_aware_loss",
     "boundary_distance_weights", "instance_separation_weights",
     "approximate_distance_transform",
+    "DistillationConfig", "DistillationState", "binary_dice_loss", "feature_matching_loss",
+    "hierarchical_distillation_loss", "scheduled_temperature", "unet_distillation_loss",
+    "update_adaptive_weights", "yolo_distillation_loss",
 ]

@@ -145,6 +145,7 @@ class HierarchicalInstanceSegmenter(nn.Module):
                  use_guided_head: bool = False, norm_groups: int = 8,
                  activation_beta: float = 1.0):
         super().__init__()
+        self.encoder_variant = encoder_variant
         self.freeze_pretrained = freeze_pretrained
         self.roi_size = tuple(roi_size)
         self.mask_size = tuple(mask_size)

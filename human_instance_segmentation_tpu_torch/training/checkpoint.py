@@ -2,10 +2,14 @@
 
 Counterpart of the JAX package's ``training/checkpoint.py`` (orbax there):
 one file per step, ``<directory>/ckpt_<step>.pt``, holding the model's
-``state_dict``, the optimizer's state, the loss EMA state, the step, the
+``state_dict``, the optimizer's state, the loss EMA state, the
+distillation state (None outside a distillation run), the step, the
 skipped count, the generator's state and the metadata (also written beside
 it as ``metadata_<step>.json``, as the JAX package does). Restoring into a
-state built the same way gives back a state that continues bit for bit.
+state built the same way gives back a state that continues bit for bit; a
+checkpoint written without a distillation state leaves the state's own.
+:func:`load_model_state` reads only the model's weights (a teacher's, an
+exported model's).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..losses.distillation import DistillationState
 from ..losses.hierarchical import HierarchicalLossState
 from .state import TrainState
 
@@ -40,6 +45,8 @@ def save_checkpoint(directory: str, state: TrainState, step: int,
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "loss_state": state.loss_state.state_dict(),
+        "distill_state": (state.distill_state.state_dict()
+                          if state.distill_state is not None else None),
         "generator": state.generator.get_state(),
         "metadata": metadata,
     }
@@ -69,6 +76,8 @@ def restore_checkpoint(directory: str, state: TrainState,
     state.model.load_state_dict(payload["model"], strict=True)
     state.optimizer.load_state_dict(payload["optimizer"])
     state.loss_state = HierarchicalLossState.from_state_dict(payload["loss_state"], device)
+    if payload.get("distill_state") is not None:
+        state.distill_state = DistillationState.from_state_dict(payload["distill_state"], device)
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     state.skipped = int(payload["skipped"])
@@ -81,3 +90,15 @@ def latest_step(directory: str) -> Optional[int]:
         return None
     steps = _steps(d)
     return steps[-1] if steps else None
+
+
+def load_model_state(path: str, step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The model ``state_dict`` of a checkpoint: ``path`` is a ``ckpt_<step>.pt``
+    file, or a checkpoint directory (step ``step``, the newest by default)."""
+    p = Path(path).absolute()
+    if p.is_dir():
+        step = latest_step(str(p)) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {p}")
+        p = p / f"ckpt_{step}.pt"
+    return torch.load(p, map_location="cpu", weights_only=True)["model"]

@@ -23,7 +23,13 @@ optax chains compute:
   (``optax.set_to_zero``, a staged freeze) keeps its parameters unchanged.
 - :func:`label_params` / :func:`staged_optimizer` / :class:`StageConfig` /
   :func:`stage_rules`: name-based staged freezing as parameter groups (the
-  JAX package's ``optax.multi_transform`` over path labels).
+  JAX package's ``optax.multi_transform`` over path labels). An optimizer's
+  own ``clip`` is ``optax.chain(clip_by_global_norm, multi_transform)``: one
+  global norm over every parameter's gradient, the frozen ones' included,
+  before any group's transform.
+- :func:`progressive_unfreeze_rules` / :func:`distillation_optimizer`: the
+  distillation path's progressive encoder unfreezing, the decoder at the
+  full learning rate and the unfrozen encoder stages at a scaled one.
 """
 
 from __future__ import annotations
@@ -202,6 +208,14 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(norms).square().sum().sqrt()
 
 
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """optax ``clip_by_global_norm``: ``g / n * max_norm`` unless the global
+    norm ``n < max_norm``."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return [torch.where(keep, t, t / norm * max_norm) for t in grads]
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """``1 - decay ** count`` in float32, as optax computes it."""
     return float(np.float32(1.0) - np.power(np.float32(decay), np.float32(count)))
@@ -215,10 +229,12 @@ class Optimizer:
     :meth:`step` takes one gradient per parameter in ``named_parameters``
     order (``None`` where autograd gave none: a zero gradient) and updates
     the parameters in place under ``torch.no_grad`` (so their version
-    counters move and every cache keyed on them is rebuilt)."""
+    counters move and every cache keyed on them is rebuilt). ``clip`` > 0
+    first clips every gradient by their one global norm (optax's
+    ``clip_by_global_norm`` chained before the groups)."""
 
     def __init__(self, model: nn.Module, transforms: Dict[str, Transform],
-                 label_of: Callable[[str], str]):
+                 label_of: Callable[[str], str], clip: float = 0.0):
         self.names: List[str] = []
         self.params: List[torch.Tensor] = []
         self.labels: List[str] = []
@@ -230,6 +246,7 @@ class Optimizer:
             self.params.append(p)
             self.labels.append(label)
         self.transforms = dict(transforms)
+        self.clip = clip
         self.count = {label: 0 for label in self.transforms}
         self.mu: Dict[str, torch.Tensor] = {}
         self.nu: Dict[str, torch.Tensor] = {}
@@ -246,6 +263,10 @@ class Optimizer:
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        if self.clip > 0:
+            grads = _clip_by_global_norm(
+                [g.float() if g is not None else torch.zeros_like(p)
+                 for g, p in zip(grads, self.params)], self.clip)
         for label, tx in self.transforms.items():
             idx = [i for i, lab in enumerate(self.labels) if lab == label]
             if tx.kind == "zero" or not idx:
@@ -255,9 +276,7 @@ class Optimizer:
             g = [grads[i].float() if grads[i] is not None else torch.zeros_like(self.params[i])
                  for i in idx]
             if tx.clip > 0:
-                norm = global_norm(g)
-                keep = norm < tx.clip
-                g = [torch.where(keep, t, t / norm * tx.clip) for t in g]
+                g = _clip_by_global_norm(g, tx.clip)
             count = self.count[label]
             lr = tx.schedule(count)
             if tx.kind == "sgd":
@@ -330,11 +349,13 @@ def staged_optimizer(
     model: nn.Module,
     rules: Sequence[Tuple[str, str]],
     default: str = "train",
+    clip: float = 0.0,
 ) -> Optimizer:
     """Parameter groups by path label; a group labelled with
-    :func:`set_to_zero` is frozen (its parameters never change)."""
+    :func:`set_to_zero` is frozen (its parameters never change). ``clip`` >
+    0 clips all gradients by their global norm before the groups."""
     labels = label_params([n for n, _ in model.named_parameters()], rules, default)
-    return Optimizer(model, base_tx_for, labels.__getitem__)
+    return Optimizer(model, base_tx_for, labels.__getitem__, clip)
 
 
 @dataclass(frozen=True)
@@ -355,3 +376,46 @@ def stage_rules(stage: StageConfig) -> Sequence[Tuple[str, str]]:
         ("rgb_extractor", "frozen" if stage.freeze_rgb_extractor else "train"),
         ("head", "frozen" if stage.freeze_head else "train"),
     ]
+
+
+def progressive_unfreeze_rules(num_unfrozen_blocks: int, total_stages: int = 7,
+                               encoder_path: str = "encoder") -> Sequence[Tuple[str, str]]:
+    """Unfreeze the last ``num_unfrozen_blocks`` encoder stages (deeper
+    stages first): the encoder's ``stage{i}_block{j}`` modules of stage
+    ``i >= total_stages - num_unfrozen_blocks`` are labelled
+    ``"encoder_train"``, the others ``"frozen"``; the stem trains only when
+    every stage does."""
+    first_trainable = total_stages - num_unfrozen_blocks
+    rules = [(f"{encoder_path}/stage{s}_", "encoder_train" if s >= first_trainable else "frozen")
+             for s in range(total_stages)]
+    rules.append((f"{encoder_path}/stem",
+                  "encoder_train" if num_unfrozen_blocks >= total_stages else "frozen"))
+    return rules
+
+
+def distillation_optimizer(
+    model: nn.Module,
+    schedule: Schedule,
+    num_unfrozen_blocks: int,
+    encoder_lr_scale: float = 0.3,
+    weight_decay: float = 1e-4,
+    gradient_clip: float = 5.0,
+) -> Optimizer:
+    """AdamW over ``model``: everything outside the encoder at ``schedule``,
+    the unfrozen encoder stages at ``encoder_lr_scale`` x ``schedule`` (the
+    product in float32, as optax multiplies its float32 schedule), the frozen
+    stages never updated, after one ``clip_by_global_norm(gradient_clip)``
+    over every gradient."""
+    scale = _F32(encoder_lr_scale)
+
+    def encoder_schedule(count: int) -> float:
+        return float(_F32(schedule(count)) * scale)
+
+    transforms = {
+        "train": Transform("adamw", schedule, weight_decay),
+        "encoder_train": Transform("adamw", encoder_schedule, weight_decay),
+        "frozen": set_to_zero(),
+    }
+    return staged_optimizer(transforms, model, progressive_unfreeze_rules(num_unfrozen_blocks),
+                            default="train",
+                            clip=gradient_clip if gradient_clip and gradient_clip > 0 else 0.0)

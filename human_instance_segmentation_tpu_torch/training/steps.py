@@ -180,6 +180,18 @@ def _apply_step(state: TrainState, grads: List[Optional[torch.Tensor]],
     return state
 
 
+def gradients(state: TrainState, loss: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    """Gradients of ``loss`` for every parameter of the state's optimizer, in
+    its order (None where a parameter got none or needs none)."""
+    params = state.optimizer.params
+    needed = [i for i, p in enumerate(params) if p.requires_grad]
+    found = torch.autograd.grad(loss, [params[i] for i in needed], allow_unused=True)
+    grads: List[Optional[torch.Tensor]] = [None] * len(params)
+    for i, g in zip(needed, found):
+        grads[i] = g
+    return grads
+
+
 def make_train_step(
     model: nn.Module,
     loss_cfg: RefinedLossConfig = RefinedLossConfig(),
@@ -196,13 +208,8 @@ def make_train_step(
         device = next(model.parameters()).device
         loss, (new_loss_state, new_stats, metrics) = loss_fn(
             state.loss_state, state.generator, batch_to(batch, device))
-        params = state.optimizer.params
-        needed = [i for i, p in enumerate(params) if p.requires_grad]
-        found = torch.autograd.grad(loss, [params[i] for i in needed], allow_unused=True)
-        grads: List[Optional[torch.Tensor]] = [None] * len(params)
-        for i, g in zip(needed, found):
-            grads[i] = g
-        state = _apply_step(state, grads, new_loss_state, new_stats, loss.detach())
+        state = _apply_step(state, gradients(state, loss), new_loss_state, new_stats,
+                            loss.detach())
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
