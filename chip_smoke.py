@@ -142,12 +142,34 @@ package beside the script; it imports nothing of JAX. Phases:
     restored with their distillation state (:func:`distillation_run`); (b)
     the KD step with the teacher's kernels against the same teacher without
     them in float32 and bf16 by phase 14b's rule (:func:`distill_step_kernels`);
-    (c) ms per bf16 KD step, the teacher's share, device busy time, idle
-    share and peak memory (:func:`time_distill_steps`); (d)
+    (c) ms per bf16 KD step, the teacher's share, device busy time (the
+    union of the kernels' time ranges), idle share and peak memory
+    (:func:`time_distill_steps`); (d)
     ``make_hierarchical_distill_step`` at bench.py's shapes (teacher mid
     256, student mid 128 with its frozen stage 1, batch 4 x 2 ROIs): finite
     steps, launches per step, every kernel call against its plain version,
-    ms per step (:func:`hierarchical_distill`).
+    ms per step (:func:`hierarchical_distill`);
+19. the other model families and the YOLO-feature distillation
+    (:func:`other_families`), every ``conv_ln_act`` call of a served forward
+    held against ``conv_ln_act_plain`` and printed by shape
+    (:class:`ConvLnActSpy`), the launches of a served forward equal to the
+    gate's count (:func:`fused_units`): (a) the multi-scale RGB model
+    (``model_from_config``, crops 56 / 42 / 28, concat, mask 56, 640 x 640)
+    and (b) the variable-ROI model (``layer_3`` 56, ``layer_22`` 42,
+    ``layer_34`` 28) and the baseline, each served at batch 8 x 8 ROIs a
+    image with the fused head against it off under phase 4's gates, ms per
+    forward of both in turns (:func:`serve_a8_family`); (c) heads V1, V3 and
+    V4 at mid 256 on (64, 28, 28, 256) features, mask 56, fused against
+    plain in float32 and bf16 (:func:`serve_head_variants`); (d)
+    ``run_training`` on the multi-scale RGB config, 5 bf16 steps at 640 x
+    640, batch 8 x 8 ROIs, the checkpoint restored equal, ms per step
+    (:func:`train_multiscale_rgb`); (e) ``run_yolo_feature_distillation``,
+    B0 from B7 with the fused tail and 18 fused blocks, 640 x 640, batch 4,
+    2 epochs x 4 steps on synthetic batches and 2 steps from 640 x 640
+    golden fixtures: the temperature 3 -> 1, one teacher forward of launches
+    a step, the kernel teacher against the plain one by phase 18b's rule, ms
+    per step of both in turns, idle share and peak memory
+    (:func:`yolo_distillation`).
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -156,7 +178,9 @@ It prints a JSON line of per-kernel results (launches on the served paths,
 max abs error, kernel, plain and library or chain times, and the bound: the
 least time the card could take for the same work; for the stage-1 kernels
 and the crop also their launches in phase 18's distillation and per
-distillation step), then as its last line
+distillation step, and the stage-1 kernels' launches per YOLO distillation
+step; for ``conv_ln_act`` its launches per served forward of each family
+of phase 19), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -164,6 +188,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3966,17 +3991,33 @@ def _timed_steps(runs: dict, batches, reps: int = 10) -> dict:
 
 
 def _busy_ms(run, batches, steps: int = TRAIN_PROFILE_STEPS):
-    """Device busy ms per step and kernels per step (``torch.profiler``)."""
+    """Over ``steps`` steps under ``torch.profiler``, per step: the summed
+    device time of the kernels (and copies), the kernels, the host-clock
+    wall time of the profiled steps themselves (tracing can lengthen them),
+    the device busy time as the union of the kernels' time ranges (no
+    instant counted twice where kernels overlap) and the number of CUDA
+    streams the kernels ran on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for i in range(steps):
             run[0], _ = run[1](run[0], batches[i % len(batches)])
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.device_type.name == "CUDA")
+    streams = {e.device_resource_id for e in prof.events() if e.device_type.name == "CUDA"}
+    union, reach = 0.0, float("-inf")
+    for start, end in ranges:
+        if end > reach:
+            union += end - max(start, reach)
+            reach = end
     return (sum(e.self_device_time_total for e in events) / (steps * 1e3),
-            sum(e.count for e in events) // steps)
+            sum(e.count for e in events) // steps, wall, union / (steps * 1e3), len(streams))
 
 
 def time_distill_steps(card: str, teacher_kernels: dict) -> None:
@@ -4023,13 +4064,14 @@ def time_distill_steps(card: str, teacher_kernels: dict) -> None:
         del t16
     n_img = batches[0]["images"].shape[0]
     for name, run in runs.items():
-        busy, kernels = _busy_ms(run, batches)
+        busy_sum, kernels, wall, busy, streams = _busy_ms(run, batches)
         print(f"distill step bf16, B0 from B7 at {_as_hw(cfg.model.image_size)}, batch {n_img}, "
               f"teacher {name}: {med[name]:.3f} ms/step, {n_img / med[name] * 1e3:.1f} img/s "
               f"(median of 10 after 3 of warmup, CUDA events); teacher bf16 forward alone "
               f"{teacher_ms[name]:.3f} ms ({100 * teacher_ms[name] / med[name]:.1f}% of the "
-              f"step); device busy {busy:.3f} ms per step ({100 * (1 - busy / med[name]):.1f}% "
-              f"idle), {kernels} kernels per step [{card}]")
+              f"step); profiled: {wall:.3f} ms wall, {busy:.3f} ms device busy (union of kernel "
+              f"times; {busy_sum:.3f} summed, on {streams} streams) per step, "
+              f"{100 * (1 - busy / wall):.1f}% idle, {kernels} kernels per step [{card}]")
     print(f"  peak memory over both routes' timed steps {peak:.2f} GiB (max_memory_allocated)")
     del runs, student, teacher, plain
     torch.cuda.empty_cache()
@@ -4146,12 +4188,548 @@ def hierarchical_distill(card: str, rng) -> dict:
     dev_batches = [batch_to(b, "cuda") for b in batches]
     med = _timed_steps(runs, dev_batches)
     for name, r in runs.items():
-        busy, kernels = _busy_ms(r, dev_batches)
+        busy_sum, kernels, wall, busy, streams = _busy_ms(r, dev_batches)
         print(f"hierarchical KD step float32, {name} stage-1 routes: {med[name]:.3f} ms/step "
-              f"(median of 10 after 3 of warmup, CUDA events), device busy {busy:.3f} ms "
-              f"({100 * (1 - busy / med[name]):.1f}% idle), {kernels} kernels per step [{card}]")
+              f"(median of 10 after 3 of warmup, CUDA events); profiled: {wall:.3f} ms wall, "
+              f"{busy:.3f} ms device busy (union; {busy_sum:.3f} summed, on {streams} streams), "
+              f"{100 * (1 - busy / wall):.1f}% idle, {kernels} kernels per step [{card}]")
     del runs
     torch.cuda.empty_cache()
+    return launches
+
+
+# Phase 19: the other model families and the YOLO-feature distillation, at
+# the registry's 640 x 640. The multi-scale RGB model is the pure-RGB
+# config with three crops (the JAX default sizes, concat fusion); the
+# variable-ROI model is the baseline config with the three YOLO taps at
+# their own crop sizes.
+A8_BASE = "rgb_hierarchical_unet_v2"
+A8_MS_MODS = {"model": {"multi_scale": True, "roi_sizes": [56, 42, 28], "fusion_method": "concat"}}
+A8_VAR_MODS = {"model": {"variable_roi_sizes": {"layer_3": 56, "layer_22": 42, "layer_34": 28}}}
+A8_BATCH, A8_ROIS = 8, 64  # 8 images x 8 rois each
+A8_HEAD_FEATS = (64, 28, 28, 256)
+A8_TRAIN_STEPS = 5
+YOLO_EPOCHS, YOLO_SPE, YOLO_BATCH = 2, 4, 4
+# launches of conv_ln_act in one served forward of each new family, and of
+# the stage-1 kernels in one YOLO distillation step, as phase 19 saw them
+A8_PER_FORWARD: dict = {}
+YOLO_PER_STEP: dict = {}
+
+
+def fused_units(model, call) -> list:
+    """``(Ci, Co, H, W, launches)`` of every unit under ``model`` that the
+    fused head's gate admits while ``call()`` runs, read from the gate itself
+    on each unit's input (``models.blocks``: eval mode, LayerNorm2d + ReLU,
+    a stride-1 k = 1 or 3 conv with bias, ``cuda_head.fusable_shape``): one
+    launch for a ConvNormAct, two for a ResidualBlock."""
+    from human_instance_segmentation_tpu_torch.models.blocks import ConvNormAct, ResidualBlock
+    from human_instance_segmentation_tpu_torch.ops import cuda_head
+
+    units = []
+
+    def pre(m, args):
+        _, ci, h, w = args[0].shape
+        if isinstance(m, ConvNormAct):
+            ok, n = m.stride == 1 and m.kernel in (1, 3) and m.conv.bias is not None, 1
+        else:
+            ok, n = ci == m.features, 2
+        if (ok and not m.training and m.norm_type == "layernorm2d" and m.activation == "relu"
+                and cuda_head.fusable_shape(h, w, ci, m.features)):
+            units.append((ci, m.features, h, w, n))
+
+    handles = [m.register_forward_pre_hook(pre) for m in model.modules()
+               if isinstance(m, (ConvNormAct, ResidualBlock))]
+    try:
+        call()
+    finally:
+        for h in handles:
+            h.remove()
+    return units
+
+
+class ConvLnActSpy:
+    """While active, every ``cuda_head.conv_ln_act`` call launches the kernel
+    (counted on the wrapper, as in a forward without the spy) and is held
+    against ``conv_ln_act_plain`` on the same inputs (no launch): per shape
+    ``(Ci, Co, H x W, k, dtype)`` the calls, the max abs error and whether
+    each is within ``TOL_CONV``."""
+
+    def __init__(self):
+        from human_instance_segmentation_tpu_torch.ops import cuda_head
+
+        self.cuda_head = cuda_head
+        self.real = cuda_head.conv_ln_act
+        self.shapes: dict = {}
+
+    def __call__(self, x, w, b, gamma, beta, residual=None, **kw):
+        self.cuda_head.conv_ln_act = self.real  # the wrapper counts on its own name
+        try:
+            y = self.real(x, w, b, gamma, beta, residual, **kw)
+        finally:
+            self.cuda_head.conv_ln_act = self
+        plain_kw = {k: v for k, v in kw.items() if k not in ("height", "width")}
+        yp = self.cuda_head.conv_ln_act_plain(x, w, b, gamma, beta, residual, **plain_kw)
+        dtype = str(x.dtype).replace("torch.", "")
+        atol, rtol = TOL_CONV[dtype]
+        err = (y.float() - yp.float()).abs()
+        key = (x.shape[-1], w.shape[-1], f"{x.shape[1]}x{x.shape[2]}", kw.get("kernel", 3), dtype)
+        rec = self.shapes.setdefault(key, {"calls": 0, "max_abs_err": 0.0, "within": True})
+        rec["calls"] += 1
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+        rec["within"] &= bool((err <= atol + rtol * yp.float().abs()).all())
+        return y
+
+    @property
+    def launches(self) -> int:
+        return self.real.launches
+
+    def __enter__(self):
+        self.cuda_head.conv_ln_act = self
+        return self
+
+    def __exit__(self, *exc):
+        self.cuda_head.conv_ln_act = self.real
+
+    def report(self, tag: str) -> None:
+        for (ci, co, hw, k, dtype), r in sorted(self.shapes.items(), key=str):
+            print(f"  {tag} conv_ln_act Ci {ci} Co {co} HxW {hw} k {k} {dtype}: {r['calls']} "
+                  f"calls, max_abs_err vs conv_ln_act_plain {r['max_abs_err']:.3e} (tol "
+                  f"{TOL_CONV[dtype][0]} + {TOL_CONV[dtype][1]:.4g} |y|), within {r['within']}")
+        bad = [key for key, r in self.shapes.items() if not r["within"]]
+        if bad:
+            raise AssertionError(f"{tag}: conv_ln_act outside its tolerance at {bad}")
+
+
+def serve_a8_family(card: str, rng, name: str, cfg) -> int:
+    """Phase 19a/b: one family built by ``model_from_config`` from ``cfg``
+    served through ``InferenceEngine`` at batch 8 x 8 ROIs a image: the
+    fused head (``conv_ln_act`` at every unit the gate admits, each call
+    held against its plain version) against the same weights with it off,
+    under phase 4's gates in float32 and bf16; the launches of a served
+    forward equal to the gate's count; ms per bf16 forward of both paths in
+    turns. Returns the launches per served forward."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import _as_hw, model_from_config
+    from human_instance_segmentation_tpu_torch.inference import InferenceEngine, pad_rois
+    from human_instance_segmentation_tpu_torch.ops import cuda_head
+
+    model = model_from_config(cfg, seed=0)
+    hw = _as_hw(cfg.model.image_size)
+
+    def engine(dtype, kernels: bool):
+        return InferenceEngine(model, dilation_pixels=1, dtype=dtype, fused_head=kernels,
+                               kernels=kernels)
+
+    engines = {"served bf16": engine(torch.bfloat16, True),
+               "plain bf16": engine(torch.bfloat16, False),
+               "served f32": engine(torch.float32, True),
+               "plain f32": engine(torch.float32, False)}
+    images, rois = make_request(rng, A8_BATCH, A8_ROIS, hw)
+    units = fused_units(engines["plain f32"].model,
+                        lambda: _serve(engines["plain f32"], images, rois))
+    per_forward = sum(u[-1] for u in units)
+    tag = f"{name} ({type(model).__name__}) batch {A8_BATCH} x {A8_ROIS // A8_BATCH} rois a image"
+    print(f"{tag}: the gate admits {len(units)} units, {per_forward} conv_ln_act launches a "
+          f"forward: {sorted(set(units))} (Ci, Co, H, W, launches)"
+          + ("; no unit of this family passes the gate (Ci, Co >= 256 at H x W <= 512), so "
+             "its forward runs no fused kernel" if not units else ""))
+    o = {}
+    spy = ConvLnActSpy()
+    with spy:
+        for ename, e in engines.items():
+            c0 = cuda_head.conv_ln_act.launches
+            o[ename] = _serve(e, images, rois)
+            dc = cuda_head.conv_ln_act.launches - c0
+            want = per_forward if ename.startswith("served") else 0
+            if dc != want:
+                raise AssertionError(f"{tag} {ename}: {dc} conv_ln_act launches, expected {want}")
+    spy.report(tag)
+    mask = _as_hw(cfg.model.mask_size)
+    if o["served bf16"][0].shape != (A8_ROIS, *mask, 1) or o["served bf16"][1] is not None:
+        raise AssertionError(f"{tag}: bad outputs {o['served bf16'][0].shape}")
+    _gates(tag, o)
+
+    images_t = torch.as_tensor(images).to("cuda", torch.bfloat16)
+    rois_t = torch.as_tensor(pad_rois(rois, A8_ROIS)).to("cuda")
+    times = {"served": [], "plain": []}
+    for path in ("served", "plain", "plain", "served"):
+        e = engines[f"{path} bf16"]
+        times[path].append(median_ms(lambda: e.forward(images_t, rois_t), reps=TIMING_REPS // 4))
+    for path, ms in times.items():
+        print(f"{tag}, bf16 forward, fused head {'on' if path == 'served' else 'off'}: "
+              f"{statistics.median(ms):.3f} ms per forward (median of per-round medians {ms}, "
+              f"{TIMING_REPS // 4} forwards each, CUDA events) [{card}]")
+    del engines, model
+    torch.cuda.empty_cache()
+    return per_forward
+
+
+def serve_head_variants(card: str, rng) -> dict:
+    """Phase 19c: heads V1, V3 and V4 at mid 256 on (64, 28, 28, 256)
+    features, mask 56 x 56, eval mode, the fused unit on against off in
+    float32 and bf16 (every fused call held against ``conv_ln_act_plain``
+    by shape), launches equal to the gate's count. Gates: float32 fused vs
+    plain logits within 1e-2 and argmax agreement >= MIN_AGREE; bf16 fused
+    no further from the float32 plain logits than twice the bf16 plain
+    path's distance plus 1e-2. Returns the launches per forward by head."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.inference import init_weights
+    from human_instance_segmentation_tpu_torch.models import heads
+    from human_instance_segmentation_tpu_torch.models.blocks import set_head_fusion
+    from human_instance_segmentation_tpu_torch.ops import cuda_head
+
+    n, h, w, c = A8_HEAD_FEATS
+    feats = torch.as_tensor(rng.standard_normal((n, c, h, w)).astype(np.float32)).cuda()
+    out = {}
+    for name, cls in (("V1", heads.HierarchicalHeadV1), ("V3", heads.HierarchicalHeadV3),
+                      ("V4", heads.HierarchicalHeadV4)):
+        m = cls(c, mid_channels=256, mask_size=(56, 56))
+        init_weights(m, seed=5)
+        models = {"float32": m.cuda().eval(), "bfloat16": copy.deepcopy(m).to(torch.bfloat16)}
+        logits = {}
+        units = None
+        spy = ConvLnActSpy()
+        for dtype, mod in models.items():
+            x = feats.to(mod.shared_in.conv.weight.dtype)
+            for fused in (True, False):
+                set_head_fusion(mod, fused)
+                c0 = cuda_head.conv_ln_act.launches
+                with torch.inference_mode(), spy:
+                    if units is None:
+                        set_head_fusion(mod, False)
+                        units = fused_units(mod, lambda: mod(x))
+                        set_head_fusion(mod, fused)
+                    logits[(dtype, fused)] = mod(x)[0].float()
+                dc = cuda_head.conv_ln_act.launches - c0
+                want = sum(u[-1] for u in units) if fused else 0
+                if dc != want:
+                    raise AssertionError(f"head {name} {dtype} fused={fused}: {dc} launches, "
+                                         f"expected {want}")
+        per_forward = sum(u[-1] for u in units)
+        print(f"head {name}, mid 256, features {A8_HEAD_FEATS} (N, H, W, C), mask 56x56: the gate "
+              f"admits {len(units)} units, {per_forward} conv_ln_act launches a forward: "
+              f"{sorted(set(units))} (Ci, Co, H, W, launches)")
+        spy.report(f"head {name}")
+        ref = logits[("float32", False)]
+        f32_err = float((logits[("float32", True)] - ref).abs().max())
+        agree = float((logits[("float32", True)].argmax(1) == ref.argmax(1)).float().mean())
+        k_err = float((logits[("bfloat16", True)] - ref).abs().max())
+        p_err = float((logits[("bfloat16", False)] - ref).abs().max())
+        print(f"head {name}: float32 fused vs plain logits max_abs_err {f32_err:.3e} (tol 1e-2), "
+              f"argmax agreement {agree:.6f} (min {MIN_AGREE}); bf16 vs float32 plain logits "
+              f"max_abs_err fused {k_err:.3e}, plain bf16 {p_err:.3e} (fused <= 2 x plain + "
+              f"1e-2); max |logit| {float(ref.abs().max()):.3f}")
+        if not (np.isfinite([f32_err, k_err, p_err]).all() and f32_err <= 1e-2
+                and agree >= MIN_AGREE and k_err <= 2 * p_err + 1e-2):
+            raise AssertionError(f"head {name}: the fused path is outside its gates")
+        times = {True: [], False: []}
+        x16 = feats.to(torch.bfloat16)
+        mod = models["bfloat16"]
+        for fused in (True, False, False, True):
+            set_head_fusion(mod, fused)
+            with torch.inference_mode():
+                times[fused].append(median_ms(lambda: mod(x16), reps=TIMING_REPS // 4))
+        print(f"head {name} bf16 forward, {n} rois: fused {statistics.median(times[True]):.3f} ms, "
+              f"unfused {statistics.median(times[False]):.3f} ms (median of per-round medians "
+              f"{times}, CUDA events) [{card}]")
+        out[name] = per_forward
+        del models, m, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_multiscale_rgb(card: str) -> None:
+    """Phase 19d: ``run_training`` on the multi-scale RGB config (640 x 640,
+    batch 8 x 8 ROIs, bf16, synthetic), 5 steps: every step finite, none
+    skipped, the checkpoint restored equal; then ms per step."""
+    import shutil
+
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager, _as_hw,
+                                                              _deep_merge, model_from_config)
+    from human_instance_segmentation_tpu_torch.training import steps as tsteps
+    from human_instance_segmentation_tpu_torch.training.checkpoint import restore_checkpoint
+    from human_instance_segmentation_tpu_torch.training.loop import (run_training,
+                                                                    synthetic_batches)
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      constant_schedule)
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    cfg = _deep_merge(ConfigManager.get_config(A8_BASE), A8_MS_MODS)
+    out = ROOT / "build" / "phase19d_run"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    metrics, state = run_training(A8_BASE, steps=A8_TRAIN_STEPS, synthetic=True,
+                                  output_dir=str(out), config_modifications=A8_MS_MODS,
+                                  return_state=True)
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for f in sorted((out / "logs").glob("*.jsonl"))
+            for line in f.read_text().splitlines()]
+    losses = [r["total_loss"] for r in rows if "total_loss" in r]
+    print(f"run_training {A8_BASE} + multi_scale (roi sizes {cfg.model.roi_sizes}, "
+          f"{cfg.model.fusion_method}), {A8_TRAIN_STEPS} steps, {cfg.training.compute_dtype}, "
+          f"640x640, batch {cfg.training.batch_size} x {cfg.data.rois_per_image} rois: "
+          f"{wall:.1f} s; logged losses {losses}, val mIoU {metrics.get('val_miou')}, skipped "
+          f"{state.skipped} [{card}]")
+    if state.skipped or state.step != A8_TRAIN_STEPS or not losses or not all(
+            map(math.isfinite, losses)):
+        raise AssertionError(f"training went wrong: step {state.step}, skipped {state.skipped}")
+    fresh = TrainState.create(model_from_config(cfg, seed=1),
+                              build_optimizer(constant_schedule(0.0)), seed=2)
+    fresh, step = restore_checkpoint(str(out / "checkpoints"), fresh)
+    a, b = state.model.state_dict(), fresh.model.state_dict()
+    same = (step == A8_TRAIN_STEPS and a.keys() == b.keys()
+            and all(torch.equal(a[k], b[k]) for k in a)
+            and all(torch.equal(state.optimizer.mu[k], fresh.optimizer.mu[k])
+                    for k in state.optimizer.mu))
+    print(f"checkpoint of step {step} restored into a fresh state: equal {same}")
+    if not same:
+        raise AssertionError("the restored state differs from the trained one")
+    del fresh, a, b, state
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gen = synthetic_batches(cfg.training.batch_size, cfg.data.rois_per_image,
+                            _as_hw(cfg.model.image_size), _as_hw(cfg.model.mask_size), seed=11)
+    batches = [tsteps.batch_to(next(gen), "cuda") for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    med, times, _ = _time_steps(model_from_config(cfg, seed=0), cfg, batches)
+    n = cfg.training.batch_size
+    print(f"train step multi-scale RGB, bf16, batch {n} x {cfg.data.rois_per_image} rois: "
+          f"{med:.3f} ms/step, {n / med * 1e3:.1f} img/s (median of {len(times)} steps after 2 "
+          f"of warmup, CUDA events; all {times}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    torch.cuda.empty_cache()
+
+
+def _yolo_models(teacher_kernels: dict):
+    """The B0 YOLO student and the B7 teacher with the kernel flags, and the
+    same teacher weights without them (``kernels=False`` too)."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.models.yolo_distill import (
+        YOLOFeatureDistillStudent)
+    from human_instance_segmentation_tpu_torch.training.distill import build_student_teacher
+    from human_instance_segmentation_tpu_torch.training.distill_loop import DECODER
+
+    kw = dict(device="cuda", decoder_channels=DECODER, student_cls=YOLOFeatureDistillStudent)
+    student, teacher = build_student_teacher("b0", "b7", teacher_overrides=teacher_kernels, **kw)
+    _, plain = build_student_teacher("tiny", "b7", **kw)
+    plain.tail_use_kernel = False
+    plain.encoder.set_fused_kernels(False)
+    a, b = teacher.state_dict(), plain.state_dict()
+    if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("the two teachers do not hold the same weights")
+    return student, teacher, plain
+
+
+def _yolo_loss_and_grads(student, teacher, batch, delta=None):
+    """One evaluation of the YOLO distillation loss (float32, T = 3) and
+    the student's gradients (its statistics handed over, not written), and
+    the teacher logits it saw as (B, H, W); ``delta(t)`` is added to the
+    teacher logits when given."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.training import yolo_distill
+    from human_instance_segmentation_tpu_torch.training.steps import batch_to
+
+    seen = {}
+
+    def hook(module, inputs, out):
+        form, y = out
+        if delta is not None:
+            y = y + delta(y).to(y.dtype)
+        seen["t"] = (y if form == "dense" else y[:, 0]).float()
+        return form, y
+
+    handle = teacher.register_forward_hook(hook)
+    try:
+        student.train()
+        loss, _ = yolo_distill.make_yolo_loss_fn(student, teacher)(3.0, batch_to(batch, "cuda"))
+        params = [p for n, p in student.named_parameters() if not n.startswith("encoder.")]
+        grads = torch.autograd.grad(loss, params)
+    finally:
+        handle.remove()
+    return float(loss.detach()), torch.cat([g.flatten() for g in grads]).detach(), seen["t"]
+
+
+def yolo_distillation(card: str, teacher_kernels: dict) -> dict:
+    """Phase 19e: ``run_yolo_feature_distillation`` (B0 student, B7 teacher
+    with the fused tail and the admissible fused blocks, 640 x 640, batch
+    4): 2 epochs x 4 steps on synthetic batches, and 1 epoch x 2 steps from
+    a directory of 640 x 640 ``write_golden_fixture`` files. Gates: every
+    step finite, the temperature 3 -> 1, the stage-1 launches equal to one
+    teacher forward a step (validation runs the student only), the best
+    checkpoint written; the teacher's float32 logits with the kernels within
+    ``TOL_STAGE1_F32`` of the plain teacher's and the step's loss and
+    gradients within twice that error's effect (phase 18b's rule); ms per
+    step with the kernel teacher and the plain teacher in turns, each
+    teacher's float32 forward alone, device busy time and idle share over
+    profiled steps, peak memory. Returns the launches of the runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.data.yolo_features import write_golden_fixture
+    from human_instance_segmentation_tpu_torch.models.yolo_distill import (
+        YOLOFeatureDistillStudent)
+    from human_instance_segmentation_tpu_torch.training import yolo_distill
+    from human_instance_segmentation_tpu_torch.training.distill import (build_student_teacher,
+                                                                       unet_logits)
+    from human_instance_segmentation_tpu_torch.training.distill_loop import DECODER
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+    from human_instance_segmentation_tpu_torch.training.steps import batch_to
+
+    out = ROOT / "build" / "phase19e_run"
+    shutil.rmtree(out, ignore_errors=True)
+    counters = train_counters()
+    n = teacher_kernels["encoder_fused_blocks"]
+    per_step = {"mbconv_sums": n, "mbconv_apply": n, "tail": 1}
+    fixtures = out / "fixtures"
+    t0 = time.perf_counter()
+    for i in range(2):
+        write_golden_fixture(str(fixtures / f"dump{i}.npz"), batch=YOLO_BATCH, image_hw=(640, 640),
+                             layers=("layer_34",), seed=i)
+    print(f"two 640x640 golden fixtures of {YOLO_BATCH} images (layer_34 at 80x80x1024) written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    total = {k: 0 for k in counters}
+    for source, epochs, spe, kw in (("synthetic", YOLO_EPOCHS, YOLO_SPE, {}),
+                                    ("fixtures", 1, 2, {"feature_dir": str(fixtures)})):
+        for f in counters.values():
+            f.launches = 0
+        run_dir = out / source
+        t0 = time.perf_counter()
+        metrics, state = yolo_distill.run_yolo_feature_distillation(
+            epochs=epochs, steps_per_epoch=spe, batch=YOLO_BATCH, output_dir=str(run_dir),
+            teacher_overrides=teacher_kernels, return_state=True, **kw)
+        wall = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        want = {k: v * epochs * spe for k, v in per_step.items()}
+        rows = [json.loads(line) for f in sorted((run_dir / "logs").glob("*.jsonl"))
+                for line in f.read_text().splitlines()]
+        temps = [r["temperature"] for r in rows if "temperature" in r]
+        want_t = [3.0, 1.0] if epochs == 2 else [1.0]
+        metas = sorted((run_dir / "checkpoints").glob("metadata_*.json"))
+        print(f"run_yolo_feature_distillation ({source}, B0 from B7, 640x640, batch {YOLO_BATCH}, "
+              f"float32), {epochs} epochs x {spe} steps, teacher {teacher_kernels}: {wall:.1f} s; "
+              f"losses by epoch {[r.get('total_loss') for r in rows]}, feature losses "
+              f"{[r.get('feature_loss') for r in rows]}, temperatures {temps}, best student "
+              f"mIoU {metrics['best_student_miou']:.4f}, checkpoints {[m.name for m in metas]}; "
+              f"launches {launches} (expected {want}: {per_step} per step) [{card}]")
+        if state.step != epochs * spe or not all(
+                np.isfinite(r["total_loss"]) for r in rows if "total_loss" in r):
+            raise AssertionError(f"YOLO distillation went wrong: step {state.step}, rows {rows}")
+        if temps != want_t:
+            raise AssertionError(f"temperatures {temps}, expected {want_t}")
+        if launches != want:
+            raise AssertionError(f"expected launches {want}, got {launches}")
+        if metrics["best_student_miou"] > 0 and not metas:
+            raise AssertionError("no checkpoint of the best student")
+        for k, v in launches.items():
+            total[k] += v
+        del state
+        torch.cuda.empty_cache()
+    YOLO_PER_STEP.update(per_step)
+
+    student, teacher, plain = _yolo_models(teacher_kernels)
+    batches = [next(yolo_distill.synthetic_yolo_batches(YOLO_BATCH, (640, 640), seed=s))
+               for s in (3, 4, 5)]
+    lk, gk, xk = _yolo_loss_and_grads(student, teacher, batches[0])
+    lp, gp, xp = _yolo_loss_and_grads(student, plain, batches[0])
+    atol, rtol = TOL_STAGE1_F32
+    x_err = (xk - xp).abs()
+    x_ok = bool((x_err <= atol + rtol * xp.abs()).all())
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def shift(x):
+        return atol + rtol * x.abs()
+
+    def random_sign(x):
+        s = torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1
+        return s * (atol + rtol * x.abs())
+
+    effects = [_yolo_loss_and_grads(student, plain, batches[0], d) for d in (shift, random_sign)]
+    l_bound = 2 * max(abs(le - lp) for le, _, _ in effects)
+    g_bound = 2 * max(float((ge - gp).norm()) for _, ge, _ in effects)
+    l_err, g_err = abs(lk - lp), float((gk - gp).norm())
+    print(f"YOLO step float32 (B0 from B7, batch {YOLO_BATCH}, 640x640), teacher kernels vs "
+          f"plain: teacher logits max_abs_err {float(x_err.max()):.3e} (tol {atol} + {rtol} |x|, "
+          f"max |x| {float(xp.abs().max()):.2f}); loss {lk:.7f} vs {lp:.7f}, |diff| {l_err:.3e} "
+          f"(bound {l_bound:.3e}); student gradients outside the frozen encoder |diff| "
+          f"{g_err:.3e} of |g| {float(gp.norm()):.3e} (bound {g_bound:.3e})")
+    if not (x_ok and l_err <= l_bound and g_err <= g_bound):
+        raise AssertionError("YOLO step: the kernel teacher is outside its bound")
+    del effects, gk, gp
+
+    runs = {}
+    for name, tch in (("kernels", teacher), ("plain", plain)):
+        s = student if name == "kernels" else build_student_teacher(
+            "b0", "tiny", device="cuda", decoder_channels=DECODER,
+            student_cls=YOLOFeatureDistillStudent)[0]
+        step = yolo_distill.make_yolo_train_step(s, tch)
+        runs[name] = [TrainState.create(s, yolo_distill.yolo_optimizer(s, 1e-3)),
+                      lambda st, b, step=step: step(st, b, 3.0)]
+    dev = [batch_to(b, "cuda") for b in batches]
+    torch.cuda.reset_peak_memory_stats()
+    med = _timed_steps(runs, dev)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    images = dev[0]["images"]
+    for name, run in runs.items():
+        tch = teacher if name == "kernels" else plain
+        with torch.no_grad():
+            t_ms = median_ms(lambda: unet_logits(tch, images), reps=10)
+            t_ms5 = median_ms(lambda: unet_logits(tch, images), reps=5, calls=5)
+        busy_sum, kernels, wall, busy, streams = _busy_ms(run, dev)
+        print(f"YOLO step float32, B0 from B7 at 640x640, batch {YOLO_BATCH}, teacher {name}: "
+              f"{med[name]:.3f} ms/step, {YOLO_BATCH / med[name] * 1e3:.1f} img/s (median of 10 "
+              f"after 3 of warmup, CUDA events, the two teachers in turns); teacher float32 "
+              f"forward alone {t_ms:.3f} ms one call, {t_ms5:.3f} five in a row "
+              f"({100 * t_ms / med[name]:.1f}% of the step); profiled: {wall:.3f} ms wall, "
+              f"{busy:.3f} ms device busy (union of kernel times; {busy_sum:.3f} summed, on "
+              f"{streams} streams) per step, {100 * (1 - busy / wall):.1f}% idle, {kernels} "
+              f"kernels per step [{card}]")
+    print(f"  peak memory over both routes' timed steps {peak:.2f} GiB (max_memory_allocated)")
+    del runs, student, teacher, plain
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
+def other_families(card: str, rng) -> dict:
+    """Phase 19: a, b, c, d and e above, with the time each took. Returns
+    the launches of the phase's main-path runs."""
+    from human_instance_segmentation_tpu_torch.config import ConfigManager, _deep_merge
+
+    t_phase = time.perf_counter()
+    launches = {"conv_ln_act": 0}
+    cfgs = (("multi-scale RGB", _deep_merge(ConfigManager.get_config(A8_BASE), A8_MS_MODS)),
+            ("variable-ROI", _deep_merge(ConfigManager.get_config("baseline"), A8_VAR_MODS)),
+            ("baseline", ConfigManager.get_config("baseline")))
+    for name, cfg in cfgs:
+        t0 = time.perf_counter()
+        per_forward = serve_a8_family(card, rng, name, cfg)
+        A8_PER_FORWARD[name] = per_forward
+        launches["conv_ln_act"] += 2 * per_forward  # one served forward in f32, one in bf16
+        print(f"phase 19 {name}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, per_forward in serve_head_variants(card, rng).items():
+        A8_PER_FORWARD[f"head {name}"] = per_forward
+        launches["conv_ln_act"] += 2 * per_forward
+    print(f"phase 19c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_multiscale_rgb(card)
+    print(f"phase 19d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in yolo_distillation(card, distill_teacher_kernels()).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"phase 19e: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s [{card}]")
     return launches
 
 
@@ -4196,7 +4774,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 19))
+    phases = set(range(1, 20))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -4291,7 +4869,16 @@ def main() -> None:
         for name, n in distill_launches.items():
             launches[name] = launches.get(name, 0) + n
 
+    if 19 in phases:
+        torch.cuda.empty_cache()
+        for name, n in other_families(card, rng).items():
+            launches[name] = launches.get(name, 0) + n
+
     for k in kernels:
+        if k["name"] == "conv_ln_act" and A8_PER_FORWARD:
+            k["a8_launches_per_forward"] = dict(A8_PER_FORWARD)
+        if k["name"] in YOLO_PER_STEP:
+            k["yolo_launches_per_step"] = YOLO_PER_STEP[k["name"]]
         if k["name"] in TRAIN_PER_STEP and 14 in phases:
             k["train_launches"] = train_launches[k["name"]]
             k["train_launches_per_step"] = TRAIN_PER_STEP[k["name"]]

@@ -7,11 +7,10 @@ named-experiment registry generated from the naming grammar, ``_deep_merge``
 ``loss_config_from_experiment``. The configs are equal field for field
 (``to_dict()``) to the JAX package's.
 
-:func:`model_from_config` builds the port's model: the full-image flagship
-family (``use_pretrained_unet`` and ``use_full_image_unet``) as
-:class:`.models.assembly.HierarchicalInstanceSegmenter` with seeded random
-weights on a device; every other family raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+:func:`model_from_config` builds the port's model of any config, with
+seeded random weights on a device: every family of the JAX dispatch (the
+full-image flagship, the ROI-pretrained, pure-RGB and multi-scale RGB
+hierarchical models, the variable-ROI and the baseline models).
 """
 
 from __future__ import annotations
@@ -609,30 +608,45 @@ def model_from_config(cfg: ExperimentConfig, seed: int = 0, device="cuda", **ove
     model's constructor (the tiny run's narrow widths, ``pallas_tail``,
     ``encoder_fused_blocks``).
 
-    The JAX dispatch (JAX config.py:604-658): the full-image pretrained
-    family is :class:`HierarchicalInstanceSegmenter` with every head flag,
-    norm and activation (and ``pallas_roi_align=False``, the JAX model's
-    default, stated because the port's own default differs, ROADMAP C5);
-    the ROI-cropped pretrained family is
+    The JAX dispatch (JAX config.py:604-658): a config that is not
+    hierarchical is :class:`VariableROISegmentationModel` when it names
+    ``variable_roi_sizes``, else the baseline :class:`ROISegmentationModel`
+    (norm and groups only). The variable-ROI model gets neither
+    ``use_rgb_enhancement`` nor ``rgb_enhanced_layers`` from the config, as
+    the JAX dispatch passes neither, so its RGB enhancement stays off.
+    ``multi_scale`` is :class:`MultiScaleRGBHierarchicalModel` (``roi_sizes``,
+    56, 42 and 28 by default, and ``fusion_method``). The full-image
+    pretrained family is :class:`HierarchicalInstanceSegmenter` with every
+    head flag, norm and activation (and ``pallas_roi_align=False``, the JAX
+    model's default, stated because the port's own default differs, ROADMAP
+    C5); the ROI-cropped pretrained family is
     :class:`ROIPretrainedHierarchicalModel`; the other hierarchical configs
-    are :class:`PureRGBHierarchicalModel`. The baseline, variable-ROI and
-    multi-scale models raise ``NotImplementedError`` naming ROADMAP A8."""
+    are :class:`PureRGBHierarchicalModel`."""
     from .inference import init_weights, resolve_device
-    from .models.assembly import (HierarchicalInstanceSegmenter, PureRGBHierarchicalModel,
-                                  ROIPretrainedHierarchicalModel)
+    from .models.assembly import (HierarchicalInstanceSegmenter, MultiScaleRGBHierarchicalModel,
+                                  PureRGBHierarchicalModel, ROIPretrainedHierarchicalModel)
+    from .models.baseline import ROISegmentationModel
+    from .models.multiscale import VariableROISegmentationModel
 
     m = cfg.model
-    if not (m.use_rgb_hierarchical or m.use_hierarchical_unet_v2 or m.use_hierarchical):
-        raise NotImplementedError(
-            "the baseline and variable-ROI models are not ported yet (ROADMAP A8)")
-    if m.multi_scale:
-        raise NotImplementedError("the multi-scale RGB model is not ported yet (ROADMAP A8)")
     dev = resolve_device(device)
     roi, mask, img = _as_hw(m.roi_size), _as_hw(m.mask_size), _as_hw(m.image_size)
     common = dict(norm=m.normalization_type, norm_groups=m.normalization_groups,
                   activation=m.activation_function, activation_beta=m.activation_beta,
                   use_attention_module=m.use_attention_module)
-    if m.use_pretrained_unet and m.use_full_image_unet:
+    if not (m.use_rgb_hierarchical or m.use_hierarchical_unet_v2 or m.use_hierarchical):
+        if m.variable_roi_sizes:
+            cls = VariableROISegmentationModel
+            kwargs = dict(roi_sizes=dict(m.variable_roi_sizes), mask_size=mask, **common)
+        else:
+            cls = ROISegmentationModel
+            kwargs = dict(roi_size=roi, mask_size=mask, norm=m.normalization_type,
+                          norm_groups=m.normalization_groups)
+    elif m.multi_scale:
+        cls = MultiScaleRGBHierarchicalModel
+        kwargs = dict(roi_sizes=tuple(m.roi_sizes or (56, 42, 28)), mask_size=mask,
+                      image_size=img, fusion_method=m.fusion_method, **common)
+    elif m.use_pretrained_unet and m.use_full_image_unet:
         cls = HierarchicalInstanceSegmenter
         kwargs = dict(
             encoder_variant=m.encoder_name, roi_size=roi, mask_size=mask, image_size=img,

@@ -97,7 +97,9 @@ def deployed_outputs(
 
 class InferenceEngine:
     """Bucketed inference on one device for the flagship model, and for the
-    pure-RGB and ROI-pretrained hierarchical models (no binary masks then).
+    models without a full-image stage 1 (no binary masks then): the
+    pure-RGB, ROI-pretrained and multi-scale RGB hierarchical models, the
+    variable-ROI and the baseline models.
 
     The engine serves its own copy of ``model`` (``engine.model``), cast to
     ``dtype`` (float32 or bfloat16; LayerNorm2d statistics stay float32) on
@@ -235,7 +237,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     biases 0 (or the conv's ``init_bias``), norm scales 1 and shifts 0,
     running statistics 0/1, the stage-1 wrapper at [+1, -1], the distance
     threshold at 0.3, the boundary blend at 0.01. Parameters are drawn in
-    ``named_modules`` order."""
+    ``named_modules`` order. Dense kernels (``nn.Linear``, V4's attention)
+    are LeCun-normal too, as flax's ``DenseGeneral`` draws them; the fusion
+    models' ``fusion_weights`` stay at their ones."""
     gen = torch.Generator().manual_seed(seed)
     fixed = {id(m.output_conv) for m in model.modules() if isinstance(m, PeopleSegUNetWrapper)}
     with torch.no_grad():
@@ -244,7 +248,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
                 continue
             if isinstance(m, nn.ConvTranspose2d):
                 fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
-            elif isinstance(m, nn.Conv2d):
+            elif isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
             else:
                 continue

@@ -298,8 +298,8 @@ def yolo_distillation_loss(
     T (scaled by T, clamped), MSE against the teacher logits, BCE + Dice
     against the ground truth, and a feature-alignment term (MSE clamped to
     10, or 1 - cosine) between the student's projected stride-8 feature and
-    the precomputed YOLO feature (NHWC). Its training step comes with the
-    YOLO-distillation model (ROADMAP A8)."""
+    the precomputed YOLO feature (NHWC). Its training step is
+    ``training/yolo_distill.py``'s."""
     eps = 1e-7
     T = temperature
     t_logits = teacher_logits.detach()

@@ -34,12 +34,15 @@ With no refinement flag, or ``use_guided_head``, the head is the JAX
 model's ``PretrainedUNetGuidedHead`` fed by the RGB features and the
 logit crop, with no ``feature_combiner`` (assembly.py:161-183).
 
-Also here, the two other hierarchical families of the JAX package's
-registry: :class:`PureRGBHierarchicalModel` (no stage 1; crops with
-``aligned=False`` into :class:`RGBFeatureExtractor`, assembly.py:354-384)
-and :class:`ROIPretrainedHierarchicalModel` (the people-segmentation UNet
-runs on each ROI crop, assembly.py:290-351). Both crop with the plain
-``ops.sampling.roi_align``, as the JAX models use no Pallas crop there.
+Also here, the other hierarchical families of the JAX package:
+:class:`PureRGBHierarchicalModel` (no stage 1; crops with ``aligned=False``
+into :class:`RGBFeatureExtractor`, assembly.py:354-384),
+:class:`ROIPretrainedHierarchicalModel` (the people-segmentation UNet runs
+on each ROI crop, assembly.py:290-351) and
+:class:`MultiScaleRGBHierarchicalModel` (three RGB crops, each through its
+own extractor, fused at 28 x 28, assembly.py:387-443). They crop with the
+plain ``ops.sampling.roi_align``, as the JAX models use no Pallas crop
+there.
 
 Public I/O is NHWC as in the JAX package; the modules run NCHW inside.
 """
@@ -347,4 +350,64 @@ class PureRGBHierarchicalModel(nn.Module):
         logits, aux = self.head(self.rgb_extractor(_nchw(patches)))
         aux = {k: _nhwc(v) for k, v in aux.items()}
         aux["roi_patches"] = patches
+        return _nhwc(logits), aux
+
+
+class MultiScaleRGBHierarchicalModel(nn.Module):
+    """Three-scale RGB crops fused before the hierarchical head (JAX
+    ``MultiScaleRGBHierarchicalModel``): for each size of ``roi_sizes`` a
+    crop (``aligned=False``, at the image's extent) through its own
+    :class:`RGBFeatureExtractor` (``rgb_extractor{i}``), resized to 28 x 28;
+    ``concat``, ``sum`` or ``adaptive`` (softmax over ``fusion_weights``)
+    fusion; a 1x1 projection to ``feature_dim``; ``HierarchicalHeadV2`` at
+    mid 256. The 28 x 28 fusion size and the head's width are the JAX
+    model's constants. aux adds ``roi_patches``, the first size's crop."""
+
+    def __init__(self, roi_sizes: Tuple[int, ...] = (56, 42, 28),
+                 mask_size: Tuple[int, int] = (56, 56), image_size: Tuple[int, int] = (640, 640),
+                 feature_dim: int = 256, fusion_method: str = "concat",
+                 use_attention_module: bool = False, norm: str = "layernorm2d",
+                 norm_groups: int = 8, activation: str = "relu", activation_beta: float = 1.0):
+        super().__init__()
+        if fusion_method not in ("concat", "sum", "adaptive"):
+            raise ValueError(f"unknown fusion method {fusion_method}")
+        self.roi_sizes = tuple(roi_sizes)
+        self.mask_size, self.image_size = tuple(mask_size), tuple(image_size)
+        self.fusion_method = fusion_method
+        kw = dict(norm=norm, norm_groups=norm_groups, activation=activation,
+                  activation_beta=activation_beta)
+        for i in range(len(self.roi_sizes)):
+            self.add_module(f"rgb_extractor{i}", RGBFeatureExtractor(feature_dim, **kw))
+        if fusion_method == "adaptive":
+            self.fusion_weights = nn.Parameter(torch.ones(len(self.roi_sizes)))
+        fused = feature_dim * (len(self.roi_sizes) if fusion_method == "concat" else 1)
+        self.fusion_proj = ConvNormAct(fused, feature_dim, kernel=1,
+                                       **dict(kw, norm_groups=min(norm_groups, feature_dim)))
+        self.head = HierarchicalHeadV2(feature_dim, 256, mask_size,
+                                       use_attention_module=use_attention_module, **kw)
+
+    def forward(self, images: torch.Tensor,
+                rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        scale = (float(self.image_size[0]), float(self.image_size[1]))
+        images = images.contiguous()
+        feats, patches0 = [], None
+        for i, rs in enumerate(self.roi_sizes):
+            patches = sampling.roi_align(images, rois, rs, rs, spatial_scale=scale,
+                                         aligned=False)
+            if i == 0:
+                patches0 = patches
+            f = getattr(self, f"rgb_extractor{i}")(_nchw(patches))
+            if tuple(f.shape[2:]) != (28, 28):
+                f = sampling.resize_bilinear(f, 28, 28, axes=(2, 3))
+            feats.append(f)
+        if self.fusion_method == "concat":
+            fused = torch.cat(feats, dim=1)
+        elif self.fusion_method == "sum":
+            fused = sum(feats)
+        else:
+            w = torch.softmax(self.fusion_weights, dim=0)
+            fused = sum(w[i] * f for i, f in enumerate(feats))
+        logits, aux = self.head(self.fusion_proj(fused))
+        aux = {k: _nhwc(v) for k, v in aux.items()}
+        aux["roi_patches"] = patches0
         return _nhwc(logits), aux

@@ -1,9 +1,11 @@
 """Hierarchical ROI segmentation heads, stage 2 (NCHW).
 
 Counterpart of the JAX package's ``models/heads.py``: ``EnhancedUNet``,
-``HierarchicalHeadV2`` (with its optional attention module: spatial
-attention after ``tnt_res0``, channel attention after the ``tnt``
-upsample), the refinement modules (``BoundaryRefinement``,
+``ShallowUNet``, ``HierarchicalHeadV2`` (with its optional attention
+module: spatial attention after ``tnt_res0``, channel attention after the
+``tnt`` upsample), the head variants ``HierarchicalHeadV1``, ``V3`` and
+``V4`` (V4's cross-branch attention is :class:`SelfAttention`, flax's
+arithmetic in plain tensor ops), the refinement modules (``BoundaryRefinement``,
 ``ProgressiveUpsamplingDecoder``, ``SubPixelDecoder``, ``ContourBranch``,
 ``DistanceTransformDecoder``), ``RefinedHierarchicalHead`` and
 ``PretrainedUNetGuidedHead``. Heads return ``(final_logits, aux)`` with
@@ -23,7 +25,8 @@ The 1x1/3x3 convs the JAX package builds as ``QConv`` are
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -114,6 +117,51 @@ class EnhancedUNet(nn.Module):
         return self.final_out(prequantize_for(self.final_out, x, k=1))
 
 
+class ShallowUNet(nn.Module):
+    """Depth-2 UNet with two conv-norm-act units per level; 2-class logits."""
+
+    def __init__(self, in_channels: int, base_channels: int = 64, norm: str = "layernorm2d",
+                 activation: str = "relu", norm_groups: int = 8, activation_beta: float = 1.0):
+        super().__init__()
+        kw = _kw(norm, norm_groups, activation, activation_beta)
+        bc = base_channels
+        self.enc1a = ConvNormAct(in_channels, bc, **kw)
+        self.enc1b = ConvNormAct(bc, bc, **kw)
+        self.enc2a = ConvNormAct(bc, bc * 2, **kw)
+        self.enc2b = ConvNormAct(bc * 2, bc * 2, **kw)
+        self.bota = ConvNormAct(bc * 2, bc * 4, **kw)
+        self.botb = ConvNormAct(bc * 4, bc * 4, **kw)
+        self.up2 = ConvTranspose2x(bc * 4, bc * 2)
+        self.dec2a = ConvNormAct(bc * 4, bc * 2, **kw)
+        self.dec2b = ConvNormAct(bc * 2, bc * 2, **kw)
+        self.up1 = ConvTranspose2x(bc * 2, bc)
+        self.dec1a = ConvNormAct(bc * 2, bc, **kw)
+        self.dec1b = ConvNormAct(bc, bc, **kw)
+        self.final = QConv(bc, 2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        e1 = self.enc1b(self.enc1a(x))
+        e2 = self.enc2b(self.enc2a(max_pool_2x(e1)))
+        h = self.botb(self.bota(max_pool_2x(e2)))
+        h = _resize_to(self.up2(h), e2.shape[2], e2.shape[3])
+        h = self.dec2b(self.dec2a(torch.cat([h, e2], dim=1)))
+        h = _resize_to(self.up1(h), e1.shape[2], e1.shape[3])
+        h = self.dec1b(self.dec1a(torch.cat([h, e1], dim=1)))
+        return self.final(h)
+
+
+def _combine(bg_fg_logits: torch.Tensor, tnt_logits: torch.Tensor,
+             target_gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The hierarchical combine: [bgfg0, bgfg1 + tnt0 * P(fg) (* the target
+    gate), bgfg1 + tnt1 * P(fg)]."""
+    fg_p = torch.softmax(bg_fg_logits, dim=1)[:, 1:2]
+    t0 = tnt_logits[:, 0:1] * fg_p
+    if target_gate is not None:
+        t0 = t0 * target_gate
+    fg = bg_fg_logits[:, 1:2]
+    return torch.cat([bg_fg_logits[:, 0:1], fg + t0, fg + tnt_logits[:, 1:2] * fg_p], dim=1)
+
+
 class HierarchicalHeadV2(nn.Module):
     """Shared trunk -> (a) EnhancedUNet bg/fg logits, 2x deconv to the mask
     size; (b) an fg gate from the low-res bg/fg logits on the shared
@@ -173,7 +221,6 @@ class HierarchicalHeadV2(nn.Module):
         bg_fg_low = self.bg_vs_fg_unet(shared)
         up = act(self.upsample_norm(self.upsample_deconv(bg_fg_low)))
         bg_fg_logits = _resize_to(self.upsample_out(up), mh, mw)
-        bg_fg_probs = torch.softmax(bg_fg_logits, dim=1)
 
         g = self.gate_drop(act(self.gate0(bg_fg_low)))
         g = act(self.gate1(prequantize_for(self.gate1, g, k=1)))
@@ -188,12 +235,7 @@ class HierarchicalHeadV2(nn.Module):
         t = self.tnt_res1(self.tnt_drop1(t))
         tnt_logits = _resize_to(self.tnt_out(t), mh, mw)
 
-        fg_p = bg_fg_probs[:, 1:2]
-        final = torch.cat([
-            bg_fg_logits[:, 0:1],
-            bg_fg_logits[:, 1:2] + tnt_logits[:, 0:1] * fg_p,
-            bg_fg_logits[:, 1:2] + tnt_logits[:, 1:2] * fg_p,
-        ], dim=1)
+        final = _combine(bg_fg_logits, tnt_logits)
         aux = {
             "bg_fg_logits": bg_fg_logits,
             "bg_fg_logits_low": bg_fg_low,
@@ -202,6 +244,185 @@ class HierarchicalHeadV2(nn.Module):
         }
         if self.expose_shared:
             aux["shared_features"] = shared
+        return final, aux
+
+
+class HierarchicalHeadV1(nn.Module):
+    """V1: a ``ShallowUNet(128)`` bg/fg branch, the V2 gate and combine, no
+    dropout."""
+
+    def __init__(self, in_channels: int, mid_channels: int = 256,
+                 mask_size: Tuple[int, int] = (56, 56), norm: str = "layernorm2d",
+                 activation: str = "relu", norm_groups: int = 8, activation_beta: float = 1.0):
+        super().__init__()
+        kw = _kw(norm, norm_groups, activation, activation_beta)
+        mc = mid_channels
+        self.mask_size = tuple(mask_size)
+        self.act = get_activation(activation, activation_beta)
+        self.shared_in = ConvNormAct(in_channels, mc, **kw)
+        self.shared_res0 = ResidualBlock(mc, **kw)
+        self.shared_res1 = ResidualBlock(mc, **kw)
+        self.bg_vs_fg_unet = ShallowUNet(mc, 128, **kw)
+        self.upsample_deconv = ConvTranspose2x(2, 32)
+        self.upsample_norm = get_normalization(norm, 32, min(norm_groups, 32))
+        self.upsample_out = QConv(32, 2, 1)
+        self.gate0 = QConv(2, mc // 4, 1)
+        self.gate1 = QConv(mc // 4, mc // 2, 1)
+        self.gate2 = QConv(mc // 2, mc, 1)
+        self.tnt_res0 = ResidualBlock(mc, **kw)
+        self.tnt_deconv = ConvTranspose2x(mc, mc // 2)
+        self.tnt_norm = get_normalization(norm, mc // 2, min(norm_groups, mc // 2))
+        self.tnt_res1 = ResidualBlock(mc // 2, **dict(kw, norm_groups=min(norm_groups, mc // 2)))
+        self.tnt_out = QConv(mc // 2, 2, 1)
+
+    def forward(self, features: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        act = self.act
+        mh, mw = self.mask_size
+        shared = self.shared_res1(self.shared_res0(self.shared_in(features)))
+        bg_fg_low = self.bg_vs_fg_unet(shared)
+        up = act(self.upsample_norm(self.upsample_deconv(bg_fg_low)))
+        bg_fg_logits = _resize_to(self.upsample_out(up), mh, mw)
+        g = act(self.gate1(act(self.gate0(bg_fg_low))))
+        fg_attention = torch.sigmoid(self.gate2(g))
+        t = self.tnt_res0(shared * fg_attention)
+        t = act(self.tnt_norm(self.tnt_deconv(t)))
+        tnt_logits = _resize_to(self.tnt_out(self.tnt_res1(t)), mh, mw)
+        aux = {"bg_fg_logits": bg_fg_logits, "bg_fg_logits_low": bg_fg_low,
+               "target_nontarget_logits": tnt_logits, "fg_attention": fg_attention}
+        return _combine(bg_fg_logits, tnt_logits), aux
+
+
+class HierarchicalHeadV3(nn.Module):
+    """V3: an EnhancedUNet bg/fg branch and a ``ShallowUNet(64)``
+    target/non-target branch on the fg-gated features, with a second
+    (target) gate on the target channel."""
+
+    def __init__(self, in_channels: int, mid_channels: int = 256,
+                 mask_size: Tuple[int, int] = (56, 56), base_channels: int = 96, depth: int = 3,
+                 norm: str = "layernorm2d", activation: str = "relu", norm_groups: int = 8,
+                 activation_beta: float = 1.0):
+        super().__init__()
+        kw = _kw(norm, norm_groups, activation, activation_beta)
+        mc = mid_channels
+        self.mask_size = tuple(mask_size)
+        self.act = get_activation(activation, activation_beta)
+        self.shared_in = ConvNormAct(in_channels, mc, **kw)
+        self.shared_res0 = ResidualBlock(mc, **kw)
+        self.shared_res1 = ResidualBlock(mc, **kw)
+        self.bg_vs_fg_unet = EnhancedUNet(mc, base_channels, depth, **kw)
+        self.up_bgfg_deconv = ConvTranspose2x(2, 32)
+        self.up_bgfg_norm = get_normalization(norm, 32, min(norm_groups, 32))
+        self.up_bgfg_out = QConv(32, 2, 1)
+        self.fg_gate0 = QConv(2, mc // 4, 1)
+        self.fg_gate1 = QConv(mc // 4, mc, 1)
+        self.target_nontarget_unet = ShallowUNet(mc, 64, **kw)
+        self.up_tnt_deconv = ConvTranspose2x(2, 32)
+        self.up_tnt_norm = get_normalization(norm, 32, min(norm_groups, 32))
+        self.up_tnt_out = QConv(32, 2, 1)
+        self.target_gate0 = QConv(2, 32, 1)
+        self.target_gate1 = QConv(32, 1, 1)
+
+    def forward(self, features: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        act = self.act
+        mh, mw = self.mask_size
+        shared = self.shared_res1(self.shared_res0(self.shared_in(features)))
+        bg_fg_low = self.bg_vs_fg_unet(shared)
+        up = act(self.up_bgfg_norm(self.up_bgfg_deconv(bg_fg_low)))
+        bg_fg_logits = _resize_to(self.up_bgfg_out(up), mh, mw)
+        fg_attention = torch.sigmoid(self.fg_gate1(act(self.fg_gate0(bg_fg_low))))
+        tnt_low = self.target_nontarget_unet(shared * fg_attention)
+        upt = act(self.up_tnt_norm(self.up_tnt_deconv(tnt_low)))
+        tnt_logits = _resize_to(self.up_tnt_out(upt), mh, mw)
+        target_attention = torch.sigmoid(self.target_gate1(act(self.target_gate0(tnt_low))))
+        final = _combine(bg_fg_logits, tnt_logits, _resize_to(target_attention, mh, mw))
+        aux = {"bg_fg_logits": bg_fg_logits, "bg_fg_logits_low": bg_fg_low,
+               "target_nontarget_logits": tnt_logits, "target_logits_low": tnt_low,
+               "fg_attention": fg_attention, "target_attention": target_attention}
+        return final, aux
+
+
+class SelfAttention(nn.Module):
+    """flax ``nn.SelfAttention(num_heads, qkv_features)`` over tokens
+    (N, L, C), in plain tensor ops: ``query``/``key``/``value`` projections
+    to ``num_heads`` heads, the query scaled by 1/sqrt(head_dim), q.k^T
+    softmaxed over the keys in float32, no dropout, the heads merged by
+    ``out`` back to C features. The four ``nn.Linear`` hold flax's
+    ``DenseGeneral`` kernels flattened (``weights.from_jax_params``)."""
+
+    def __init__(self, features: int, num_heads: int = 1, qkv_features: Optional[int] = None):
+        super().__init__()
+        qkv = qkv_features or features
+        if qkv % num_heads:
+            raise ValueError(f"qkv_features {qkv} is not a multiple of num_heads {num_heads}")
+        self.num_heads, self.head_dim = num_heads, qkv // num_heads
+        self.query = nn.Linear(features, qkv)
+        self.key = nn.Linear(features, qkv)
+        self.value = nn.Linear(features, qkv)
+        self.out = nn.Linear(qkv, features)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        n, length, _ = tokens.shape
+
+        def heads(t: torch.Tensor) -> torch.Tensor:  # (N, L, H*D) -> (N, H, L, D)
+            return t.reshape(n, length, self.num_heads, self.head_dim).transpose(1, 2)
+
+        q = heads(self.query(tokens)) / math.sqrt(self.head_dim)
+        k, v = heads(self.key(tokens)), heads(self.value(tokens))
+        weights = torch.softmax((q @ k.transpose(-1, -2)).float(), dim=-1).to(v.dtype)
+        merged = (weights @ v).transpose(1, 2).reshape(n, length, -1)
+        return self.out(merged)
+
+
+class HierarchicalHeadV4(nn.Module):
+    """V4: two EnhancedUNet branches (bg/fg at base 128, depth 4;
+    target/non-target at base 96, depth 3), each upsampled to 64 channels
+    with a residual block, cross-branch self-attention over the four logit
+    channels of every mask pixel, and a fusion conv stack to 3 classes."""
+
+    def __init__(self, in_channels: int, mid_channels: int = 256,
+                 mask_size: Tuple[int, int] = (56, 56), norm: str = "layernorm2d",
+                 activation: str = "relu", norm_groups: int = 8, activation_beta: float = 1.0):
+        super().__init__()
+        kw = _kw(norm, norm_groups, activation, activation_beta)
+        mc = mid_channels
+        self.mask_size = tuple(mask_size)
+        self.act = get_activation(activation, activation_beta)
+        self.shared_in = ConvNormAct(in_channels, mc, **kw)
+        for i in range(3):
+            self.add_module(f"shared_res{i}", ResidualBlock(mc, **kw))
+        for name, base, depth in (("bgfg", 128, 4), ("tnt", 96, 3)):
+            self.add_module(f"{name}_unet", EnhancedUNet(mc, base, depth, **kw))
+            self.add_module(f"{name}_deconv", ConvTranspose2x(2, 64))
+            self.add_module(f"{name}_norm", get_normalization(norm, 64, min(norm_groups, 64)))
+            self.add_module(f"{name}_res", ResidualBlock(64, **kw))
+            self.add_module(f"{name}_out", QConv(64, 2, 1))
+        self.cross_attention = SelfAttention(4, num_heads=1, qkv_features=4)
+        self.fusion_in = ConvNormAct(4, 64, **kw)
+        self.fusion_res = ResidualBlock(64, **kw)
+        self.fusion_out = QConv(64, 3, 1)
+
+    def _branch(self, name: str, shared: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        mh, mw = self.mask_size
+        low = getattr(self, f"{name}_unet")(shared)
+        u = self.act(getattr(self, f"{name}_norm")(getattr(self, f"{name}_deconv")(low)))
+        out = getattr(self, f"{name}_out")(getattr(self, f"{name}_res")(u))
+        return low, _resize_to(out, mh, mw)
+
+    def forward(self, features: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        mh, mw = self.mask_size
+        shared = self.shared_in(features)
+        for i in range(3):
+            shared = getattr(self, f"shared_res{i}")(shared)
+        bg_fg_low, bg_fg_logits = self._branch("bgfg", shared)
+        tnt_low, tnt_logits = self._branch("tnt", shared)
+        n = features.shape[0]
+        combined = torch.cat([bg_fg_logits, tnt_logits], dim=1)  # (N, 4, mh, mw)
+        tokens = combined.permute(0, 2, 3, 1).reshape(n, mh * mw, 4)
+        attended = self.cross_attention(tokens).reshape(n, mh, mw, 4).permute(0, 3, 1, 2)
+        final = self.fusion_out(self.fusion_res(self.fusion_in(attended)))
+        aux = {"bg_fg_logits": bg_fg_logits, "bg_fg_logits_low": bg_fg_low,
+               "target_nontarget_logits": tnt_logits, "target_logits_low": tnt_low,
+               "attended_features": attended}
         return final, aux
 
 

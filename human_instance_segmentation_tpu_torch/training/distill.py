@@ -55,15 +55,20 @@ def _refuse_mesh(mesh) -> None:
 
 def build_student_teacher(student_variant: str, teacher_variant: str, device="cuda",
                           teacher_overrides: Optional[Dict] = None,
+                          student_cls: type = PeopleSegmentationUNet,
+                          student_overrides: Optional[Dict] = None,
                           **kwargs) -> Tuple[PeopleSegmentationUNet, PeopleSegmentationUNet]:
     """The student and teacher UNets with seeded weights (``inference.
-    init_weights``, seeds 0 and 42 as the JAX loop's keys) on ``device``
+    init_weights``, seeds 0 and 42 as the JAX loops' keys) on ``device``
     (the GPU unless the caller asks for the CPU), the teacher in eval mode.
     ``kwargs`` go to both (``decoder_channels``), ``teacher_overrides`` to
     the teacher only (its route flags: ``pallas_tail``,
-    ``encoder_fused_blocks``)."""
+    ``encoder_fused_blocks``); the student is a ``student_cls`` (the YOLO
+    distillation's ``YOLOFeatureDistillStudent``) with ``student_overrides``
+    besides."""
     dev = resolve_device(device)
-    student = PeopleSegmentationUNet(encoder_variant=student_variant, **kwargs)
+    student = student_cls(encoder_variant=student_variant,
+                          **{**kwargs, **(student_overrides or {})})
     teacher = PeopleSegmentationUNet(encoder_variant=teacher_variant,
                                      **{**kwargs, **(teacher_overrides or {})})
     init_weights(student, 0)

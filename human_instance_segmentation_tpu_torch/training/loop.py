@@ -59,6 +59,12 @@ Deviations from the JAX loop:
   steps an epoch, and its loader, which drops the last partial batch,
   then yields no batch, so its ``forever()`` waits without end (ROADMAP
   C11).
+- a config that builds the baseline ``ROISegmentationModel`` (``baseline``,
+  ``..._distillation_b0_from_b3_yolo``) raises ``ValueError`` before the
+  first step: its aux holds only ``features`` and the hierarchical loss
+  reads ``aux["bg_fg_logits"]``, so the JAX loop fails with ``KeyError`` at
+  its first step (ROADMAP C15). The multi-scale RGB and variable-ROI
+  models train as the flagship does.
 """
 
 from __future__ import annotations
@@ -177,6 +183,7 @@ def run_training(
     from ..config import (ConfigManager, _as_hw, _deep_merge, loss_config_from_experiment,
                           model_from_config)
     from ..inference import resolve_device
+    from ..models.baseline import ROISegmentationModel
     from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
     from .logging import TrainLogger
     from .optim import (StageConfig, Transform, build_optimizer, build_schedule, set_to_zero,
@@ -207,6 +214,11 @@ def run_training(
             overrides = {**TINY_MODEL, **overrides}
 
     model = model_from_config(cfg, seed=0, device=dev, **overrides)
+    if isinstance(model, ROISegmentationModel):  # ROADMAP C15
+        raise ValueError(
+            f"config {cfg.name!r} builds the baseline ROISegmentationModel, whose aux holds "
+            "only 'features', and the hierarchical loss reads aux['bg_fg_logits']: it cannot "
+            "train with this loop (the JAX loop fails with KeyError at its first step)")
 
     ih, iw = _as_hw(cfg.model.image_size)
     mh, mw = _as_hw(cfg.model.mask_size)

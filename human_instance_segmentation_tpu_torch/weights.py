@@ -9,12 +9,18 @@ as follows:
 
 - conv ``kernel`` (kh, kw, Ci, Co), HWIO -> ``weight`` (Co, Ci, kh, kw), OIHW
   (depthwise (k, k, 1, C) -> (C, 1, k, k));
-- a transposed conv's kernel (``_TConv2x`` ``deconv/kernel`` (2, 2, Ci, Co),
-  the progressive decoder's ``stage{i}_deconv/kernel`` (4, 4, Ci, Co)) ->
-  ConvTranspose2d ``weight`` (Ci, Co, kh, kw) with the spatial taps
-  flipped: lax.conv_transpose cross-correlates the zero-stuffed input where
-  torch's transposed conv convolves (as ``convert_weights._deconv_p`` does
-  the other way);
+- a transposed conv's kernel -> ConvTranspose2d ``weight`` (Ci, Co, kh, kw)
+  with the spatial taps flipped: lax.conv_transpose cross-correlates the
+  zero-stuffed input where torch's transposed conv convolves (as
+  ``convert_weights._deconv_p`` does the other way). With ``model`` given, a
+  kernel is transposed when its key lands on an ``nn.ConvTranspose2d``;
+  without it, by name: ``deconv``/``*_deconv`` (``_TConv2x`` (2, 2, Ci, Co),
+  the progressive decoder's ``stage{i}_deconv`` (4, 4, Ci, Co)) and the
+  baseline head's raw ``nn.ConvTranspose`` ``up1``/``up2`` (4, 4, Ci, Co);
+- a ``DenseGeneral`` kernel of flax's attention (3-D) -> ``nn.Linear``
+  ``weight``: ``query``/``key``/``value`` (in, heads, head_dim) -> (heads *
+  head_dim, in), ``out`` (heads, head_dim, out) -> (out, heads * head_dim);
+  their biases are flattened;
 - norm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
 - ``batch_stats`` ``mean``/``var`` (BatchNorm, AdaptiveInstanceNorm2d) ->
   ``running_mean``/``running_var``;
@@ -30,7 +36,7 @@ with ``model`` given, the port's are filled with flax's initial values
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +51,7 @@ _RENAME = {
     ("params", "fg_bias"): "fg_bias",
     ("params", "bg_scale"): "bg_scale",
     ("params", "bg_bias"): "bg_bias",
+    ("params", "fusion_weights"): "fusion_weights",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -58,12 +65,28 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (str(k),), np.asarray(v)
 
 
-def _convert(collection: str, path: Tuple[str, ...], leaf: str, value: np.ndarray):
-    """-> (state_dict key, torch tensor) for one JAX leaf."""
+# the baseline head's raw nn.ConvTranspose modules (JAX baseline.py:48, :52)
+_TRANSPOSED_NAMES = ("up1", "up2")
+
+
+def _transposed_by_name(path: Tuple[str, ...]) -> bool:
+    return bool(path) and (path[-1] == "deconv" or path[-1].endswith("_deconv")
+                           or path[-1] in _TRANSPOSED_NAMES)
+
+
+def _convert(collection: str, path: Tuple[str, ...], leaf: str, value: np.ndarray,
+             transposed: Callable[[Tuple[str, ...]], bool] = _transposed_by_name):
+    """-> (state_dict key, torch tensor) for one JAX leaf; ``transposed(path)``
+    says whether a 4-D kernel belongs to a transposed conv."""
     if collection == "params" and leaf == "kernel":
-        if value.ndim != 4:
+        if value.ndim == 3:  # DenseGeneral: (in, heads, head_dim) or (heads, head_dim, out)
+            if path and path[-1] == "out":
+                w = value.reshape(-1, value.shape[-1]).T
+            else:
+                w = value.reshape(value.shape[0], -1).T
+        elif value.ndim != 4:
             raise ValueError(f"{'/'.join(path)}/kernel: expected a 4-D kernel, got {value.shape}")
-        if path and (path[-1] == "deconv" or path[-1].endswith("_deconv")):
+        elif transposed(path):
             w = value[::-1, ::-1].transpose(2, 3, 0, 1)
         else:
             w = value.transpose(3, 2, 0, 1)
@@ -71,6 +94,8 @@ def _convert(collection: str, path: Tuple[str, ...], leaf: str, value: np.ndarra
     name = _RENAME.get((collection, leaf))
     if name is None:
         raise KeyError(f"no mapping for JAX leaf {collection}/{'/'.join(path + (leaf,))}")
+    if name == "bias" and value.ndim > 1:  # DenseGeneral's (heads, head_dim)
+        value = value.reshape(-1)
     return ".".join(path + (name,)), torch.tensor(value)
 
 
@@ -82,12 +107,17 @@ def from_jax_params(variables: Mapping[str, Any],
     buffers with the same shape, and every one of them must be filled;
     otherwise it raises, naming the keys.
     """
+    transposed = _transposed_by_name
+    if model is not None:
+        deconvs = {tuple(name.split(".")) for name, m in model.named_modules()
+                   if isinstance(m, nn.ConvTranspose2d)}
+        transposed = deconvs.__contains__
     state: Dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         if collection not in ("params", "batch_stats"):
             raise KeyError(f"unknown variable collection {collection!r}")
         for path, value in _leaves(tree):
-            key, t = _convert(collection, path[:-1], path[-1], value)
+            key, t = _convert(collection, path[:-1], path[-1], value, transposed)
             if key in state:
                 raise KeyError(f"two JAX leaves map to {key}")
             state[key] = t

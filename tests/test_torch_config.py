@@ -1,7 +1,7 @@
 """The port's config registry and ``model_from_config`` against the JAX
-package's, and the import rule of the new modules. The pure-RGB and
-ROI-pretrained configs build the JAX dispatch's classes (PR 11); the
-baseline, variable-ROI and multi-scale models still raise.
+package's, and the import rule of the new modules. Every family builds
+the JAX dispatch's class: the flagship, the pure-RGB, ROI-pretrained and
+multi-scale RGB models, the variable-ROI model and the baseline.
 
 The registry must be equal name for name and field for field
 (``to_dict()``), as must the loss config each experiment describes. For the
@@ -133,11 +133,10 @@ def _strict_jax_load(jc, model, hw=(64, 64)):
     return jm
 
 
-# The ids are the ones these cases had while only the baseline stayed out of
-# reach: the pure-RGB and ROI-pretrained families (ROADMAP A8 until this
-# slice) now build as the JAX dispatch builds them.
+# The ids are the ones these cases had while the families were out of reach
+# (ROADMAP A8): each now builds as the JAX dispatch builds it.
 @pytest.mark.parametrize("name,want", [
-    pytest.param("baseline", "A8", id="baseline-A8"),
+    pytest.param("baseline", "ROISegmentationModel", id="baseline-A8"),
     pytest.param("rgb_hierarchical_unet_v2", "PureRGBHierarchicalModel",
                  id="rgb_hierarchical_unet_v2-A8"),
     pytest.param("rgb_hierarchical_unet_v2_pretrained_peopleseg_r64x48m64x48",
@@ -150,15 +149,11 @@ def _strict_jax_load(jc, model, hw=(64, 64)):
                  id="rgb_hierarchical_unet_v2_distillation_b0_from_b3-A8"),
 ])
 def test_other_families_raise(name, want, monkeypatch):
-    """The baseline still raises, naming A8; the other hierarchical configs
-    build the JAX dispatch's class and load its variables strictly (the
-    seeded draw is skipped: the load overwrites every leaf)."""
+    """The baseline and the hierarchical configs build the JAX dispatch's
+    class and load its variables strictly (the seeded draw is skipped: the
+    load overwrites every leaf)."""
     monkeypatch.setattr(inference, "init_weights", lambda model, seed=0: None)
     pc = pcfg.ConfigManager.get_config(name)
-    if want == "A8":
-        with pytest.raises(NotImplementedError, match=want):
-            pcfg.model_from_config(pc, device="cpu")
-        return
     jc = jcfg.ConfigManager.get_config(name)
     for c in (pc, jc):
         c.model.image_size = (64, 64)  # no parameter depends on it
@@ -171,17 +166,32 @@ def test_other_families_raise(name, want, monkeypatch):
     assert not model.training
 
 
+# The name is the one this test had while both models were refused (ROADMAP
+# A8); they now build as the JAX dispatch builds them.
 @pytest.mark.parametrize("name", ["rgb_hierarchical_unet_v2_multiscale", "variable_roi"])
-def test_multiscale_and_variable_roi_raise(name):
-    """The multi-scale and variable-ROI models stay in ROADMAP A8."""
-    cfg = pcfg.ConfigManager.get_config("rgb_hierarchical_unet_v2")
+def test_multiscale_and_variable_roi_raise(name, monkeypatch):
+    """The multi-scale RGB and the variable-ROI configs build the JAX
+    dispatch's class with its sizes and load its variables strictly."""
+    monkeypatch.setattr(inference, "init_weights", lambda model, seed=0: None)
+    cfgs = [c.ConfigManager.get_config("rgb_hierarchical_unet_v2") for c in (pcfg, jcfg)]
+    for cfg in cfgs:
+        cfg.model.image_size = (64, 64)
+        if name == "variable_roi":
+            cfg.model.use_rgb_hierarchical = cfg.model.use_hierarchical_unet_v2 = False
+            cfg.model.variable_roi_sizes = {"layer_34": 28, "layer_3": 56}
+        else:
+            cfg.model.multi_scale = True
+            cfg.model.fusion_method = "adaptive"
+    model = pcfg.model_from_config(cfgs[0], device="cpu")
+    jm = _strict_jax_load(cfgs[1], model)
+    want = "VariableROISegmentationModel" if name == "variable_roi" else (
+        "MultiScaleRGBHierarchicalModel")
+    assert type(model).__name__ == type(jm).__name__ == want
     if name == "variable_roi":
-        cfg.model.use_rgb_hierarchical = cfg.model.use_hierarchical_unet_v2 = False
-        cfg.model.variable_roi_sizes = {"layer_34": 28}
+        assert model.roi_sizes == dict(jm.roi_sizes) and not model.rgb_layers
     else:
-        cfg.model.multi_scale = True
-    with pytest.raises(NotImplementedError, match="A8"):
-        pcfg.model_from_config(cfg, device="cpu")
+        assert model.roi_sizes == tuple(jm.roi_sizes) == (56, 42, 28)
+    assert model.mask_size == tuple(jm.mask_size) and not model.training
 
 
 def test_every_rgb_family_config_builds(monkeypatch):
