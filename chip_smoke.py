@@ -53,9 +53,10 @@ package beside the script; it imports nothing of JAX. Phases:
     ``create_flagship(pallas_tail=True)`` served in bf16 and float32, 1 tail
     + 5 conv_ln_act + 1 roi_align launch per forward, held against the
     same weights with ``pallas_tail=False``;
-11. binary-mask mode (:func:`binary_mask_mode`): UNet with the tail ->
-    person probability -> ``binary_mask_bilateral`` -> edge smoothing ->
-    1 px dilation, and the exact bilateral filter on the same probability,
+11. binary-mask mode (:func:`binary_mask_mode`): ``postprocess.binary_mode``
+    (UNet with the tail -> person probability -> ``binary_mask_bilateral`` ->
+    edge smoothing -> 1 px dilation), and the exact bilateral filter on the
+    same probability,
     at batch 32, one launch of each of the three kernels per batch, held
     against the plain versions, ms per batch;
 12. fused MBConv and the int8 tail (:func:`check_mbconv_and_tail_q`): both
@@ -169,7 +170,32 @@ package beside the script; it imports nothing of JAX. Phases:
     golden fixtures: the temperature 3 -> 1, one teacher forward of launches
     a step, the kernel teacher against the plain one by phase 18b's rule, ms
     per step of both in turns, idle share and peak memory
-    (:func:`yolo_distillation`).
+    (:func:`yolo_distillation`);
+20. data parallelism (:func:`data_parallel`), each part in ranks of its
+    own processes (``parallel.launch.spawn``): (a) one rank over NCCL runs
+    the DP train step of phase 14's model (bf16, batch 8 x 8 ROIs, dropout
+    off) for 3 steps against the same step without a mesh from the same
+    weights and batches: losses and parameters equal bit for bit; ms per
+    step of both in turns (:func:`dp_world_one_rank`); (b) two ranks share
+    the card over Gloo, the global batch 4 + 4, 3 float32 steps: losses and
+    parameters bit-identical across the ranks, 6 + 6 ``fused_mbconv`` and
+    1 ``tail`` launches a rank step, and the first update's averaged loss and
+    stage-2 gradients within phase 14b's bounds of a one-process reference
+    that takes each half's gradients in turn (:func:`dp_two_ranks_gloo`,
+    :func:`_dp_reference`); (c) bench.py's engine (B0, 480 x 640, batch 32,
+    mid 128, ``fused_head``, dilation 1) given a mesh of two Gloo ranks at
+    32, 6 and 1 ROIs: float32 binary masks within atol 1e-5 of the
+    single-device engine, logits within ``MESH_LOGIT_ATOL`` and instance
+    agreement >= ``MIN_AGREE``,
+    float32 and bf16 under phase 4's gates and int8 (calibrated on the
+    mesh) under phase 7's against the plain path on the mesh, each rank's
+    ``roi_align`` and ``conv_ln_act_s8`` calls covering its shard only, the
+    REPLICATED warning where the bucket does not divide, int8 with the s8
+    tail (1 ``tail_q`` launch a rank forward) against one device, and
+    ``make_roi_sharded_infer`` at 6 ROIs (:func:`dp_mesh_serving`); (d)
+    ``run_dryrun(2)`` on the card over Gloo, ``parallel.multihost`` twice
+    over Gloo, and ``int8_accuracy.main`` at its own tiny shapes, with
+    their float32 and int8 IoU.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -180,7 +206,9 @@ least time the card could take for the same work; for the stage-1 kernels
 and the crop also their launches in phase 18's distillation and per
 distillation step, and the stage-1 kernels' launches per YOLO distillation
 step; for ``conv_ln_act`` its launches per served forward of each family
-of phase 19), then as its last line
+of phase 19; ``dp_launches_per_rank``: a kernel's launches per DP rank
+step and per mesh-served forward on one rank, phase 20), then as its last
+line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result.
 """
@@ -1933,17 +1961,13 @@ def binary_mask_mode(card: str, rng) -> dict:
                 "edge_smooth": cuda_kernels.edge_smooth}
 
     def pipeline(unet, x, kernels: bool):
-        unet.tail_use_kernel = kernels
+        if not unet.pallas_tail:
+            raise AssertionError("binary mode must end stage 1 in the fused tail")
+        out = pp.binary_mode(unet, x, use_kernel=kernels, kernel_size=7, num_iterations=2,
+                             dilation_pixels=1)
         with torch.inference_mode():
-            form, logit = unet(x.permute(0, 3, 1, 2), raw=True)
-            if form != "dense" or logit.shape != (batch, *IMAGE_HW):
-                raise AssertionError(f"expected the dense form, got {form} {tuple(logit.shape)}")
-            prob = torch.sigmoid(logit.float())[..., None]
-            smoothed = pp.binary_mask_bilateral(prob, kernel_size=7, num_iterations=2)
-            edged = pp.edge_smooth_binary_mask(smoothed, use_kernel=kernels)
-            mask = dilate(edged, 1).to(x.dtype)
-            exact = pp.bilateral_filter(prob, 7, 1.5, 0.2, use_kernel=kernels)
-        return {"prob": prob, "smoothed": smoothed, "edged": edged, "mask": mask, "exact": exact}
+            out["exact"] = pp.bilateral_filter(out["prob"], 7, 1.5, 0.2, use_kernel=kernels)
+        return out
 
     launches = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -3079,12 +3103,14 @@ COCO_VAL = (16, 1)
 COCO_MAX_INSTANCES = 5
 PHASE16_STEPS = 16  # two epochs of 64 // 8 steps
 # 16d: steps of each fed run per round, the first FED_DRAIN untimed (they
-# drain what the loader built while another run had the card); four rounds
-# a feed, in an order that gives each the same neighbours
+# drain what the loader built while another run had the card); two rounds a
+# feed (four before phase 20 was added: the differences stayed unresolved,
+# and phase 20's time came out of this depth), in an order that gives each
+# the same neighbours
 FED_DRAIN = 6
 FED_STEPS = 8
 FED_ROUNDS = ("loader", "on card", "loader + prefetch", "loader + prefetch", "on card",
-              "loader") * 2
+              "loader")
 # the batch contract (training/steps.py) at the deployed config
 BATCH_CONTRACT = {"images": ((8, *IMAGE_HW, 3), "float32"), "boxes": ((8, 8, 4), "float32"),
                   "masks": ((8, 8, *MASK_HW), "int32"), "valid": ((8, 8), "float32"),
@@ -4733,6 +4759,549 @@ def other_families(card: str, rng) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: data parallelism on the card (parallel/, the mesh steps, the mesh
+# engine, ROI sharding, the dry run, the multi-process worker, int8 accuracy)
+# ---------------------------------------------------------------------------
+
+PHASE20_STEPS = 3
+# 20c, float32 mesh serving against the single-device engine: the binary
+# masks within atol 1e-5 (JAX's dry-run tolerance, ROADMAP C2). A rank's
+# stage 2 runs on its shard of the ROIs (16 of 32, 4 of 8), where cuDNN may
+# pick another algorithm than for the whole bucket, so the logits carry
+# float32 summation noise (2.4e-5 at 16 of 32 ROIs on the H100) and an
+# instance pixel at a tie can flip: the logits are held within 1e-4 and the
+# instance masks by phase 4's float32 agreement
+MESH_LOGIT_ATOL = 1e-4
+# serving requests of 20c: bench.py's shapes, one ROI an image at N = 32, and
+# N = 6 (bucket 8, which 2 ranks divide while the batch shards too); N = 1
+# (bucket 1) for the REPLICATED warning
+PHASE20_REQUESTS = {"N=32": 32, "N=6": 6, "N=1": 1}
+# launches of a kernel per rank step (20b) and per mesh-served forward on
+# each rank (20c), as phase 20 saw them
+DP_PER_RANK: dict = {}
+
+
+def _dp_setup() -> None:
+    """A rank's numerics as the main process sets them: TF32 off, and
+    cuDNN's deterministic algorithms, so that two runs of one step on the
+    same inputs compute the same bits."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def _dp_model(dropout: bool = True):
+    """Phase 14's config at 480 x 640 with both stage-1 kernels, seeded
+    weights (the same on every rank), dropout off where asked."""
+    from human_instance_segmentation_tpu_torch.config import (ConfigManager, _deep_merge,
+                                                              model_from_config)
+    from human_instance_segmentation_tpu_torch.models.blocks import Dropout2d
+
+    cfg = _deep_merge(ConfigManager.get_config(TRAIN_CONFIG), TRAIN_MODS)
+    model = model_from_config(cfg, seed=0, device="cuda", **TRAIN_KERNELS)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, Dropout2d):
+                m.p = 0.0
+    return cfg, model
+
+
+def _dp_tx(cfg):
+    from human_instance_segmentation_tpu_torch.training.optim import (build_optimizer,
+                                                                      build_schedule)
+
+    t = cfg.training
+    return build_optimizer(build_schedule(t.learning_rate, t.num_epochs, 100, t.scheduler,
+                                          t.min_lr, t.warmup_epochs),
+                           t.optimizer, t.weight_decay, t.gradient_clip)
+
+
+def _digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in model.named_parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _run_steps(state, step, batches, counters=None):
+    """Each batch through ``step``: losses, ms per step (CUDA events) and the
+    kernels' launches per step."""
+    import torch
+
+    losses, ms, per_step = [], [], []
+    for b in batches:
+        c0 = {k: f.launches for k, f in (counters or {}).items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["total_loss"]))
+        per_step.append({k: f.launches - c0[k] for k, f in (counters or {}).items()})
+    return state, losses, ms, per_step
+
+
+def dp_world_one_rank(rank: int) -> dict:
+    """20a, in a rank of an NCCL group of one: the DP train step of phase
+    14's model (bf16, batch 8 x 8 ROIs, dropout off) against the same step
+    without a mesh from the same weights and batches, 3 steps each; then 5
+    more steps of each in turns for the time."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import loss_config_from_experiment
+    from human_instance_segmentation_tpu_torch.parallel.mesh import create_mesh, shard_batch
+    from human_instance_segmentation_tpu_torch.training import steps
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    _dp_setup()
+    mesh = create_mesh(1, device="cuda")
+    backend = torch.distributed.get_backend()
+    batches = train_batches(PHASE20_STEPS, seed=7)
+    out = {"backend": backend}
+    runs = {}
+    for name, m in (("mesh", mesh), ("no mesh", None)):
+        # dropout off: under a mesh each rank draws its own stream (the JAX
+        # step folds the axis index into its key), so at world size 1 the
+        # masks are not the ones the step without a mesh draws
+        cfg, model = _dp_model(dropout=False)
+        state = TrainState.create(model, _dp_tx(cfg), seed=1)
+        step = steps.make_train_step(model, loss_config_from_experiment(cfg),
+                                     cfg.training.compute_dtype, m)
+        feed = [shard_batch(mesh, b) if m is not None else steps.batch_to(b, "cuda")
+                for b in batches]
+        state, losses, ms, _ = _run_steps(state, step, feed)
+        runs[name] = [state, step, feed, model]
+        out[name] = {"losses": losses, "skipped": state.skipped, "dtype": cfg.training.compute_dtype}
+    pm = dict(runs["mesh"][3].named_parameters())
+    diffs = [float((p.detach().float() - pm[n].detach().float()).abs().max())
+             for n, p in runs["no mesh"][3].named_parameters()]
+    out["params_equal"] = all(torch.equal(p, pm[n])
+                              for n, p in runs["no mesh"][3].named_parameters())
+    out["params_max_abs"] = max(diffs)
+    times = {name: [] for name in runs}
+    for i in range(5):
+        for name in (("mesh", "no mesh") if i % 2 == 0 else ("no mesh", "mesh")):
+            r = runs[name]
+            r[0], _, ms, _ = _run_steps(r[0], r[1], r[2][i % len(r[2]):][:1])
+            times[name] += ms
+    out["ms"] = times
+    return out
+
+
+def _capture_first_update():
+    """Patch ``steps._apply_step``, for the rest of this rank's process, to
+    keep the loss and the gradients of the first update it applies (after
+    the mesh average)."""
+    from human_instance_segmentation_tpu_torch.training import steps
+
+    real = steps._apply_step
+    seen = {}
+
+    def apply(state, grads, new_loss_state, new_stats, loss):
+        if not seen:
+            seen["loss"] = float(loss)
+            seen["grads"] = [None if g is None else g.detach().clone() for g in grads]
+        return real(state, grads, new_loss_state, new_stats, loss)
+
+    steps._apply_step = apply
+    return seen
+
+
+def _stage2_flat(model, grads):
+    """The stage-2 gradients in ``_loss_and_grads``' order, flat."""
+    import torch
+
+    names = [n for n, _ in model.named_parameters()]
+    params = dict(model.named_parameters())
+    keep = [i for i, n in enumerate(names) if not n.startswith(("pretrained_unet.",
+                                                                "unet_wrapper."))]
+    return torch.cat([(grads[i] if grads[i] is not None else torch.zeros_like(params[names[i]]))
+                      .flatten() for i in keep])
+
+
+def dp_two_ranks_gloo(rank: int) -> dict:
+    """20b, in each of two Gloo ranks sharing the card: 3 float32 DP steps
+    of phase 14's model (dropout off) on the global batch 4 + 4; the first
+    update's averaged loss and stage-2 gradients, the losses, the launches
+    of the stage-1 kernels per rank step, ms per step, and a digest of the
+    parameters after."""
+    from human_instance_segmentation_tpu_torch.config import loss_config_from_experiment
+    from human_instance_segmentation_tpu_torch.parallel.mesh import create_mesh, shard_batch
+    from human_instance_segmentation_tpu_torch.training import steps
+    from human_instance_segmentation_tpu_torch.training.state import TrainState
+
+    _dp_setup()
+    mesh = create_mesh(2, device="cuda")
+    cfg, model = _dp_model(dropout=False)
+    state = TrainState.create(model, _dp_tx(cfg), seed=1)
+    step = steps.make_train_step(model, loss_config_from_experiment(cfg), "float32", mesh)
+    seen = _capture_first_update()
+    counters = train_counters()
+    feed = [shard_batch(mesh, b) for b in train_batches(PHASE20_STEPS, seed=7)]
+    state, losses, ms, per_step = _run_steps(state, step, feed, counters)
+    return {"losses": losses, "ms": ms, "per_step": per_step, "skipped": state.skipped,
+            "digest": _digest(model), "loss0": seen["loss"],
+            "grads0": _stage2_flat(model, seen["grads"]).cpu(),
+            "shard": tuple(feed[0]["images"].shape)}
+
+
+class _Warnings:
+    """Collects the engine's warnings while installed."""
+
+    def __enter__(self):
+        import logging
+
+        self.messages = []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                outer.messages.append(record.getMessage())
+
+        self.handler = Handler(logging.WARNING)
+        logging.getLogger("human_instance_segmentation_tpu_torch.inference").addHandler(
+            self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger("human_instance_segmentation_tpu_torch.inference").removeHandler(
+            self.handler)
+        return False
+
+
+def _watch_shards():
+    """Patch the crop launcher and the s8 fused unit to record the ROI count
+    each call covers; returns the record and an undo."""
+    from human_instance_segmentation_tpu_torch.ops import cuda_head, cuda_roi_align
+
+    seen = {"roi_align": [], "conv_ln_act_s8": []}
+    real_launch, real_s8 = cuda_roi_align._launch, cuda_head.conv_ln_act_s8
+
+    def launch(maps, rois, *a, **k):
+        seen["roi_align"].append(int(rois.shape[0]))
+        return real_launch(maps, rois, *a, **k)
+
+    def s8(x, *a, **k):
+        seen["conv_ln_act_s8"].append(int(x.shape[0]))
+        return real_s8(x, *a, **k)
+
+    s8.launches = real_s8.launches  # the wrapper counts on its module name while patched
+    cuda_roi_align._launch, cuda_head.conv_ln_act_s8 = launch, s8
+
+    def undo():
+        real_s8.launches = s8.launches
+        cuda_roi_align._launch, cuda_head.conv_ln_act_s8 = real_launch, real_s8
+
+    return seen, undo
+
+
+def dp_mesh_serving(rank: int) -> dict:
+    """20c, in each of two Gloo ranks sharing the card: bench.py's engine (B0,
+    mid 128, ``fused_head``, dilation 1) given the mesh, in float32, bf16
+    and int8, and int8 with ``pallas_tail`` (the s8 tail), at batch 32 x 32,
+    32 x 6 and 32 x 1 ROIs; ``make_roi_sharded_infer`` at 32 x 6. Gates
+    (module docstring, phase 20); returns what each rank saw."""
+    import numpy as np
+    import torch
+
+    from human_instance_segmentation_tpu_torch.inference import (InferenceEngine,
+                                                                 create_flagship,
+                                                                 deployed_outputs, pad_rois)
+    from human_instance_segmentation_tpu_torch.ops import cuda_head, cuda_roi_align, cuda_tail, quant
+    from human_instance_segmentation_tpu_torch.parallel.mesh import create_mesh
+    from human_instance_segmentation_tpu_torch.parallel.roi_sharding import (
+        make_roi_sharded_infer, shard_rois)
+
+    _dp_setup()
+    mesh = create_mesh(2, device="cuda")
+    rng = np.random.default_rng(20)
+    requests = {k: make_request(rng, 32, n, IMAGE_HW) for k, n in PHASE20_REQUESTS.items()}
+
+    def engine(dtype, kernels=True, on_mesh=True, quantize=None, scales=None, **kw):
+        model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                                image_size=IMAGE_HW, mid_channels=128, seed=0,
+                                pallas_roi_align=kernels, **kw)
+        # int8: the fused unit in both paths, as phase 7's engines
+        e = InferenceEngine(model, dilation_pixels=1, dtype=dtype,
+                            fused_head=kernels or quantize is not None, quantize=quantize,
+                            kernels=kernels, mesh=mesh if on_mesh else None)
+        e.scales = dict(scales) if scales is not None else None
+        return e
+
+    out = {"rank": rank, "checks": []}
+    f32_mesh, f32_one = engine(torch.float32), engine(torch.float32, on_mesh=False)
+    bf16_mesh = engine(torch.bfloat16)
+    # the plain path of the same graph on the same mesh: kernels and plain
+    # versions see the same shard shapes
+    plain = {"plain f32": engine(torch.float32, False),
+             "plain bf16": engine(torch.bfloat16, False)}
+    for key, (images, rois) in requests.items():
+        with _Warnings() as w:
+            o = {"served f32": _serve(f32_mesh, images, rois)}
+            c0 = (cuda_head.conv_ln_act.launches, cuda_roi_align.roi_align.launches)
+            o["served bf16"] = _serve(bf16_mesh, images, rois)
+            d = (cuda_head.conv_ln_act.launches - c0[0], cuda_roi_align.roi_align.launches - c0[1])
+        if d != (5, 1):
+            raise AssertionError(f"rank {rank} {key}: bf16 mesh forward launched conv_ln_act and "
+                                 f"roi_align {d} times, expected (5, 1)")
+        if key == "N=32":
+            DP_PER_RANK.update({"serve conv_ln_act": d[0], "serve roi_align": d[1]})
+        one = _serve(f32_one, images, rois)
+        logit_err = float(np.abs(o["served f32"][2] - one[2]).max())
+        bin_err = float(np.abs(o["served f32"][1] - one[1]).max())
+        agree = _agreement(o["served f32"][0], one[0])
+        flips = int((o["served f32"][0] != one[0]).sum())
+        out["checks"].append(f"{key}: float32 mesh vs single-device engine: binary max_abs_err "
+                             f"{bin_err:.3e} (atol 1e-5), logits {logit_err:.3e} (atol "
+                             f"{MESH_LOGIT_ATOL}), instance agreement {agree:.7f} ({flips} "
+                             f"pixels of {one[0].size} differ; min {MIN_AGREE}); warnings "
+                             f"{sorted(set(w.messages))}")
+        if not (bin_err <= 1e-5 and logit_err <= MESH_LOGIT_ATOL and agree >= MIN_AGREE):
+            raise AssertionError(f"rank {rank} {key}: the mesh engine disagrees with one device: "
+                                 f"{out['checks'][-1]}")
+        o.update({name: _serve(e, images, rois) for name, e in plain.items()})
+        _gates(f"phase 20c rank {rank} {key} mesh vs plain", o)
+        bucket = 1 if key == "N=1" else 32 if key == "N=32" else 8
+        want = ["roi bucket"] if bucket % 2 else []
+        if [m for m in ("batch=", "roi bucket") if any(m in x for x in w.messages)] != want:
+            raise AssertionError(f"rank {rank} {key}: warnings {w.messages}, expected {want}")
+    del f32_one, plain
+    torch.cuda.empty_cache()
+
+    # int8: calibrated on the mesh (the maximum over the ranks), held against
+    # its plain path on the mesh with the same scales, as phase 7 holds it
+    images, rois = requests["N=32"]
+    int8_mesh = engine(torch.bfloat16, quantize="int8")
+    int8_mesh.calibrate(images, rois)
+    scales = int8_mesh.scales
+    others = {"served f32": engine(torch.float32, quantize="int8", scales=scales),
+              "plain f32": engine(torch.float32, False, quantize="int8", scales=scales),
+              "plain bf16": engine(torch.bfloat16, False, quantize="int8", scales=scales)}
+    counters = {"conv_ln_act_s8": cuda_head.conv_ln_act_s8, "roi_align": cuda_roi_align.roi_align,
+                "qconv": quant.qconv2d, "tail_q": cuda_tail.tail_q}
+    for key, (images, rois) in requests.items():
+        seen, undo = _watch_shards()
+        c0 = {k: f.launches for k, f in counters.items()}
+        try:
+            served = _serve(int8_mesh, images, rois)
+        finally:
+            undo()
+        d = {k: f.launches - c0[k] for k, f in counters.items()}
+        n_local = {"N=32": 16, "N=6": 4, "N=1": 1}[key]
+        out["checks"].append(f"{key} int8 mesh forward on rank {rank}: launches {d}; ROIs a "
+                             f"crop call {seen['roi_align']}, a conv_ln_act_s8 call "
+                             f"{sorted(set(seen['conv_ln_act_s8']))} (this rank's shard "
+                             f"{n_local})")
+        if (d["conv_ln_act_s8"], d["roi_align"]) != (5, 1) or seen["roi_align"] != [n_local] \
+                or set(seen["conv_ln_act_s8"]) != {n_local}:
+            raise AssertionError(f"rank {rank} {key}: the kernels did not cover the shard: {d} "
+                                 f"{seen}")
+        if key == "N=32":
+            DP_PER_RANK.update({f"serve {k}": v for k, v in d.items()})
+        o = {"served bf16": served}
+        o.update({name: _serve(e, images, rois) for name, e in others.items()})
+        _gates(f"phase 20c rank {rank} {key} int8 mesh vs plain", o)
+    del others
+    torch.cuda.empty_cache()
+
+    # int8 with the s8 tail on the mesh against the same engine on one device
+    tail_mesh = engine(torch.bfloat16, quantize="int8", pallas_tail=True)
+    tail_one = engine(torch.bfloat16, quantize="int8", pallas_tail=True, on_mesh=False)
+    images, rois = requests["N=32"]
+    tail_mesh.calibrate(images, rois)
+    tail_one.scales = dict(tail_mesh.scales)
+    c0 = cuda_tail.tail_q.launches
+    a = _serve(tail_mesh, images, rois)
+    d_tail = cuda_tail.tail_q.launches - c0
+    b = _serve(tail_one, images, rois)
+    agree = _agreement(a[0], b[0])
+    bin_err = float(np.abs(a[1] - b[1]).max())
+    out["checks"].append(f"int8 + pallas_tail mesh vs one device: tail_q launches {d_tail} a rank "
+                         f"forward (16 images), instance agreement {agree:.6f}, binary max_abs_err "
+                         f"{bin_err:.3e}")
+    if d_tail != 1 or agree < MIN_AGREE or bin_err > 1e-2:
+        raise AssertionError(f"rank {rank}: int8 + pallas_tail on the mesh: {out['checks'][-1]}")
+    DP_PER_RANK["serve tail_q"] = d_tail
+    del tail_mesh, tail_one
+
+    # ROI sharding: the whole batch on every rank, stage 2 on a rank's 3 ROIs
+    images, rois = requests["N=6"]
+    model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                            image_size=IMAGE_HW, mid_channels=128, seed=0)
+    infer = make_roi_sharded_infer(model, mesh, dilation_pixels=1)
+    local, n = shard_rois(mesh, rois)
+    images_t = torch.as_tensor(images).cuda()
+    inst, binary = infer(images_t, local)
+    padded = torch.as_tensor(pad_rois(rois, inst.shape[0])).cuda()
+    with torch.inference_mode():
+        ref_inst, ref_bin = deployed_outputs(*model.eval()(images_t, padded), padded, 1)
+    err_i = float((inst - ref_inst).abs().max())
+    err_b = float((binary - ref_bin).abs().max())
+    out["checks"].append(f"make_roi_sharded_infer 32 x 6 ROIs (padded to {inst.shape[0]}, "
+                         f"{local.shape[0]} a rank): instance max_abs_err {err_i:.3e}, binary "
+                         f"{err_b:.3e} against one device (atol 1e-5)")
+    if inst.shape[0] != 6 or local.shape[0] != 3 or err_i > 1e-5 or err_b > 1e-5:
+        raise AssertionError(f"rank {rank}: ROI sharding: {out['checks'][-1]}")
+    out["per_rank"] = dict(DP_PER_RANK)
+    return out
+
+
+def _dp_reference(batch) -> dict:
+    """20b's one-process reference: each half of the first global batch
+    through the float32 loss and gradients in turn (``_loss_and_grads``),
+    averaged, and phase 14b's bounds: twice the averaged effect of a
+    stage-1 error at ``TOL_STAGE1_F32`` on the loss and the gradients."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.config import loss_config_from_experiment
+
+    _dp_setup()
+    cfg, model = _dp_model(dropout=False)
+    loss_cfg = loss_config_from_experiment(cfg)
+    halves = [{k: v[i * 4:(i + 1) * 4] for k, v in batch.items()} for i in range(2)]
+    atol, rtol = TOL_STAGE1_F32
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def shift(x):
+        return atol + rtol * x.abs()
+
+    def random_sign(x):
+        s = torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1
+        return s * (atol + rtol * x.abs())
+
+    def mean_of(delta):
+        runs = [_loss_and_grads(model, loss_cfg, h, "float32", delta) for h in halves]
+        return (runs[0][0] + runs[1][0]) / 2, (runs[0][1] + runs[1][1]) / 2
+
+    loss, grads = mean_of(None)
+    effects = [mean_of(d) for d in (shift, random_sign)]
+    return {"loss": loss, "grads": grads.cpu(),
+            "l_bound": 2 * max(abs(le - loss) for le, _ in effects),
+            "g_bound": 2 * max(float((ge.cpu() - grads.cpu()).norm()) for _, ge in effects)}
+
+
+def data_parallel(card: str) -> None:
+    """Phase 20: (a) one NCCL rank against no mesh, bit for bit; (b) two Gloo
+    ranks on the card against each other (bit for bit) and against the
+    one-process reference (phase 14b's rule); (c) mesh serving and ROI
+    sharding on two Gloo ranks; (d) the dry run, the multi-process worker
+    twice and the int8 accuracy check on the card."""
+    import os
+    import statistics
+    import subprocess
+
+    import torch
+
+    from human_instance_segmentation_tpu_torch import int8_accuracy
+    from human_instance_segmentation_tpu_torch.parallel import dryrun, launch
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    a = launch.spawn(dp_world_one_rank, 1, device="cuda", timeout=600)[0]
+    print(f"phase 20a: DP train step at world size 1 over {a['backend']} vs no mesh, "
+          f"{a['mesh']['dtype']}, batch 8 x 8 ROIs, {PHASE20_STEPS} steps: losses mesh "
+          f"{a['mesh']['losses']} / no mesh {a['no mesh']['losses']}; parameters equal "
+          f"{a['params_equal']} (max abs diff {a['params_max_abs']:.3e})")
+    for name in ("mesh", "no mesh"):
+        print(f"phase 20a {name}: {statistics.median(a['ms'][name]):.3f} ms a step (median of "
+              f"{len(a['ms'][name])} in turns: {[round(v, 3) for v in a['ms'][name]]}) [{card}]")
+    if a["backend"] != "nccl" or a["mesh"]["losses"] != a["no mesh"]["losses"] \
+            or not a["params_equal"] or a["mesh"]["skipped"] or a["no mesh"]["skipped"]:
+        raise AssertionError("phase 20a: world size 1 is not the step without a mesh bit for bit")
+    print(f"phase 20a: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    b = launch.spawn(dp_two_ranks_gloo, 2, device="cuda", backend="gloo", timeout=600)
+    ref = _dp_reference(train_batches(1, seed=7)[0])
+    l_err = abs(b[0]["loss0"] - ref["loss"])
+    g_err = float((b[0]["grads0"] - ref["grads"]).norm())
+    per_step = b[0]["per_step"]
+    print(f"phase 20b: two Gloo ranks on one card, float32, shards {b[0]['shard']}: losses "
+          f"{b[0]['losses']} / {b[1]['losses']}; parameters after {PHASE20_STEPS} steps equal "
+          f"across ranks {b[0]['digest'] == b[1]['digest']}; launches per rank step "
+          f"{per_step} (expected {TRAIN_PER_STEP})")
+    print(f"phase 20b vs the one-process reference (each half in turn, averaged): loss "
+          f"{b[0]['loss0']:.7f} vs {ref['loss']:.7f}, |diff| {l_err:.3e} (bound "
+          f"{ref['l_bound']:.3e}); stage-2 gradients |diff| {g_err:.3e} of |g| "
+          f"{float(ref['grads'].norm()):.3e} (bound {ref['g_bound']:.3e})")
+    for r in b:
+        print(f"phase 20b rank: ms a step {[round(v, 3) for v in r['ms']]} (the first with "
+              f"warm-up) [{card}]")
+    if b[0]["losses"] != b[1]["losses"] or b[0]["digest"] != b[1]["digest"] \
+            or any(r["skipped"] for r in b):
+        raise AssertionError("phase 20b: the ranks disagree")
+    if any(s != TRAIN_PER_STEP for r in b for s in r["per_step"]):
+        raise AssertionError(f"phase 20b: launches per rank step {[r['per_step'] for r in b]}")
+    if not (l_err <= ref["l_bound"] and g_err <= ref["g_bound"]):
+        raise AssertionError("phase 20b: outside phase 14b's bound against the reference")
+    DP_PER_RANK.update({f"train {k}": v for k, v in TRAIN_PER_STEP.items()})
+    del ref
+    torch.cuda.empty_cache()
+    print(f"phase 20b: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    c = launch.spawn(dp_mesh_serving, 2, device="cuda", backend="gloo", timeout=600)
+    for r in c:
+        for line in r["checks"]:
+            print(f"phase 20c rank {r['rank']}: {line}")
+    DP_PER_RANK.update(c[0]["per_rank"])
+    print(f"phase 20c: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rep = dryrun.run_dryrun(2, device="cuda", backend="gloo", timeout=300)
+    port = launch.free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # each worker writes to a file of its own: a worker blocked on a full
+    # pipe would hold the other in a collective
+    logs = [ROOT / "build" / f"phase20_multihost_{i}.log" for i in range(2)]
+    logs[0].parent.mkdir(parents=True, exist_ok=True)
+    files = [open(path, "w") for path in logs]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "human_instance_segmentation_tpu_torch.parallel.multihost",
+         "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2", "--process_id", str(i),
+         "--device", "cuda", "--backend", "gloo"], cwd=ROOT, env=env, stdout=f,
+        stderr=subprocess.STDOUT) for i, f in enumerate(files)]
+    deadline = time.monotonic() + 300
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    outs = [path.read_text() for path in logs]
+    oks = [line for o in outs for line in o.splitlines() if line.startswith("MULTIHOST OK")]
+    print(f"phase 20d: multihost worker twice on the card over Gloo: {oks}")
+    losses = {line.split("loss=")[1].split()[0] for line in oks}
+    if any(p.returncode for p in procs) or len(oks) != 2 or len(losses) != 1:
+        raise AssertionError(f"phase 20d: multihost failed:\n{outs[0][-2000:]}\n{outs[1][-2000:]}")
+    t1 = time.perf_counter()
+    acc = int8_accuracy.main(device="cuda", verbose=False)
+    print(f"phase 20d: int8_accuracy on the card ({time.perf_counter() - t1:.1f} s): target IoU "
+          f"float32 {acc['f32']:.4f}, int8 {acc['int8']:.4f} ({acc['delta']:+.4f}), the "
+          f"pallas_tail form float32 {acc['tail_f32']:.4f}, int8 (s8 tail) "
+          f"{acc['tail_int8']:.4f} ({acc['tail_delta']:+.4f}); final train loss "
+          f"{acc['train_loss']:.3f}; dry run loss {rep['losses'][0]:.4f} -> "
+          f"{rep['losses'][-1]:.4f}, mean IoU {rep['mean_iou']:.4f}, serving agreement "
+          f"{rep['serving_agreement']:.3f}")
+    print(f"phase 20d: {time.perf_counter() - t0:.1f} s")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -4774,10 +5343,19 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 20))
+    phases = set(range(1, 21))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
+    seconds = {"1-2": round(time.perf_counter() - t0, 1)}  # the build and its checks
+    mark = time.perf_counter()
+
+    def took(label: str) -> None:  # the wall time of each group of phases, for the summary
+        nonlocal mark
+        now = time.perf_counter()
+        seconds[label] = round(now - mark, 1)
+        mark = now
+
     if 3 in phases:
         kernels += check_kernels(card, rng)
     if 6 in phases:
@@ -4786,6 +5364,7 @@ def main() -> None:
         kernels += check_tail_and_filters(card, rng)
     if 12 in phases:
         kernels += check_mbconv_and_tail_q(card, rng)
+    took("3,6,9,12")
     served = None
     if phases & {4, 5, 8}:
         bf16_launches, served, plain = serve_and_compare(128, rng)
@@ -4807,6 +5386,7 @@ def main() -> None:
         serve_and_compare(256, rng)
     if 7 in phases:
         serve_int8(256, rng)
+    took("4-8")
     if 10 in phases:
         torch.cuda.empty_cache()
         launches["tail"] = serve_with_tail(card, rng)["tail"]
@@ -4816,6 +5396,7 @@ def main() -> None:
         launches["tail"] = launches.get("tail", 0) + binary_launches["tail"]
         launches["bilateral_filter"] = binary_launches["bilateral_filter"]
         launches["edge_smooth"] = binary_launches["edge_smooth"]
+    took("10-11")
 
     if 13 in phases:
         torch.cuda.empty_cache()
@@ -4824,6 +5405,7 @@ def main() -> None:
             launches[name] = slice_launches[name]
         for name in ("tail", "conv_ln_act", "conv_ln_act_s8", "qconv", "roi_align"):
             launches[name] = launches.get(name, 0) + slice_launches[name]
+        took("13")
 
     if 14 in phases:
         torch.cuda.empty_cache()
@@ -4832,6 +5414,7 @@ def main() -> None:
         time_train_steps(card)
         for name, n in train_launches.items():
             launches[name] = launches.get(name, 0) + n
+        took("14")
 
     if 15 in phases:
         torch.cuda.empty_cache()
@@ -4840,6 +5423,7 @@ def main() -> None:
         train_roi_family(card, rng)
         for name, n in train_and_serve_a3_flagship(card, rng).items():
             launches[name] = launches.get(name, 0) + n
+        took("15")
 
     if 16 in phases:
         torch.cuda.empty_cache()
@@ -4850,6 +5434,7 @@ def main() -> None:
         fed_step_times(card, tree, host)
         del host
         learnability(card)
+        took("16")
 
     if 17 in phases:
         torch.cuda.empty_cache()
@@ -4857,6 +5442,7 @@ def main() -> None:
             tree = coco_tree(card)
         for name, n in deployment_tools(card, rng, tree).items():
             launches[name] = launches.get(name, 0) + n
+        took("17")
 
     if 18 in phases:
         torch.cuda.empty_cache()
@@ -4868,11 +5454,18 @@ def main() -> None:
             distill_launches[name] = distill_launches.get(name, 0) + n
         for name, n in distill_launches.items():
             launches[name] = launches.get(name, 0) + n
+        took("18")
 
     if 19 in phases:
         torch.cuda.empty_cache()
         for name, n in other_families(card, rng).items():
             launches[name] = launches.get(name, 0) + n
+        took("19")
+
+    if 20 in phases:
+        torch.cuda.empty_cache()
+        data_parallel(card)
+        took("20")
 
     for k in kernels:
         if k["name"] == "conv_ln_act" and A8_PER_FORWARD:
@@ -4882,6 +5475,10 @@ def main() -> None:
         if k["name"] in TRAIN_PER_STEP and 14 in phases:
             k["train_launches"] = train_launches[k["name"]]
             k["train_launches_per_step"] = TRAIN_PER_STEP[k["name"]]
+        dp = {key.split(" ", 1)[0]: n for key, n in DP_PER_RANK.items()
+              if key.split(" ", 1)[1] == k["name"]}
+        if dp:
+            k["dp_launches_per_rank"] = dp
         if k["name"] in DISTILL_PER_STEP:
             k["distill_launches"] = distill_launches.get(k["name"], 0)
             k["distill_launches_per_step"] = DISTILL_PER_STEP[k["name"]]
@@ -4891,6 +5488,7 @@ def main() -> None:
         k["bound_share"] = k["bound_ms"] / k["ms"]
     if any(k["launches"] == 0 for k in kernels) and phases >= {3, 4, 6, 7, 9, 10, 11, 12, 13, 14}:
         raise AssertionError(f"a kernel of the main path was never launched: {kernels}")
+    print(f"seconds by phase: {seconds}, in all {round(time.perf_counter() - t0, 1)} s [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

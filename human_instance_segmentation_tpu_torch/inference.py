@@ -1,9 +1,11 @@
 """Inference runtime: ROI bucketing and the deployed output contract.
 
-Counterpart of the JAX package's ``inference.py`` for one device, without
-a mesh. ROI counts are padded to power-of-two buckets with
-sentinel rois (batch_idx = -1), whose instance masks are zeroed, so a
-server sees few distinct shapes, as in the JAX engine.
+Counterpart of the JAX package's ``inference.py``. ROI counts are padded
+to power-of-two buckets with sentinel rois (batch_idx = -1), whose
+instance masks are zeroed, so a server sees few distinct shapes, as in the
+JAX engine. ``InferenceEngine(mesh=)`` serves data parallel over the ranks
+of a ``parallel.create_mesh`` mesh (JAX ``inference.py:144-151``,
+``:216-239``).
 
 Deployed outputs (the reference ONNX graph's contract, NHWC):
   instance_masks: (N, mh, mw, 1)  1.0 where argmax(class) == 1
@@ -23,6 +25,7 @@ there is no CUDA, and the engine serves on its model's device.
 from __future__ import annotations
 
 import copy
+import logging
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -125,6 +128,20 @@ class InferenceEngine:
 
     ``device=None`` serves on the model's device (``create_flagship`` builds
     on the GPU unless told otherwise).
+
+    ``mesh`` (``parallel.create_mesh``) serves data parallel: every rank of
+    the mesh calls the engine with the same request, stage 1 runs on the
+    rank's slice of the images and stage 2 on its slice of the ROI bucket.
+    A rank crops its ROIs from the stage-1 maps of the images they name, so
+    the slices of the stage-1 output are gathered first (``all_gather``),
+    and the instance masks and logits are gathered after: every rank
+    returns the full outputs. An axis whose extent the world size does not
+    divide runs replicated, and the engine logs JAX's warning for it; a
+    model without the flagship's stage-1 split (the other families) runs
+    its whole batch on every rank and shards the ROI bucket only.
+    :meth:`calibrate` under a mesh records each rank's shard and takes the
+    maximum of the scales over the ranks, so every rank serves the same
+    int8 graph.
     """
 
     def __init__(
@@ -138,6 +155,7 @@ class InferenceEngine:
         quantize: Optional[str] = None,
         int8_deny: Sequence[str] = ENCODER_INT8_DENY,
         kernels: bool = True,
+        mesh=None,
     ):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
@@ -154,7 +172,9 @@ class InferenceEngine:
         self.quantize = quantize
         self.int8_deny = tuple(int8_deny)
         self.kernels = kernels
+        self.mesh = mesh
         self.scales: Optional[Dict[str, float]] = None
+        self._warned: set = set()
 
     def _stage1_kernels(self) -> None:
         unet = getattr(self.model, "pretrained_unet", None)
@@ -174,21 +194,78 @@ class InferenceEngine:
         set_int8_serving(self.model, False)
         self._stage1_kernels()
         with torch.inference_mode(), calibration(self.model) as calib:
-            self.model(images_t, rois_p)
+            self._model_forward(images_t, rois_p)
         scales = collect_scales(calib)
+        if self.mesh is not None:  # every rank serves the same graph
+            from .parallel.mesh import all_gather_object
+
+            for other in all_gather_object(scales, self.mesh):
+                scales = merge_scales(scales, other)
         self.scales = merge_scales(self.scales, scales) if self.scales else scales
+
+    def _mesh_plan(self, batch: int, bucket: int) -> Tuple[bool, bool]:
+        """Whether the images and the ROI bucket shard over the mesh, logging
+        each axis that serves replicated (once per request shape)."""
+        from .parallel.mesh import world_of
+
+        world = world_of(self.mesh)
+        split = hasattr(self.model, "stage1_raw")
+        shard_images, shard_rois = split and batch % world == 0, bucket % world == 0
+        if (batch, bucket) not in self._warned:
+            self._warned.add((batch, bucket))
+            log = logging.getLogger(__name__)
+            divides = "InferenceEngine mesh: %s=%d does not divide %d devices; that axis " \
+                      "serves REPLICATED"
+            if not split:
+                log.warning("InferenceEngine mesh: %s has no stage-1 split; the batch serves "
+                            "REPLICATED", type(self.model).__name__)
+            elif not shard_images:
+                log.warning(divides, "batch", batch, world)
+            if not shard_rois:
+                log.warning(divides, "roi bucket", bucket, world)
+        return shard_images, shard_rois
+
+    def _model_forward(self, images: torch.Tensor, rois: torch.Tensor):
+        """``(logits, aux, rois)`` of the model: on one device the whole
+        request; under a mesh this rank's ROI slice (or all of them, where
+        the bucket does not divide), cropped from the whole batch's stage-1
+        maps."""
+        if self.mesh is None:
+            return (*self.model(images, rois), rois)
+        from .parallel.mesh import all_gather, rank_of, world_of
+
+        world, rank = world_of(self.mesh), rank_of(self.mesh)
+        shard_images, shard_rois = self._mesh_plan(images.shape[0], rois.shape[0])
+        if shard_rois:
+            per = rois.shape[0] // world
+            rois = rois[rank * per:(rank + 1) * per]
+        if not hasattr(self.model, "stage1_raw"):
+            return (*self.model(images, rois), rois)
+        if shard_images:
+            per = images.shape[0] // world
+            form, x1 = self.model.stage1_raw(images[rank * per:(rank + 1) * per])
+            x1 = all_gather(x1, self.mesh)
+        else:
+            form, x1 = self.model.stage1_raw(images)
+        return (*self.model.from_stage1(images, form, x1, rois), rois)
 
     def forward(self, images: torch.Tensor, rois: torch.Tensor):
         """Device tensors in, device tensors out: images (B, H, W, 3) in
         [0, 1], rois (bucket, 5) float32 already padded ->
-        (instance_masks, binary_masks, logits)."""
+        (instance_masks, binary_masks, logits), the whole request's on every
+        rank of a mesh."""
         set_head_fusion(self.model, self.fused_head, self.kernels)
         set_int8_serving(self.model, self.quantize == "int8", self.scales, self.int8_deny,
                          self.kernels)
         self._stage1_kernels()
         with torch.inference_mode():
-            logits, aux = self.model(images.to(self.dtype), rois.to(torch.float32))
-            inst, binary = deployed_outputs(logits, aux, rois, self.dilation_pixels)
+            logits, aux, mine = self._model_forward(images.to(self.dtype),
+                                                    rois.to(torch.float32))
+            inst, binary = deployed_outputs(logits, aux, mine, self.dilation_pixels)
+            if mine.shape[0] != rois.shape[0]:  # the ROI bucket is sharded
+                from .parallel.mesh import all_gather
+
+                inst, logits = all_gather(inst, self.mesh), all_gather(logits, self.mesh)
         return inst, binary, logits
 
     def __call__(self, images: np.ndarray, rois: np.ndarray):

@@ -237,11 +237,24 @@ class HierarchicalInstanceSegmenter(nn.Module):
 
     def forward(self, images: torch.Tensor,
                 rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return self.from_stage1(images, *self.stage1_raw(images), rois)
+
+    def stage1_raw(self, images: torch.Tensor) -> Tuple[str, torch.Tensor]:
+        """The UNet's raw output ``(form, x1)`` on (B, H, W, 3) images
+        (``PeopleSegmentationUNet.forward(raw=True)``): per image, so a mesh
+        can run it on its slice of the batch and gather the slices."""
         if tuple(images.shape[1:3]) != self.image_size:
             raise ValueError(f"model built for {self.image_size}, got {tuple(images.shape[1:3])}")
+        with _stage1_context(self.freeze_pretrained):
+            return self.pretrained_unet(_nchw(images), raw=True)
+
+    def from_stage1(self, images: torch.Tensor, form: str, x1: torch.Tensor,
+                    rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The rest of :meth:`forward` from :meth:`stage1_raw`'s output for
+        the whole batch: the full-image maps, the crops of ``rois`` and
+        stage 2."""
         # a frozen stage 1 and the crops need no gradient
         with _stage1_context(self.freeze_pretrained):
-            form, x1 = self.pretrained_unet(_nchw(images), raw=True)
             if form == "dense":  # x1 (B, H, W): the fused tail's one-channel logit map
                 roi_rgb, roi1 = self._crops(images, x1[..., None], rois)
                 roi_bg_fg = _nhwc(self.unet_wrapper(_nchw(roi1))).contiguous()

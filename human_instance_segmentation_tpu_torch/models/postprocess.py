@@ -14,7 +14,7 @@ every device.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -205,3 +205,35 @@ def morphological_bilateral(x: torch.Tensor, kernel_size: int = 5, sigma: float 
     blurred = depthwise_conv2d(opened, gaussian_kernel_2d(kernel_size, sigma, device=x.device))
     closed = -max_pool2d(-max_pool2d(blurred, morph_size, 1, p), morph_size, 1, p)
     return (closed > 0.5).to(x.dtype)
+
+
+def binary_mode(unet: torch.nn.Module, images: torch.Tensor, use_kernel: bool = True,
+                kernel_size: int = 7, num_iterations: int = 2,
+                dilation_pixels: int = 1) -> Dict[str, torch.Tensor]:
+    """Binary-mask serving, the JAX bench's pipeline
+    (``scripts/bench_baseline_configs.py:106-160``, its plain form; the
+    ``_n4`` form is TPU layout): the stage-1 UNet (``images`` (B, H, W, 3)
+    NHWC; a ``pallas_tail`` UNet ends in its fused tail) -> the person
+    probability ``sigmoid(logit)`` in float32 -> :func:`binary_mask_bilateral`
+    (``kernel_size``, ``num_iterations``) -> :func:`edge_smooth_binary_mask`
+    -> dilation by ``dilation_pixels``, cast to the images' dtype. Returns
+    every stage, each (B, H, W, 1): ``prob``, ``smoothed``, ``edged`` and
+    ``mask``. ``use_kernel=False`` takes the fused tail's and the edge
+    smoothing's plain versions on any device (the UNet's own switch is
+    restored after). Runs without autograd."""
+    was = getattr(unet, "tail_use_kernel", None)
+    if was is not None:
+        unet.tail_use_kernel = use_kernel
+    try:
+        with torch.inference_mode():
+            form, logit = unet(images.permute(0, 3, 1, 2), raw=True)
+            logit = logit[..., None] if form == "dense" else logit.permute(0, 2, 3, 1)
+            prob = torch.sigmoid(logit.float())
+            smoothed = binary_mask_bilateral(prob, kernel_size=kernel_size,
+                                             num_iterations=num_iterations)
+            edged = edge_smooth_binary_mask(smoothed, use_kernel=use_kernel)
+            mask = dilate(edged, dilation_pixels).to(images.dtype)
+    finally:
+        if was is not None:
+            unet.tail_use_kernel = was
+    return {"prob": prob, "smoothed": smoothed, "edged": edged, "mask": mask}

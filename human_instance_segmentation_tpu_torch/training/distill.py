@@ -1,11 +1,16 @@
 """Distillation train steps: the binary UNet with temperature progression,
 and hierarchical KD of the flagship.
 
-Counterpart of the JAX package's ``training/distill.py`` on one device (its
-mesh form waits for ROADMAP A9, and ``mesh=`` raises). Like
+Counterpart of the JAX package's ``training/distill.py``. Like
 ``training/steps.py``, a step updates the state in place and returns
 ``(state, metrics)`` with the metrics as device tensors; the NaN guard is
-``steps._apply_step``'s (one host sync a step).
+``steps._apply_step``'s (one host sync a step). With ``mesh=`` (JAX
+``distill.py:45-111``, ``:124-200``) every rank holds the teacher whole
+(replicated) and runs both forwards on its slice of the batch; the
+student's gradients, running statistics, metrics and loss (and the
+hierarchical step's loss state) are averaged over the ranks before the
+update (``steps.mesh_average``), and dropout draws from the rank's own
+stream (``steps.RankGenerator``).
 
 The frozen teacher runs in eval mode under ``torch.no_grad``, so a teacher
 built with ``pallas_tail=True`` and ``encoder_fused_blocks=N`` runs the
@@ -43,14 +48,9 @@ from ..models.unet import PeopleSegmentationUNet
 from ..ops.norms import deferred_running_stats
 from .metrics import binary_miou
 from .state import TrainState
-from .steps import (Batch, _apply_step, _compute_dtype, batch_to, cast_variables, gradients,
-                    new_running_stats, rois_from_boxes)
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("distillation on more than one device is not ported yet "
-                                  "(ROADMAP A9)")
+from .steps import (Batch, RankGenerator, _apply_step, _compute_dtype, batch_to,
+                    cast_variables, gradients, mesh_average, new_running_stats,
+                    rois_from_boxes)
 
 
 def build_student_teacher(student_variant: str, teacher_variant: str, device="cuda",
@@ -138,8 +138,8 @@ def make_distill_train_step(
     KD loss at the state's temperature and weights, the NaN guard and the
     optimizer's update. Metrics: the loss's (``kl_loss``, ``mse_loss``,
     ``bce_loss``, ``dice_loss``, ``total_loss``, ``temperature``, ``alpha``,
-    ``task_weight``), ``student_miou`` and ``teacher_miou``."""
-    _refuse_mesh(mesh)
+    ``task_weight``), ``student_miou`` and ``teacher_miou``. With ``mesh`` the
+    batch is this rank's slice (module docstring)."""
     loss_fn = make_distill_loss_fn(student, teacher_copy(teacher, compute_dtype), cfg,
                                    compute_dtype)
 
@@ -151,8 +151,11 @@ def make_distill_train_step(
         student.train()
         device = next(student.parameters()).device
         loss, (new_stats, metrics) = loss_fn(state.distill_state, batch_to(batch, device))
-        state = _apply_step(state, gradients(state, loss), state.loss_state, new_stats,
-                            loss.detach())
+        grads, loss = gradients(state, loss), loss.detach()
+        if mesh is not None:
+            grads, loss, metrics, _, new_stats = mesh_average(mesh, grads, loss, metrics,
+                                                              new_stats=new_stats)
+        state = _apply_step(state, grads, state.loss_state, new_stats, loss)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
@@ -207,10 +210,11 @@ def make_hierarchical_distill_step(
     """``step(state, batch) -> (state, metrics)`` for a state over
     ``student_model`` (a hierarchical model; a frozen stage 1 runs as in
     ``training/steps.py``): KD from ``teacher_model`` blended with the
-    refined hierarchical loss, which also updates the loss state."""
-    _refuse_mesh(mesh)
+    refined hierarchical loss, which also updates the loss state. With
+    ``mesh`` the batch is this rank's slice (module docstring)."""
     loss_fn = make_hierarchical_distill_loss_fn(student_model, teacher_model, loss_cfg,
                                                 temperature, alpha, aux_weight)
+    dropout = RankGenerator(mesh)
 
     def step(state: TrainState, batch: Batch):
         if state.model is not student_model:
@@ -218,9 +222,12 @@ def make_hierarchical_distill_step(
         student_model.train()
         device = next(student_model.parameters()).device
         loss, (new_loss_state, new_stats, metrics) = loss_fn(
-            state.loss_state, state.generator, batch_to(batch, device))
-        state = _apply_step(state, gradients(state, loss), new_loss_state, new_stats,
-                            loss.detach())
+            state.loss_state, dropout(state), batch_to(batch, device))
+        grads, loss = gradients(state, loss), loss.detach()
+        if mesh is not None:
+            grads, loss, metrics, new_loss_state, new_stats = mesh_average(
+                mesh, grads, loss, metrics, new_loss_state, new_stats)
+        state = _apply_step(state, grads, new_loss_state, new_stats, loss)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step

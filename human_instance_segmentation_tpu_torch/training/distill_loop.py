@@ -1,8 +1,8 @@
 """Temperature-progression distillation training CLI.
 
-Counterpart of the JAX package's ``training/distill_loop.py`` on one
-device: B0/B1 student UNets trained from a frozen B7/B3 teacher on
-full-image binary person masks, with
+Counterpart of the JAX package's ``training/distill_loop.py``: B0/B1
+student UNets trained from a frozen B7/B3 teacher on full-image binary
+person masks, with
 
 - the cosine / linear / exponential temperature schedule (10 -> 1);
 - adaptive alpha with permanent elimination once the student beats the
@@ -19,10 +19,16 @@ Usage:
     python -m human_instance_segmentation_tpu_torch.training.distill_loop \\
         --config rgb_hierarchical_unet_v2_distillation_b0_from_b7_temp_prog \\
         --epochs 2 --steps-per-epoch 4 --synthetic [--tiny] [--device cpu] [--resume] \\
-        [--config_modifications JSON]
+        [--devices N] [--config_modifications JSON]
 
 It runs on the GPU unless ``--device cpu`` is given (no CUDA raises).
-``--devices`` above 1 raises ``NotImplementedError`` (ROADMAP A9).
+``--devices N`` distils data parallel on N ranks, as ``training.loop``
+does (``parallel.launch.spawn``, or ``torchrun``'s ranks): the teacher
+whole on every rank, the KD step averaged over the ranks
+(``training.distill``), each rank fed its slice of JAX's global batch
+(``--tiny``: N, at least 2); the validation mIoU is computed on the whole
+held-out batches on every rank (a batch's binary mIoU is not a sum, so it
+is not split), and rank 0 alone writes logs and checkpoints.
 ``run_distillation(teacher_overrides=...)`` passes the teacher's route flags
 (``pallas_tail``, ``encoder_fused_blocks``: they change the route, not the
 function) to its constructor, as the training loop's ``model_overrides``
@@ -76,6 +82,11 @@ def synthetic_binary_batches(batch: int, image_hw, seed: int = 0) -> Iterator[Di
         yield {"images": rng.random((batch, ih, iw, 3), np.float32), "masks": masks}
 
 
+def _distillation_rank(rank: int, config_name: str, kwargs: Dict):
+    """One rank of a data-parallel :func:`run_distillation` started by it."""
+    return run_distillation(config_name, **kwargs)
+
+
 def run_distillation(
     config_name: str = "rgb_hierarchical_unet_v2_distillation_b0_from_b7_temp_prog",
     epochs: Optional[int] = None,
@@ -93,7 +104,8 @@ def run_distillation(
     """Distil ``config_name``'s student from its teacher; returns the last
     epoch's train metrics with ``best_student_miou``, ``teacher_miou`` and
     ``eliminated`` (and the final :class:`TrainState` with
-    ``return_state``)."""
+    ``return_state``). ``devices`` > 1 distils data parallel (module
+    docstring); a run that starts its own ranks returns rank 0's metrics."""
     import torch
 
     from ..config import ConfigManager, _as_hw, _deep_merge
@@ -101,16 +113,31 @@ def run_distillation(
     from ..losses.distillation import DistillationConfig, DistillationState
     from .checkpoint import latest_step, load_model_state, restore_checkpoint, save_checkpoint
     from .distill import build_student_teacher, epoch_update, make_distill_train_step, unet_logits
-    from .logging import TrainLogger
+    from ..parallel import launch
+    from ..parallel.mesh import mesh_device, rank_of, replicate, shard_batch
+    from .logging import NullLogger, TrainLogger
     from .metrics import binary_miou
     from .optim import Transform, build_schedule, distillation_optimizer
     from .state import TrainState
     from .steps import batch_to
 
+    mesh = None
     if devices and devices > 1:
-        raise NotImplementedError("distillation on more than one device is not ported yet "
-                                  "(ROADMAP A9)")
-    dev = resolve_device(device)
+        launch.check_devices(devices, device)
+        if launch.should_spawn(devices):
+            if return_state:
+                raise ValueError("a run that starts its own ranks cannot return its state")
+            kwargs = dict(epochs=epochs, steps_per_epoch=steps_per_epoch, synthetic=synthetic,
+                          tiny=tiny, devices=devices, output_dir=output_dir, resume=resume,
+                          device=device, config_modifications=config_modifications,
+                          teacher_overrides=teacher_overrides)
+            return launch.spawn(_distillation_rank, devices, (config_name, kwargs),
+                                device=device)[0]
+        mesh = launch.join_mesh(devices, device)
+        dev = mesh_device(mesh)
+    else:
+        dev = resolve_device(device)
+    lead = rank_of(mesh) == 0  # the rank that writes
 
     cfg = ConfigManager.get_config(config_name)
     if config_modifications:
@@ -130,7 +157,9 @@ def run_distillation(
     )
 
     ih, iw = (64, 64) if tiny else _as_hw(cfg.model.image_size)
-    batch = 2 if tiny else cfg.training.batch_size
+    batch = max(devices or 1, 2) if tiny else cfg.training.batch_size
+    if mesh is not None and batch % devices:
+        raise ValueError(f"batch size {batch} does not divide {devices} devices")
     n_epochs = epochs if epochs is not None else cfg.training.num_epochs
     spe = steps_per_epoch or (10 if synthetic else 1000)
 
@@ -140,9 +169,12 @@ def run_distillation(
         decoder_channels=TINY_DECODER if tiny else DECODER)
     if dc.teacher_checkpoint:
         teacher.load_state_dict(load_model_state(dc.teacher_checkpoint), strict=True)
+    if mesh is not None:
+        replicate(mesh, student)
+        replicate(mesh, teacher)
 
     out_dir = output_dir or f"{cfg.output_dir}/{cfg.name}"
-    logger = TrainLogger(f"{out_dir}/logs", cfg.name)
+    logger = TrainLogger(f"{out_dir}/logs", cfg.name) if lead else NullLogger()
     logger.config(cfg.to_dict())
 
     if synthetic:
@@ -207,7 +239,7 @@ def run_distillation(
             val_batches = [next(batches)]
 
     train_step = make_distill_train_step(student, teacher, kd_cfg,
-                                         compute_dtype=cfg.training.compute_dtype)
+                                         compute_dtype=cfg.training.compute_dtype, mesh=mesh)
 
     def val_miou(model, vb) -> float:
         model.eval()
@@ -228,7 +260,9 @@ def run_distillation(
         t0 = time.perf_counter()
         m = {}
         for _ in range(spe):
-            state, m = train_step(state, next(batches))
+            host_batch = next(batches)
+            state, m = train_step(state, host_batch if mesh is None
+                                  else shard_batch(mesh, host_batch))
         metrics = {k: float(v) for k, v in m.items()}
         logger.metrics(epoch, metrics)
 
@@ -248,10 +282,11 @@ def run_distillation(
 
         if s_iou > best_student:
             best_student = s_iou
-            save_checkpoint(ckpt_dir, state, epoch + 1,
-                            metadata={"student_miou": best_student,
-                                      "teacher_miou": teacher_miou_cache,
-                                      "num_unfrozen": num_unfrozen})
+            if lead:
+                save_checkpoint(ckpt_dir, state, epoch + 1,
+                                metadata={"student_miou": best_student,
+                                          "teacher_miou": teacher_miou_cache,
+                                          "num_unfrozen": num_unfrozen})
             logger.text(f"new best student mIoU {best_student:.4f} (checkpointed)")
 
     metrics["best_student_miou"] = best_student
@@ -280,7 +315,10 @@ def main():
     m = run_distillation(args.config, args.epochs, args.steps_per_epoch, args.synthetic,
                          args.tiny, args.devices, args.output_dir, args.resume, args.device,
                          config_modifications=mods)
-    print(json.dumps({k: v for k, v in m.items() if isinstance(v, float)}, indent=2))
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:  # torchrun's ranks: rank 0 reports
+        print(json.dumps({k: v for k, v in m.items() if isinstance(v, float)}, indent=2))
 
 
 if __name__ == "__main__":

@@ -73,3 +73,20 @@ class TrainLogger:
     def close(self) -> None:
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger:
+    """A :class:`TrainLogger` that writes nothing: the logger of every rank
+    but rank 0 of a data-parallel run."""
+
+    def text(self, msg: str) -> None:
+        pass
+
+    def metrics(self, step: int, metrics: Dict[str, Any], prefix: str = "train") -> None:
+        pass
+
+    def config(self, cfg: Dict[str, Any]) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

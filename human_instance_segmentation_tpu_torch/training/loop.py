@@ -2,14 +2,26 @@
 loop with periodic validation, curated renders, best-mIoU checkpoints and
 early stopping.
 
-Counterpart of the JAX package's ``training/loop.py`` on one device:
+Counterpart of the JAX package's ``training/loop.py``:
 
     python -m human_instance_segmentation_tpu_torch.training.loop \\
         --config rgb_hierarchical_unet_v2_fullimage_pretrained_peopleseg_r64x48m128x96_disttrans_contdet_baware_from_b0 \\
         [--synthetic] [--steps N | --epochs N] [--tiny] [--device cpu] [--resume] \\
-        [--config_modifications JSON]
+        [--devices N] [--config_modifications JSON]
 
 It runs on the GPU unless ``--device cpu`` is given (no CUDA raises).
+
+``--devices N`` trains data parallel on N ranks, one device a rank
+(``training.steps`` with a ``parallel`` mesh): started by the loop itself
+(``parallel.launch.spawn``: Gloo on ``--device cpu``, NCCL on CUDA, rank
+0's result returned), or, under ``torchrun --nproc_per_node N`` (where
+``WORLD_SIZE`` is set), as the launcher's rank, ``WORLD_SIZE`` equal to N.
+N CUDA ranks need N cards (``ValueError`` otherwise). The global batch is
+JAX's (``--tiny`` sets it to N) and each rank feeds its ``shard_batch``
+slice of it; validation sums over the ranks. Rank 0 alone writes logs,
+checkpoints and pictures; a resumed run restores every rank from rank 0's
+checkpoint.
+
 Without ``--synthetic`` it trains on a COCO tree, as the JAX loop does: the
 person annotations and images that ``data.train_annotation`` /
 ``data.train_img_dir`` name (set them with ``--config_modifications
@@ -32,8 +44,7 @@ never ends the run.
 Kept from the JAX loop: staged freezing (``training.stage_schedule``),
 progressive loss features (``training.feature_schedule``, the step rebuilt
 at each activation epoch), best-mIoU checkpoints, early stopping and
-``--resume``. Refused with ``NotImplementedError``: more than one device
-(ROADMAP A9).
+``--resume``.
 
 ``--tiny`` narrows the model as the JAX loop does: the shapes of every
 family, and :data:`TINY_MODEL`'s widths for the full-image flagship family
@@ -156,6 +167,11 @@ def render_sample(model, image: np.ndarray, boxes: np.ndarray, gt_masks: np.ndar
     auxiliary_report(crops, logits_np, per_roi, aux_path, gt_masks=gt_masks)
 
 
+def _training_rank(rank: int, config_name: str, kwargs: Dict):
+    """One rank of a data-parallel :func:`run_training` started by it."""
+    return run_training(config_name, **kwargs)
+
+
 def run_training(
     config_name: str,
     steps: int = 0,
@@ -177,25 +193,41 @@ def run_training(
     ``encoder_fused_blocks``, which change the route, not the function).
     ``steps_per_epoch`` is the synthetic epoch's length (100, the JAX
     loop's); on COCO data an epoch is ``len(dataset) // batch_size``
-    steps."""
+    steps. ``devices`` > 1 trains data parallel (module docstring); a run
+    that starts its own ranks returns rank 0's metrics and cannot return
+    its state."""
     import torch
 
     from ..config import (ConfigManager, _as_hw, _deep_merge, loss_config_from_experiment,
                           model_from_config)
     from ..inference import resolve_device
     from ..models.baseline import ROISegmentationModel
+    from ..parallel import launch
+    from ..parallel.mesh import mesh_device, rank_of, replicate, shard_batch
     from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
-    from .logging import TrainLogger
+    from .logging import NullLogger, TrainLogger
     from .optim import (StageConfig, Transform, build_optimizer, build_schedule, set_to_zero,
                         stage_rules, staged_optimizer)
     from .progressive import activation_epochs, active_features, gate_config
     from .state import TrainState
     from .steps import make_eval_step, make_train_step
 
+    mesh = None
     if devices and devices > 1:
-        raise NotImplementedError("training on more than one device is not ported yet "
-                                  "(ROADMAP A9)")
-    dev = resolve_device(device)
+        launch.check_devices(devices, device)
+        if launch.should_spawn(devices):
+            if return_state:
+                raise ValueError("a run that starts its own ranks cannot return its state")
+            kwargs = dict(steps=steps, epochs=epochs, synthetic=synthetic, devices=devices,
+                          tiny=tiny, output_dir=output_dir, resume=resume, device=device,
+                          config_modifications=config_modifications,
+                          model_overrides=model_overrides, steps_per_epoch=steps_per_epoch)
+            return launch.spawn(_training_rank, devices, (config_name, kwargs), device=device)[0]
+        mesh = launch.join_mesh(devices, device)
+        dev = mesh_device(mesh)
+    else:
+        dev = resolve_device(device)
+    lead = rank_of(mesh) == 0  # the rank that writes
 
     cfg = ConfigManager.get_config(config_name)
     if config_modifications:
@@ -214,6 +246,8 @@ def run_training(
             overrides = {**TINY_MODEL, **overrides}
 
     model = model_from_config(cfg, seed=0, device=dev, **overrides)
+    if mesh is not None:
+        replicate(mesh, model)
     if isinstance(model, ROISegmentationModel):  # ROADMAP C15
         raise ValueError(
             f"config {cfg.name!r} builds the baseline ROISegmentationModel, whose aux holds "
@@ -226,7 +260,7 @@ def run_training(
     batch_size = cfg.training.batch_size
 
     out_dir = output_dir or f"{cfg.output_dir}/{cfg.name}"
-    logger = TrainLogger(f"{out_dir}/logs", cfg.name)
+    logger = TrainLogger(f"{out_dir}/logs", cfg.name) if lead else NullLogger()
     logger.config(cfg.to_dict())
 
     n_epochs = epochs if epochs is not None else cfg.training.num_epochs
@@ -246,6 +280,8 @@ def run_training(
             raise ValueError(f"{cfg.data.train_annotation}: {len(ds)} usable images, fewer "
                              f"than one batch of {batch_size}")
         steps_per_epoch = len(ds) // batch_size
+    if mesh is not None and batch_size % devices:
+        raise ValueError(f"batch size {batch_size} does not divide {devices} devices")
     total_steps = steps if steps > 0 else n_epochs * steps_per_epoch
 
     t = cfg.training
@@ -300,8 +336,11 @@ def run_training(
     loss_cfg = loss_cfg_for(start // steps_per_epoch)
     feature_epochs = set(activation_epochs(feature_schedule)) - {0}
     compute_dtype = t.compute_dtype
-    train_step = make_train_step(model, loss_cfg, compute_dtype)
-    eval_step = make_eval_step(model)
+    train_step = make_train_step(model, loss_cfg, compute_dtype, mesh)
+    mesh_eval = make_eval_step(model, mesh)
+
+    def eval_step(vb):
+        return mesh_eval(shard_batch(mesh, vb) if mesh is not None else vb)
 
     curated: List[Tuple[str, int]] = []
     if synthetic:
@@ -340,6 +379,8 @@ def run_training(
                         + ", ".join(f"{lab}=val[{idx}]" for lab, idx in curated))
 
     def render_curated(epoch: int) -> None:
+        if not lead:
+            return
         try:
             for label, idx in curated:
                 s = val_ds[idx]
@@ -372,18 +413,19 @@ def run_training(
             apply_stage(epoch)
         if i % steps_per_epoch == 0 and epoch in feature_epochs:
             loss_cfg = loss_cfg_for(epoch)
-            train_step = make_train_step(model, loss_cfg, compute_dtype)
+            train_step = make_train_step(model, loss_cfg, compute_dtype, mesh)
             logger.text(f"progressive activation at epoch {epoch}: "
                         f"{active_features(feature_schedule, epoch)} active")
         host_batch = next(batches)
-        state, metrics = train_step(state, host_batch)
+        state, metrics = train_step(state, host_batch if mesh is None
+                                    else shard_batch(mesh, host_batch))
         if i % 20 == 0 or i == total_steps - 1:
             last_metrics = {k2: float(v) for k2, v in metrics.items()}
             dt = time.perf_counter() - t0
             logger.metrics(i, last_metrics)
             logger.text(f"step {i}: loss {last_metrics.get('total_loss', float('nan')):.4f} "
                         f"({(i + 1 - start) * batch_size / dt:.1f} img/s)")
-        if t.save_every and (i + 1) % (t.save_every * steps_per_epoch) == 0:
+        if lead and t.save_every and (i + 1) % (t.save_every * steps_per_epoch) == 0:
             save_checkpoint(ckpt_dir, state, i + 1)
             logger.text(f"checkpoint at step {i + 1}")
 
@@ -401,8 +443,9 @@ def run_training(
             if vm["val_miou"] > best_miou:
                 best_miou = vm["val_miou"]
                 epochs_since_best = 0
-                save_checkpoint(best_dir, state, i,
-                                metadata={"val_miou": best_miou, "epoch": epoch})
+                if lead:
+                    save_checkpoint(best_dir, state, i,
+                                    metadata={"val_miou": best_miou, "epoch": epoch})
                 logger.text(f"new best val mIoU {best_miou:.4f} (checkpointed)")
             elif at_epoch_end:
                 epochs_since_best += 1
@@ -414,19 +457,20 @@ def run_training(
     last_metrics["best_val_miou"] = best_miou
     last_metrics["skipped"] = float(state.skipped)
     batches.close()  # stops the loader's threads
-    try:  # the last train batch's first image
-        if host_batch is None:
-            raise ValueError("no step ran")
-        render_sample(model, np.asarray(host_batch["images"][0]),
-                      np.asarray(host_batch["boxes"][0]), np.asarray(host_batch["masks"][0]),
-                      f"{out_dir}/visualizations/val_step{i}.png")
-    except Exception as e:  # a render never ends a run
-        logger.text(f"visualization skipped: {e!r}")
-    save_checkpoint(ckpt_dir, state, i)
+    if lead:
+        try:  # the last train batch's first image
+            if host_batch is None:
+                raise ValueError("no step ran")
+            render_sample(model, np.asarray(host_batch["images"][0]),
+                          np.asarray(host_batch["boxes"][0]), np.asarray(host_batch["masks"][0]),
+                          f"{out_dir}/visualizations/val_step{i}.png")
+        except Exception as e:  # a render never ends a run
+            logger.text(f"visualization skipped: {e!r}")
+        save_checkpoint(ckpt_dir, state, i)
     logger.text(f"done: {i} steps, final loss {last_metrics.get('total_loss', float('nan')):.4f}, "
                 f"eval mIoU {last_metrics['eval_miou']:.4f}")
     logger.close()
-    if device != "cpu":
+    if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return (last_metrics, state) if return_state else last_metrics
 
@@ -439,7 +483,8 @@ def main():
     p.add_argument("--steps", type=int, default=0, help="total steps (overrides epochs)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--synthetic", action="store_true")
-    p.add_argument("--devices", type=int, default=None)
+    p.add_argument("--devices", type=int, default=None,
+                   help="data-parallel ranks, one device each (spawned, or torchrun's)")
     p.add_argument("--tiny", action="store_true", help="tiny shapes for smoke tests")
     p.add_argument("--output_dir", default=None)
     p.add_argument("--resume", action="store_true")

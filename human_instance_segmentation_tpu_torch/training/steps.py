@@ -1,11 +1,36 @@
 """Train and eval steps for the hierarchical model.
 
-Counterpart of the JAX package's ``training/steps.py`` on one device (its
-mesh form waits for ROADMAP A9). A step computes what the JAX step
-computes: the forward in training mode (dropout from the state's
-generator; the frozen stage 1 in eval mode without autograd), the refined
-hierarchical loss, the gradients of every parameter, the NaN guard and the
-optimizer's update.
+Counterpart of the JAX package's ``training/steps.py``. A step computes
+what the JAX step computes: the forward in training mode (dropout from the
+state's generator; the frozen stage 1 in eval mode without autograd), the
+refined hierarchical loss, the gradients of every parameter, the NaN guard
+and the optimizer's update.
+
+Data parallel (``mesh=``, JAX ``steps.py:113-156``, ``:158-218``,
+``:221-262``): every rank of the mesh (``parallel.create_mesh``) holds the
+whole state and takes its own slice of the global batch
+(``parallel.shard_batch``). Each rank computes the loss and gradients of its
+slice; the gradients, the metrics, the new loss state, the new running
+statistics and the loss are then averaged over the ranks (JAX's list of
+``pmean``s, ``:133-138``; one collective per dtype) before the update, so
+every rank applies the same update and the states stay equal. The running
+statistics are averaged in float32 and then written under the one-device
+rule below. ``DistributedDataParallel`` is not used: it averages the
+gradients only. After the averaging ``finite`` is the same on every rank,
+so every rank keeps or skips the step together, and ``bool(finite)`` stays
+the step's one host sync. The eval step sums its sums over the ranks; its
+``acc`` is the global pixel accuracy, numerator and denominator summed
+before the division, which the JAX mesh step does not do (ROADMAP C16: it
+``psum``s the shards' accuracies, so with D shards its ``acc`` is their
+sum).
+
+Dropout under a mesh: JAX folds the step and the axis index into the
+state's key. Here rank r draws a step's masks from a generator seeded by a
+hash of the state's generator state, the step and r: two ranks never share
+a stream at one step, and the state's generator itself is not advanced, so
+it stays equal on every rank. A checkpoint (written by rank 0) holds that
+generator and the step, which is all a resumed run needs to rebuild every
+rank's stream.
 
 Batch contract (numpy arrays or tensors):
     images: (B, H, W, 3) float in [0, 1]
@@ -44,7 +69,9 @@ device scalar); the JAX step selects on the device instead.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+import hashlib
+import struct
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -192,14 +219,82 @@ def gradients(state: TrainState, loss: torch.Tensor) -> List[Optional[torch.Tens
     return grads
 
 
+def rank_seed(generator: torch.Generator, step: int, rank: int) -> int:
+    """The seed of rank ``rank``'s dropout stream at ``step`` under a mesh: a
+    hash of ``generator``'s state (read on the host, no device sync), the
+    step and the rank (module docstring)."""
+    h = hashlib.blake2b(generator.get_state().numpy().tobytes(), digest_size=8)
+    h.update(struct.pack("<qq", int(step), int(rank)))
+    return int.from_bytes(h.digest(), "little") & (2 ** 63 - 1)
+
+
+class RankGenerator:
+    """The generator a step draws its dropout from: the state's own without
+    a mesh, else this rank's stream of the step (:func:`rank_seed`)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self._gen: Optional[torch.Generator] = None
+
+    def __call__(self, state: TrainState) -> torch.Generator:
+        if self.mesh is None:
+            return state.generator
+        from ..parallel.mesh import rank_of
+
+        if self._gen is None or self._gen.device != state.generator.device:
+            self._gen = torch.Generator(device=state.generator.device)
+        self._gen.manual_seed(rank_seed(state.generator, state.step, rank_of(self.mesh)))
+        return self._gen
+
+
+def mesh_average(mesh, grads: Sequence[Optional[torch.Tensor]], loss: torch.Tensor,
+                 metrics: Dict[str, torch.Tensor],
+                 loss_state: Optional[HierarchicalLossState] = None, new_stats=()):
+    """The JAX step's ``pmean``s over the mesh's ranks: ``(grads, loss,
+    metrics, loss_state, new_stats)`` averaged, in one collective per dtype
+    (``parallel.all_mean``). Absent gradients stay absent (the same on every
+    rank); the loss state's ``initialized`` flag, equal on every rank, is
+    kept; running statistics are averaged in float32, and the ones a bf16
+    step only rounds (equal on every rank) are kept as they are."""
+    from ..parallel.mesh import all_mean
+
+    gi = [i for i, g in enumerate(grads) if g is not None]
+    mk = [k for k, v in metrics.items() if v.is_floating_point()]
+    ls_fields = [] if loss_state is None else [
+        f for f in HierarchicalLossState.FIELDS if getattr(loss_state, f).is_floating_point()]
+    si = [i for i, (_, _, rounded) in enumerate(new_stats) if not rounded]
+    flat = ([grads[i] for i in gi] + [loss] + [metrics[k] for k in mk]
+            + [getattr(loss_state, f) for f in ls_fields]
+            + [new_stats[i][1].float() for i in si])
+    avg = iter(all_mean(flat, mesh))
+    grads = list(grads)
+    for i in gi:
+        grads[i] = next(avg)
+    loss = next(avg)
+    metrics = {**metrics, **{k: next(avg) for k in mk}}
+    if loss_state is not None:
+        loss_state = HierarchicalLossState(**{
+            f: next(avg) if f in ls_fields else getattr(loss_state, f)
+            for f in HierarchicalLossState.FIELDS})
+    new_stats = list(new_stats)
+    for i in si:
+        buf, _, rounded = new_stats[i]
+        new_stats[i] = (buf, next(avg).to(buf.dtype), rounded)
+    return grads, loss, metrics, loss_state, new_stats
+
+
 def make_train_step(
     model: nn.Module,
     loss_cfg: RefinedLossConfig = RefinedLossConfig(),
     compute_dtype: Optional[str] = None,
+    mesh=None,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch) -> (state, metrics)`` for a state over
-    ``model``; the state is updated in place. Metrics are device tensors."""
+    ``model``; the state is updated in place. Metrics are device tensors.
+    With ``mesh`` the batch is this rank's slice of the global batch and the
+    step is data parallel (module docstring)."""
     loss_fn = make_loss_fn(model, loss_cfg, compute_dtype)
+    dropout = RankGenerator(mesh)
 
     def step(state: TrainState, batch: Batch):
         if state.model is not model:
@@ -207,9 +302,12 @@ def make_train_step(
         model.train()
         device = next(model.parameters()).device
         loss, (new_loss_state, new_stats, metrics) = loss_fn(
-            state.loss_state, state.generator, batch_to(batch, device))
-        state = _apply_step(state, gradients(state, loss), new_loss_state, new_stats,
-                            loss.detach())
+            state.loss_state, dropout(state), batch_to(batch, device))
+        grads, loss = gradients(state, loss), loss.detach()
+        if mesh is not None:
+            grads, loss, metrics, new_loss_state, new_stats = mesh_average(
+                mesh, grads, loss, metrics, new_loss_state, new_stats)
+        state = _apply_step(state, grads, new_loss_state, new_stats, loss)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
@@ -220,11 +318,14 @@ def make_scanned_train_step(
     loss_cfg: RefinedLossConfig = RefinedLossConfig(),
     scan_steps: int = 8,
     compute_dtype: Optional[str] = None,
+    mesh=None,
 ):
     """``scan_steps`` optimizer steps per call over a stacked super-batch
     (each array gains a leading ``(scan_steps,)`` axis); returns ``(state,
-    metrics of the last step)``, as the JAX ``lax.scan`` form does."""
-    step = make_train_step(model, loss_cfg, compute_dtype)
+    metrics of the last step)``, as the JAX ``lax.scan`` form does. With
+    ``mesh`` the super-batch is this rank's slice along its batch axis
+    (``parallel.shard_batch(mesh, batches, axis=1)``)."""
+    step = make_train_step(model, loss_cfg, compute_dtype, mesh)
 
     def scanned(state: TrainState, batches: Batch):
         metrics = None
@@ -242,22 +343,27 @@ def stack_batches(batches):
 
 
 def eval_forward(model: nn.Module, images: torch.Tensor, boxes: torch.Tensor):
-    """``(logits, aux)`` of ``model`` in eval mode and float32 without
-    autograd (JAX's ``model.apply(train=False)``) on (B, H, W, 3) images and
-    (B, K, 4) boxes, its mode restored after: the eval step's forward, and
-    the curated renders' (the fused stage-1 kernels run in both)."""
+    """``(logits, aux)`` of ``model`` in eval mode, in its parameters' dtype
+    (float32 for a train state's masters) and without autograd (JAX's
+    ``model.apply(train=False)``) on (B, H, W, 3) images and (B, K, 4)
+    boxes, its mode restored after: the eval step's forward, and the curated
+    renders' (the fused stage-1 kernels run in both)."""
+    dtype = next(model.parameters()).dtype
     was_training = model.training
     model.eval()
     try:
         with torch.no_grad():
-            return model(images.float(), rois_from_boxes(boxes.float()))
+            return model(images.to(dtype), rois_from_boxes(boxes.to(dtype)))
     finally:
         model.train(was_training)
 
 
-def make_eval_step(model: nn.Module):
+def make_eval_step(model: nn.Module, mesh=None):
     """``eval_step(batch) -> sums`` of per-ROI target IoU, detection at 0.5
-    and 0.7, the ROI count and pixel accuracy, through :func:`eval_forward`."""
+    and 0.7, the ROI count and pixel accuracy, through :func:`eval_forward`.
+    With ``mesh`` the batch is this rank's slice and the sums are summed over
+    the ranks; ``acc`` is then the global pixel accuracy (C16, module
+    docstring)."""
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
         batch = batch_to(batch, next(model.parameters()).device)
@@ -272,14 +378,22 @@ def make_eval_step(model: nn.Module):
         inter_n = torch.sum(tp, dim=(1, 2)).to(logits.dtype)
         union_n = torch.sum(union, dim=(1, 2)).to(logits.dtype)
         iou = inter_n / torch.clamp(union_n, min=1.0)
-        acc = torch.sum((pred == targets) * valid[:, None, None]) / torch.clamp(
-            torch.sum(valid) * mh * mw, min=1.0)
-        return {
+        correct = torch.sum((pred == targets) * valid[:, None, None])
+        pixels = torch.sum(valid) * mh * mw
+        sums = {
             "iou_sum": torch.sum(iou * valid),
             "det50_sum": torch.sum((iou > 0.5) * valid),
             "det70_sum": torch.sum((iou > 0.7) * valid),
             "n": torch.sum(valid),
-            "acc": acc,
         }
+        if mesh is not None:
+            from ..parallel.mesh import all_sum
+
+            keys = list(sums)
+            summed = all_sum([sums[k] for k in keys] + [correct, pixels], mesh)
+            sums = dict(zip(keys, summed[:len(keys)]))
+            correct, pixels = summed[len(keys):]
+        sums["acc"] = correct / torch.clamp(pixels, min=1.0)
+        return sums
 
     return step

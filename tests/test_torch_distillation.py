@@ -33,6 +33,7 @@ first step moves each by about lr, whatever the sign of a noise-level
 gradient), frozen ones bit for bit; optimizer steps within 1e-7 of optax.
 """
 
+import contextlib
 import json
 import shutil
 import sys
@@ -59,6 +60,7 @@ from human_instance_segmentation_tpu_torch.losses.hierarchical import Hierarchic
 from human_instance_segmentation_tpu_torch.models.blocks import Dropout2d
 from human_instance_segmentation_tpu_torch.models.unet import PeopleSegmentationUNet
 from human_instance_segmentation_tpu_torch.ops.norms import running_stat_modules
+from human_instance_segmentation_tpu_torch.parallel import launch
 from human_instance_segmentation_tpu_torch.training import distill as pdist
 from human_instance_segmentation_tpu_torch.training import distill_loop as ploop
 from human_instance_segmentation_tpu_torch.training import optim as poptim
@@ -651,6 +653,22 @@ def _port_tx():
                                   "adamw", 1e-4, 5.0)
 
 
+@contextlib.contextmanager
+def _one_rank_mesh():
+    """A mesh over a Gloo process group of this one process."""
+    import torch.distributed as dist
+
+    from human_instance_segmentation_tpu_torch.parallel.launch import free_port
+    from human_instance_segmentation_tpu_torch.parallel.mesh import INIT_TIMEOUT, create_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, timeout=INIT_TIMEOUT)
+    try:
+        yield create_mesh(1, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_hierarchical_distill_gradients_match_jax(hier_ref):
     """Loss, every metric (the refined loss's and ``kd_*``), the new loss
     state and every student gradient (the frozen stage 1 has none here and
@@ -681,11 +699,12 @@ def test_hierarchical_distill_gradients_match_jax(hier_ref):
         _close(g, want, err_msg=name, **STEP_TOL)
 
 
-def test_hierarchical_distill_step_matches_jax(hier_ref):
+def test_hierarchical_distill_step_matches_jax(hier_ref, binary_ref):
     """The float32 step against JAX's float64 step: loss and metrics, the
     parameters after it (the frozen stage 1 decayed by AdamW as JAX's
-    unmasked AdamW does); the teacher untouched and left in eval mode;
-    ``mesh=`` refused."""
+    unmasked AdamW does); the teacher untouched and left in eval mode; with
+    ``mesh=`` at one rank, the same step bit for bit (and the binary KD
+    step's too)."""
     student, teacher, loss_cfg = _hier_port(hier_ref)
     t_before = {k: v.clone() for k, v in teacher.state_dict().items()}
     state = TrainState.create(student, _port_tx(), seed=1)
@@ -701,10 +720,27 @@ def test_hierarchical_distill_step_matches_jax(hier_ref):
     for k, v in teacher.state_dict().items():
         assert torch.equal(v, t_before[k]), k
     assert not teacher.training
-    with pytest.raises(NotImplementedError, match="A9"):
-        pdist.make_hierarchical_distill_step(student, teacher, loss_cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
-        pdist.make_distill_train_step(student, teacher, mesh=object())
+    # data parallel at one rank (a Gloo group of one process): the mean over
+    # one rank leaves the step bit for bit as it is
+    with _one_rank_mesh() as mesh:
+        student_m, teacher_m, _ = _hier_port(hier_ref)
+        state_m = TrainState.create(student_m, _port_tx(), seed=1)
+        state_m, metrics_m = pdist.make_hierarchical_distill_step(
+            student_m, teacher_m, loss_cfg, 3.0, 0.6, 0.3, mesh=mesh)(state_m, _hier_batch())
+    assert torch.equal(metrics_m["total_loss"], metrics["total_loss"])
+    for (n, p), (_, q) in zip(student.named_parameters(), student_m.named_parameters()):
+        assert torch.equal(p, q), n
+    # and the binary KD step
+    runs = []
+    for one_rank in (False, True):
+        b_student, b_teacher, b_state = _binary_port(binary_ref)
+        with _one_rank_mesh() if one_rank else contextlib.nullcontext() as mesh:
+            b_state, b_metrics = pdist.make_distill_train_step(b_student, b_teacher, mesh=mesh)(
+                b_state, _binary_batch())
+        runs.append((b_metrics["total_loss"], dict(b_student.state_dict())))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k
 
 
 def test_hierarchical_teacher_kernel_routes(hier_ref):
@@ -805,7 +841,9 @@ def test_resumed_distillation_is_bit_exact(case, tmp_path):
 def test_distill_cli(tmp_path, monkeypatch, capsys):
     """The CLI at ``--tiny --device cpu``: 2 epochs x 2 steps with an unfreeze
     at epoch 1, the JSON report with the JAX loop's keys, finite losses, the
-    unfreeze and the checkpoints logged; ``--devices 2`` refused."""
+    unfreeze and the checkpoints logged; ``--devices 2`` distils on two Gloo
+    ranks for one step, rank 0 alone writing, and more CUDA ranks than cards
+    raise."""
     mods = json.dumps({"distillation": {"unfreeze_schedule": {"1": 2}}})
     argv = ["distill_loop", "--config", DISTILL, "--epochs", "2", "--steps-per-epoch", "2",
             "--synthetic", "--tiny", "--device", "cpu", "--output_dir", str(tmp_path),
@@ -820,6 +858,21 @@ def test_distill_cli(tmp_path, monkeypatch, capsys):
     assert all(np.isfinite(v) for v in report.values())
     assert "epoch 1: unfroze last 2 encoder stages" in out
     assert any(tmp_path.glob("checkpoints/ckpt_*.pt"))
-    monkeypatch.setattr(sys, "argv", argv + ["--devices", "2"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        ploop.main()
+    # two data-parallel ranks on the CPU for one step: rank 0 alone writes
+    # (the ranks are killed after 240 s)
+    monkeypatch.setattr(launch, "DEFAULT_TIMEOUT", 240.0)
+    dp_dir = tmp_path / "dp"
+    monkeypatch.setattr(sys, "argv", ["distill_loop", "--config", DISTILL, "--epochs", "1",
+                                      "--steps-per-epoch", "1", "--synthetic", "--tiny",
+                                      "--device", "cpu", "--output_dir", str(dp_dir),
+                                      "--devices", "2"])
+    ploop.main()
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):])
+    assert np.isfinite(report["total_loss"]) and report["best_student_miou"] > 0
+    assert [p.name for p in dp_dir.glob("checkpoints/ckpt_*.pt")] == ["ckpt_1.pt"]
+    logs = list(dp_dir.glob("logs/*.log"))
+    assert len(logs) == 1 and logs[0].read_text().count("new best student mIoU") == 1
+    with pytest.raises(ValueError, match=r"need \d+ devices, have \d+"):
+        ploop.run_distillation(DISTILL, epochs=1, steps_per_epoch=1, synthetic=True, tiny=True,
+                               devices=max(torch.cuda.device_count(), 1) + 1, device="cuda")

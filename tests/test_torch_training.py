@@ -705,14 +705,27 @@ def test_cli_refuses_without_cuda(tmp_path):
     assert not (tmp_path / "run").exists()
 
 
-def test_cli_refuses_what_is_not_ported(tmp_path):
-    """More than one device is refused (A9). COCO data is ported now: without
-    ``--synthetic`` the loop reads the configured annotations, so a missing
-    file is the error (tests/test_torch_coco_training.py trains on a tree)."""
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """More than one device is ported now (A9): ``--devices 2 --device cpu
+    --tiny --synthetic`` trains one step on two Gloo ranks, rank 0 alone
+    writing the checkpoint and the log, and returns a finite loss; more CUDA
+    ranks than cards raise. COCO data is ported too: without ``--synthetic``
+    the loop reads the configured annotations, so a missing file is the
+    error (tests/test_torch_coco_training.py trains on a tree)."""
+    from human_instance_segmentation_tpu_torch.parallel import launch
     from human_instance_segmentation_tpu_torch.training.loop import run_training
 
-    with pytest.raises(NotImplementedError, match="A9"):
-        run_training(FLAGSHIP, steps=1, synthetic=True, devices=2, device="cpu")
+    monkeypatch.setattr(launch, "DEFAULT_TIMEOUT", 240.0)  # the ranks are killed after 240 s
+    run = tmp_path / "dp"
+    m = run_training(FLAGSHIP, steps=1, synthetic=True, devices=2, tiny=True, device="cpu",
+                     output_dir=str(run))
+    assert np.isfinite(m["total_loss"]) and m["val_n"] == 8.0  # 2 val batches x 2 x 2 ROIs
+    assert [p.name for p in run.glob("checkpoints/ckpt_*.pt")] == ["ckpt_1.pt"]
+    logs = list(run.glob("logs/*.log"))
+    assert len(logs) == 1 and logs[0].read_text().count("done: 1 steps") == 1
+    with pytest.raises(ValueError, match=r"need \d+ devices, have \d+"):
+        run_training(FLAGSHIP, steps=1, synthetic=True, tiny=True, device="cuda",
+                     devices=max(torch.cuda.device_count(), 1) + 1)
     missing = str(tmp_path / "no_such_annotations.json")
     with pytest.raises(FileNotFoundError, match="no_such_annotations"):
         run_training(FLAGSHIP, steps=1, synthetic=False, device="cpu", tiny=True,
