@@ -30,9 +30,10 @@ Legacy invocation (`analyze --annotations ...` with no subcommand) keeps the
 round-1 behavior and runs `stats`.
 
 Everything but ``complexity`` and ``temperature`` is the JAX module's numpy
-code. ``complexity`` builds the port's models on the CPU and counts their
-parameters exactly as JAX counts them (every parameter and running
-statistic of the model, JAX's ``params`` and ``batch_stats`` leaves); its
+code. ``complexity`` builds the port's models on the card (``--device cpu``
+for the host) and counts their parameters exactly as JAX counts them
+(every parameter and running statistic of the model, JAX's ``params`` and
+``batch_stats`` leaves); its
 FLOPs come from ``torch.utils.flop_counter.FlopCounterMode``, which counts
 the convolutions and matrix products only (two a multiply-add), where
 XLA's ``cost_analysis`` counts the compiled program's operations,
@@ -232,7 +233,7 @@ def analyze_complexity(
     config_names: List[str],
     tiny: bool = False,
     timed: bool = False,
-    device: str = "cpu",
+    device: str = "cuda",
 ) -> Dict[str, Dict]:
     """Params / FLOPs / (optional) timed forward per registry config.
 
@@ -241,8 +242,8 @@ def analyze_complexity(
     running statistic. FLOPs are ``FlopCounterMode``'s count of one eval
     forward of one image and one ROI (convolutions and matrix products
     only; the module docstring says how it differs from XLA's). The models
-    are built on ``device`` (the CPU by default, where the count runs; a
-    timed forward on ``"cuda"`` times the card).
+    are built on ``device``: the card by default, where ``timed`` times the
+    forward; ``"cpu"`` asks for the host, and ``"cuda"`` without CUDA raises.
     """
     import time
 
@@ -436,7 +437,7 @@ def main(argv: Optional[List[str]] = None):
     pc.add_argument("configs", nargs="+")
     pc.add_argument("--tiny", action="store_true")
     pc.add_argument("--timed", action="store_true")
-    pc.add_argument("--device", default="cpu", help="cpu (default) or cuda")
+    pc.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     pt = sp.add_parser("training")
     pt.add_argument("--log", required=True, help="JSONL file or TrainLogger dir")

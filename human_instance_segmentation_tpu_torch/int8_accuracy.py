@@ -78,21 +78,19 @@ def _calibrate(model, ds, device) -> Dict[str, float]:
     return scales
 
 
-def main(device: str = "cuda", epochs: int = 30, verbose: bool = True) -> Dict[str, float]:
-    """Train, calibrate and serve (module docstring); returns the target
-    IoUs (``f32``, ``int8``, ``tail_f32``, ``tail_int8``), the deltas and the
-    last train loss."""
+def _train_and_serve(dev, tmp: str, epochs: int) -> Dict[str, float]:
+    """The tiny flagship trained on a synthetic COCO tree written under
+    ``tmp``, then served in float32 and in calibrated int8, plain and with
+    the s8 tail."""
     from .data import COCOInstanceSegmentationDataset, DatasetConfig, batch_iterator
     from .data.synthetic import generate_synthetic_coco
-    from .inference import init_weights, resolve_device
+    from .inference import init_weights
     from .losses.hierarchical import RefinedLossConfig
     from .models.assembly import HierarchicalInstanceSegmenter
     from .training.optim import Transform, constant_schedule
     from .training.state import TrainState
     from .training.steps import make_train_step
 
-    dev = resolve_device(device)
-    tmp = tempfile.mkdtemp()
     ann, img_dir = generate_synthetic_coco(tmp, n_images=16, image_size=IMAGE, max_instances=2)
     ds = COCOInstanceSegmentationDataset(ann, img_dir, DatasetConfig(
         image_size=IMAGE, mask_size=MASK, rois_per_image=2, min_roi_size=4))
@@ -126,8 +124,20 @@ def main(device: str = "cuda", epochs: int = 30, verbose: bool = True) -> Dict[s
     out["tail_int8"] = _target_iou(serve, ds, _calibrate(serve, ds, dev), dev)
     out["delta"] = out["int8"] - out["f32"]
     out["tail_delta"] = out["tail_int8"] - out["f32"]
+    return out
+
+
+def main(device: str = "cuda", epochs: int = 30, verbose: bool = True) -> Dict[str, float]:
+    """Train, calibrate and serve (module docstring); returns the target
+    IoUs (``f32``, ``int8``, ``tail_f32``, ``tail_int8``), the deltas and the
+    last train loss. The synthetic tree is removed afterwards."""
+    from .inference import resolve_device
+
+    dev = resolve_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _train_and_serve(dev, tmp, epochs)
     if verbose:
-        print(f"final train loss {loss:.3f}")
+        print(f"final train loss {out['train_loss']:.3f}")
         print(f"target IoU  f32 serving:  {out['f32']:.4f}")
         print(f"target IoU  int8 serving: {out['int8']:.4f}")
         print(f"delta: {out['delta']:+.4f}")

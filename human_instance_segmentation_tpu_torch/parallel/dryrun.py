@@ -3,9 +3,10 @@ ranks at tiny shapes, with semantic checks.
 
 Counterpart of the JAX package's ``parallel/dryrun.py`` (:1-142), which
 runs the sharded step on n virtual CPU devices. Here n processes join one
-process group (``parallel.launch.spawn``), on the CPU by default as JAX's
-stays on CPU devices, or on CUDA (``backend="gloo"`` lets n ranks share one
-card). Each rank:
+process group (``parallel.launch.spawn``) on the card by default, as every
+entry point of the port runs (``backend="gloo"`` lets n ranks share one
+card; without CUDA it raises), or on the CPU with ``device="cpu"``, where
+JAX's runs. Each rank:
 
 - overfits one fixed, learnable batch (one image a rank) for 25 steps and
   requires the loss to fall (last below first), the step count to advance
@@ -107,7 +108,7 @@ def _dryrun_rank(rank: int, device: str) -> Dict:
             "binary_max_abs": float(np.max(np.abs(bin_m - bin_1)))}
 
 
-def run_dryrun(n_devices: int, device: str = "cpu", backend: Optional[str] = None,
+def run_dryrun(n_devices: int, device: str = "cuda", backend: Optional[str] = None,
                verbose: bool = True, timeout: float = 600.0) -> Dict:
     """Run the dry run on ``n_devices`` ranks (module docstring) and return
     rank 0's report; any failed check raises."""

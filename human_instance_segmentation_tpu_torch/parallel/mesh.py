@@ -104,7 +104,7 @@ def create_mesh(n_devices: Optional[int] = None, axis_name: str = DATA_AXIS,
     return DeviceMesh(torch.device(device).type, list(range(world)), mesh_dim_names=(axis_name,))
 
 
-def batch_spec(mesh=None):
+def batch_spec():
     """The batch's placement: its leading axis sharded over the data axis
     (JAX ``P("data")``)."""
     from torch.distributed.tensor import Shard
@@ -247,32 +247,15 @@ def all_gather_object(obj: Any, mesh) -> List[Any]:
     return out
 
 
-def replicate(mesh, module_or_tree):
-    """Rank 0's values on every rank: a module's parameters and buffers are
-    overwritten in place (the module returned), a tree of tensors (dict,
-    list, tuple) comes back as new tensors. The JAX ``replicate`` places
-    one host value on every device; ranks that built their models from the
-    same seed hold equal values already, and this makes sure of it."""
-    if isinstance(module_or_tree, nn.Module):
-        tensors = [t for t in list(module_or_tree.parameters()) + list(module_or_tree.buffers())]
-        if tensors:
-            broadcast_(tensors, mesh)
-        return module_or_tree
-    leaves: List[torch.Tensor] = []
-
-    def collect(x):
-        if isinstance(x, dict):
-            return {k: collect(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return type(x)(collect(v) for v in x)
-        t = (x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))).clone()
-        leaves.append(t)
-        return t
-
-    tree = collect(module_or_tree)
-    if leaves:
-        broadcast_(leaves, mesh)
-    return tree
+def replicate(mesh, module: nn.Module) -> nn.Module:
+    """Rank 0's parameters and buffers on every rank, overwritten in place;
+    returns the module. The JAX ``replicate`` places one host value on
+    every device; ranks that built their models from the same seed hold
+    equal values already, and this makes sure of it."""
+    tensors = list(module.parameters()) + list(module.buffers())
+    if tensors:
+        broadcast_(tensors, mesh)
+    return module
 
 
 def launched_world() -> Optional[int]:

@@ -24,6 +24,12 @@ import pytest
 from human_instance_segmentation_tpu import analyze as janalyze
 from human_instance_segmentation_tpu_torch import analyze as panalyze
 
+def torch_cuda_available():
+    import torch
+
+    return torch.cuda.is_available()
+
+
 FLAGSHIP = ("rgb_hierarchical_unet_v2_fullimage_pretrained_peopleseg_r64x48m128x96_"
             "disttrans_contdet_baware_from_b0")
 ANNS = {
@@ -135,7 +141,7 @@ def _jax_param_count(name):
     FLAGSHIP, "baseline", "rgb_hierarchical_unet_v2_attention_r64m64_refined_boundaryref_contour_"
     "batchnorm", "rgb_hierarchical_unet_v2"])
 def test_complexity_param_counts_equal_jax(name):
-    rep = panalyze.analyze_complexity([name], tiny=True)[name]
+    rep = panalyze.analyze_complexity([name], tiny=True, device="cpu")[name]
     assert rep["params"] == _jax_param_count(name)
     assert rep["params_m"] == round(rep["params"] / 1e6, 2) and rep["gflops_per_image"] > 0
 
@@ -144,12 +150,27 @@ def test_complexity_flops_ratio_recorded():
     """FlopCounterMode (convs and matmuls) against XLA's cost analysis on the
     tiny baseline: both positive and within a factor 2; the ratio printed
     (1.04 when this test was written)."""
-    got = panalyze.analyze_complexity(["baseline"], tiny=True)["baseline"]
+    got = panalyze.analyze_complexity(["baseline"], tiny=True, device="cpu")["baseline"]
     want = janalyze.analyze_complexity(["baseline"], tiny=True)["baseline"]
     assert got["params"] == want["params"]
     ratio = got["gflops_per_image"] / want["gflops_per_image"]
     print(f"FlopCounterMode / XLA cost_analysis on the tiny baseline: {ratio:.3f}")
     assert 0.5 < ratio < 2.0
+
+
+@pytest.mark.skipif(torch_cuda_available(), reason="checks the refusal where CUDA is missing")
+def test_complexity_defaults_to_the_card(capsys):
+    """The function and the CLI build on the card unless asked for the CPU:
+    without CUDA the default raises, and ``--device cpu`` prints the
+    function's report."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        panalyze.analyze_complexity(["baseline"], tiny=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        panalyze.main(["complexity", "baseline", "--tiny"])
+    capsys.readouterr()
+    panalyze.main(["complexity", "baseline", "--tiny", "--device", "cpu"])
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == panalyze.analyze_complexity(["baseline"], tiny=True, device="cpu")
 
 
 def test_run_experiments_tiny(tmp_path):

@@ -27,8 +27,9 @@ Tolerances: three DP train steps' losses, parameters, running statistics
 and loss state within rtol 1e-4 / atol 1e-6 of JAX's (the training
 tolerance of ``test_torch_training.py``); the same for one step of each KD
 step; the loss and every parameter bit-identical across the two ranks; the
-eval sums within rtol 1e-6 / atol 1e-6; mesh serving within atol 1e-5 of
-the single-device engine (ROADMAP C2's tolerance, stated and checked).
+eval sums within rtol 1e-6 / atol 1e-6; mesh serving, of the flagship and
+of a family without its stage-1 split, within atol 1e-5 of the
+single-device engine (ROADMAP C2's tolerance, stated and checked).
 Every spawn is killed after :data:`SPAWN_TIMEOUT` seconds.
 """
 
@@ -176,7 +177,10 @@ def _rank_serving(rank, variables):
     """The mesh engine and ROI-sharded inference against the single-device
     engine, float32, with the engine's warnings recorded per request."""
     from human_instance_segmentation_tpu_torch.inference import (InferenceEngine,
-                                                                 deployed_outputs, pad_rois)
+                                                                 deployed_outputs, init_weights,
+                                                                 pad_rois)
+    from human_instance_segmentation_tpu_torch.models.assembly import (
+        MultiScaleRGBHierarchicalModel)
     from human_instance_segmentation_tpu_torch.parallel.mesh import create_mesh
     from human_instance_segmentation_tpu_torch.parallel.roi_sharding import (
         make_roi_sharded_infer, shard_rois)
@@ -208,6 +212,22 @@ def _rank_serving(rank, variables):
         inst_1, bin_1 = single(img, rois)
         out[name] = {"inst_m": inst_m, "bin_m": bin_m, "inst_1": inst_1, "bin_1": bin_1,
                      "warnings": handler.messages}
+
+    # a family without the flagship's stage-1 split: the batch replicated,
+    # the ROI bucket of 16 sharded
+    other = MultiScaleRGBHierarchicalModel((16, 8), mask_size=(16, 16), image_size=(32, 32),
+                                           feature_dim=16)
+    init_weights(other, 0)
+    handler = _Records()
+    log.addHandler(handler)
+    try:
+        inst_m, bin_m = InferenceEngine(other, dilation_pixels=1, device="cpu", mesh=mesh)(
+            *requests["sharded"])
+    finally:
+        log.removeHandler(handler)
+    inst_1, bin_1 = InferenceEngine(other, dilation_pixels=1, device="cpu")(*requests["sharded"])
+    out["other_family"] = {"inst_m": inst_m, "bin_m": bin_m, "inst_1": inst_1, "bin_1": bin_1,
+                           "warnings": handler.messages}
 
     rois = requests["sharded"][1][:5]  # images 0, 0, 1, 1, 2
     infer = make_roi_sharded_infer(model, mesh, dilation_pixels=1)
@@ -480,6 +500,25 @@ def test_engine_mesh_matches_single_device(serving, case):
             assert any("REPLICATED" in m and "roi bucket" in m for m in warned), warned
             assert not any("batch=" in m for m in warned), warned
     assert np.array_equal(serving[0][case]["inst_m"], serving[1][case]["inst_m"])
+
+
+def test_engine_mesh_serves_other_family(serving):
+    """A family without the flagship's stage-1 split (the multi-scale RGB
+    model) on two ranks: every rank runs the whole batch, the bucket of 16
+    ROIs shards, the engine logs that the batch serves REPLICATED, and the
+    instance masks equal the single-device engine's within atol 1e-5 (no
+    binary mask from this family)."""
+    for rank in (0, 1):
+        r = serving[rank]["other_family"]
+        assert r["bin_m"] is None and r["bin_1"] is None
+        assert r["inst_m"].shape == r["inst_1"].shape == (16, 16, 16, 1)
+        np.testing.assert_allclose(r["inst_m"], r["inst_1"], atol=SERVE_ATOL)
+        assert any("MultiScaleRGBHierarchicalModel has no stage-1 split" in m
+                   and "REPLICATED" in m for m in r["warnings"]), r["warnings"]
+        assert not any("roi bucket" in m for m in r["warnings"]), r["warnings"]
+    assert serving[0]["other_family"]["inst_1"].any()
+    assert np.array_equal(serving[0]["other_family"]["inst_m"],
+                          serving[1]["other_family"]["inst_m"])
 
 
 def test_roi_sharded_infer_matches_one_device(serving):
