@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import tracing
 from .models.assembly import HierarchicalInstanceSegmenter
 from .models.blocks import set_head_fusion
 from .models.postprocess import mask_dilation_logit_boost
@@ -187,21 +188,23 @@ class InferenceEngine:
         served unfused and un-quantized in the engine's dtype (and, for a
         ``pallas_tail`` model, the s8 tail's three points), and fold the
         scales into int8 serving (pointwise max over calls)."""
-        bucket = roi_bucket(max(rois.shape[0], 1), max_bucket=self.max_bucket)
-        rois_p = torch.as_tensor(pad_rois(np.asarray(rois, np.float32), bucket)).to(self.device)
-        images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
-        set_head_fusion(self.model, False)
-        set_int8_serving(self.model, False)
-        self._stage1_kernels()
-        with torch.inference_mode(), calibration(self.model) as calib:
-            self._model_forward(images_t, rois_p)
-        scales = collect_scales(calib)
-        if self.mesh is not None:  # every rank serves the same graph
-            from .parallel.mesh import all_gather_object
+        with tracing.span("engine.calibrate"):
+            bucket = roi_bucket(max(rois.shape[0], 1), max_bucket=self.max_bucket)
+            rois_p = torch.as_tensor(pad_rois(np.asarray(rois, np.float32), bucket)).to(
+                self.device)
+            images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
+            set_head_fusion(self.model, False)
+            set_int8_serving(self.model, False)
+            self._stage1_kernels()
+            with torch.inference_mode(), calibration(self.model) as calib:
+                self._model_forward(images_t, rois_p)
+            scales = collect_scales(calib)
+            if self.mesh is not None:  # every rank serves the same graph
+                from .parallel.mesh import all_gather_object
 
-            for other in all_gather_object(scales, self.mesh):
-                scales = merge_scales(scales, other)
-        self.scales = merge_scales(self.scales, scales) if self.scales else scales
+                for other in all_gather_object(scales, self.mesh):
+                    scales = merge_scales(scales, other)
+            self.scales = merge_scales(self.scales, scales) if self.scales else scales
 
     def _mesh_plan(self, batch: int, bucket: int) -> Tuple[bool, bool]:
         """Whether the images and the ROI bucket shard over the mesh, logging
@@ -244,7 +247,8 @@ class InferenceEngine:
         if shard_images:
             per = images.shape[0] // world
             form, x1 = self.model.stage1_raw(images[rank * per:(rank + 1) * per])
-            x1 = all_gather(x1, self.mesh)
+            with tracing.span("model.stage1"):
+                x1 = all_gather(x1, self.mesh)
         else:
             form, x1 = self.model.stage1_raw(images)
         return (*self.model.from_stage1(images, form, x1, rois), rois)
@@ -254,33 +258,52 @@ class InferenceEngine:
         [0, 1], rois (bucket, 5) float32 already padded ->
         (instance_masks, binary_masks, logits), the whole request's on every
         rank of a mesh."""
-        set_head_fusion(self.model, self.fused_head, self.kernels)
-        set_int8_serving(self.model, self.quantize == "int8", self.scales, self.int8_deny,
-                         self.kernels)
-        self._stage1_kernels()
-        with torch.inference_mode():
-            logits, aux, mine = self._model_forward(images.to(self.dtype),
-                                                    rois.to(torch.float32))
-            inst, binary = deployed_outputs(logits, aux, mine, self.dilation_pixels)
-            if mine.shape[0] != rois.shape[0]:  # the ROI bucket is sharded
-                from .parallel.mesh import all_gather
+        with tracing.span("engine.forward"):
+            with tracing.span("engine.switches"):
+                set_head_fusion(self.model, self.fused_head, self.kernels)
+                set_int8_serving(self.model, self.quantize == "int8", self.scales,
+                                 self.int8_deny, self.kernels)
+                self._stage1_kernels()
+            with torch.inference_mode():
+                logits, aux, mine = self._model_forward(images.to(self.dtype),
+                                                        rois.to(torch.float32))
+                with tracing.span("engine.outputs"):
+                    inst, binary = deployed_outputs(logits, aux, mine, self.dilation_pixels)
+                if mine.shape[0] != rois.shape[0]:  # the ROI bucket is sharded
+                    from .parallel.mesh import all_gather
 
-                inst, logits = all_gather(inst, self.mesh), all_gather(logits, self.mesh)
+                    inst, logits = all_gather(inst, self.mesh), all_gather(logits, self.mesh)
         return inst, binary, logits
 
     def __call__(self, images: np.ndarray, rois: np.ndarray):
         """images (B, H, W, 3) in [0, 1]; rois (N, 5) normalised boxes ->
         numpy (instance_masks (N, mh, mw, 1), binary_masks (B, H, W, 1), or
-        None for a model without a full-image stage 1)."""
-        n = rois.shape[0]
-        if self.quantize == "int8" and self.scales is None:
-            self.calibrate(images, rois)
-        bucket = roi_bucket(max(n, 1), max_bucket=self.max_bucket)
-        rois_p = pad_rois(np.asarray(rois, np.float32), bucket)
-        images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
-        inst, binary, _ = self.forward(images_t, torch.as_tensor(rois_p).to(self.device))
-        inst = inst[:n].float().cpu().numpy()
-        return inst, None if binary is None else binary.float().cpu().numpy()
+        None for a model without a full-image stage 1).
+
+        With tracing on (:mod:`.tracing`), the request is an ``engine.call``
+        span whose counters hold its ``images``, ``rois``, ``rois_computed``
+        (the bucket), ``h2d_bytes`` and ``d2h_bytes``."""
+        with tracing.span("engine.call"):
+            n = rois.shape[0]
+            if self.quantize == "int8" and self.scales is None:
+                self.calibrate(images, rois)
+            with tracing.span("engine.pad"):
+                bucket = roi_bucket(max(n, 1), max_bucket=self.max_bucket)
+                rois_p = pad_rois(np.asarray(rois, np.float32), bucket)
+                images_np = np.asarray(images, np.float32)
+            with tracing.span("engine.upload"):
+                images_t = torch.as_tensor(images_np).to(self.device, self.dtype)
+                rois_t = torch.as_tensor(rois_p).to(self.device)
+            tracing.count("images", images_t.shape[0])
+            tracing.count("rois", n)
+            tracing.count("rois_computed", bucket)
+            tracing.count("h2d_bytes", images_t.nbytes + rois_t.nbytes)
+            inst, binary, _ = self.forward(images_t, rois_t)
+            with tracing.span("engine.download"):
+                inst = inst[:n].float()
+                binary = None if binary is None else binary.float()
+                tracing.count("d2h_bytes", inst.nbytes + (0 if binary is None else binary.nbytes))
+                return inst.cpu().numpy(), None if binary is None else binary.cpu().numpy()
 
     def warmup(self, batch: int = 1, buckets: Tuple[int, ...] = (1, 2, 4, 8, 16)) -> None:
         """One zero batch through :meth:`forward` for each ROI bucket, on the

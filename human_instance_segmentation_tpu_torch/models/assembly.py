@@ -55,6 +55,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from .. import tracing
 from ..ops import cuda_roi_align, sampling
 from ..ops.quant import QConv
 from .blocks import ConvNormAct, ResidualBlock, prequantize_for
@@ -227,13 +228,15 @@ class HierarchicalInstanceSegmenter(nn.Module):
         """The per-ROI stage: RGB crops (N, rh, rw, 3) and stage-1 logit
         crops (N, rh, rw, 2) -> (logits (N, mh, mw, 3), the head's aux),
         NHWC."""
-        rgb_features = self.rgb_extractor(_nchw(roi_rgb))
-        if self.feature_combiner is None:
-            logits, aux = self.head(rgb_features, _nchw(roi_bg_fg))
-        else:
-            combined = self.feature_combiner(torch.cat([rgb_features, _nchw(roi_bg_fg)], dim=1))
-            logits, aux = self.head(combined)
-        return _nhwc(logits), {k: _nhwc(v) for k, v in aux.items()}
+        with tracing.span("model.stage2"):
+            rgb_features = self.rgb_extractor(_nchw(roi_rgb))
+            if self.feature_combiner is None:
+                logits, aux = self.head(rgb_features, _nchw(roi_bg_fg))
+            else:
+                combined = self.feature_combiner(torch.cat([rgb_features, _nchw(roi_bg_fg)],
+                                                           dim=1))
+                logits, aux = self.head(combined)
+            return _nhwc(logits), {k: _nhwc(v) for k, v in aux.items()}
 
     def forward(self, images: torch.Tensor,
                 rois: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -245,7 +248,7 @@ class HierarchicalInstanceSegmenter(nn.Module):
         can run it on its slice of the batch and gather the slices."""
         if tuple(images.shape[1:3]) != self.image_size:
             raise ValueError(f"model built for {self.image_size}, got {tuple(images.shape[1:3])}")
-        with _stage1_context(self.freeze_pretrained):
+        with tracing.span("model.stage1"), _stage1_context(self.freeze_pretrained):
             return self.pretrained_unet(_nchw(images), raw=True)
 
     def from_stage1(self, images: torch.Tensor, form: str, x1: torch.Tensor,
@@ -254,7 +257,7 @@ class HierarchicalInstanceSegmenter(nn.Module):
         the whole batch: the full-image maps, the crops of ``rois`` and
         stage 2."""
         # a frozen stage 1 and the crops need no gradient
-        with _stage1_context(self.freeze_pretrained):
+        with tracing.span("model.crops"), _stage1_context(self.freeze_pretrained):
             if form == "dense":  # x1 (B, H, W): the fused tail's one-channel logit map
                 roi_rgb, roi1 = self._crops(images, x1[..., None], rois)
                 roi_bg_fg = _nhwc(self.unet_wrapper(_nchw(roi1))).contiguous()

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
 from ..ops.activations import get_activation
 from ..ops.attention import ChannelAttention, SpatialAttention
 from ..ops.norms import get_normalization
@@ -600,12 +601,14 @@ class RefinedHierarchicalHead(nn.Module):
             logits = _resize_to(self.subpixel(shared), mh, mw)
         if self.boundary is not None:
             logits = self.boundary(logits)
-        if self.contour is not None:
-            aux["contours"] = _resize_to(self.contour(shared), mh, mw)
-        if self.distance is not None:
-            dmask, dmap = self.distance(shared)
-            aux["distance_mask"] = _resize_to(dmask, mh, mw)
-            aux["distance_map"] = _resize_to(dmap, mh, mw)
+        # branches that feed only training losses: no deployed output reads them
+        with tracing.span("model.head.unread"):
+            if self.contour is not None:
+                aux["contours"] = _resize_to(self.contour(shared), mh, mw)
+            if self.distance is not None:
+                dmask, dmap = self.distance(shared)
+                aux["distance_mask"] = _resize_to(dmask, mh, mw)
+                aux["distance_map"] = _resize_to(dmap, mh, mw)
         return logits, aux
 
 

@@ -417,6 +417,7 @@ class QConv(nn.Conv2d):
     """
 
     int8_calls = 0  # int8 forwards of every QConv, for launch-count checks
+    operand_builds = 0  # misses of cached(): weights and operands built (again)
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -444,13 +445,17 @@ class QConv(nn.Conv2d):
         """``build()``, made once per state of ``tensors`` (device, storage,
         version counter, dtype) and ``extras`` and kept under ``slot`` until
         one of them changes. An inference-mode tensor has no version counter
-        (an in-place change would go unseen), so with one nothing is kept."""
+        (an in-place change would go unseen), so with one nothing is kept.
+        Every build adds one to ``QConv.operand_builds``: in steady serving
+        it stays still."""
         live = [t for t in tensors if t is not None]
         if any(t.is_inference() for t in live):
+            QConv.operand_builds += 1
             return build()
         key = (extras, tuple((t.device, t.data_ptr(), t._version, t.dtype) for t in live))
         hit = self._cache.get(slot)
         if hit is None or hit[0] != key:
+            QConv.operand_builds += 1
             # the detached tensors share the version counters and hold the
             # storages, so no other tensor can take their addresses meanwhile
             with torch.inference_mode(False), torch.no_grad():

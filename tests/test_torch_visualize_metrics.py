@@ -11,6 +11,8 @@ the same leaf mapping: a ``kernel`` is a ``weight``, a 4-D one transposed
 HWIO -> OIHW), its report against JAX's report with those names mapped.
 """
 
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -189,18 +191,21 @@ def test_confusion_matrix_and_binary_miou_match_jax():
 
 
 def test_profiling_helpers(tmp_path):
-    t = pprof.StepTimer(ema=0.5)
-    assert t.avg_step_s == 0.0 and t.throughput(8) == 0.0
-    t.start()
-    assert t.stop() >= 0.0 and t.throughput(8) > 0.0
-    calls = []
-    x = torch.ones(4)
-    s = pprof.chained_time(lambda a: calls.append(a.sum()), x, iters=5)
-    assert s >= 0.0 and len(calls) == 6  # a warm-up call, then the timed ones
+    """``trace`` writes a Chrome trace, and turns the port's spans on for its
+    block only: they appear among the profiler's events and in
+    ``spans.jsonl``."""
+    from human_instance_segmentation_tpu_torch import tracing
+
     with pprof.trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        assert tracing._on
+        with tracing.span("engine.call"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert not tracing._on
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
     assert any("mm" in e.key for e in prof.key_averages())
+    assert "hiseg.engine.call" in {e.name for e in prof.events()}
+    lines = (tmp_path / "trace" / "spans.jsonl").read_text().splitlines()
+    assert [json.loads(line)["name"] for line in lines] == ["hiseg.engine.call"]
 
 
 # --- transfer_weights: tests/test_progressive.py's three cases ---------------
