@@ -197,7 +197,19 @@ package beside the script; it imports nothing of JAX. Phases:
     ``make_roi_sharded_infer`` at 6 ROIs (:func:`dp_mesh_serving`); (d)
     ``run_dryrun(2)`` on the card over Gloo, ``parallel.multihost`` twice
     over Gloo, and ``int8_accuracy.main`` at its own tiny shapes, with
-    their float32 and int8 IoU.
+    their float32 and int8 IoU;
+21. LayerNorm2d chains (:func:`layernorm_chains`): (a) the kernel pair
+    ``ops/cuda_norm.ln_act`` against ``ln_act_plain`` at every shape a
+    served B0 (128 RoIs) and B7 (64 RoIs) forward normalises, bf16 and
+    float32, with and without a residual, x's dtype and int8 out, its
+    statistics against float64, its scalar form and a residual in another
+    layout at ragged shapes, under ``LN_BF16_ULPS`` and the
+    tolerances beside it; (b) its device time at the two largest served
+    shapes in its three served uses against its byte bound and the plain
+    chain; (c) each benchmark cell's flagship served once with every
+    ``ln_act`` call of the forward held against the plain chain on its own
+    operands (52 calls a B0 forward, 57 a B7 one), and forwards with the
+    route on and off in turns.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -5368,6 +5380,321 @@ def data_parallel(card: str) -> None:
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# LayerNorm2d chains (phase 21): the (C, H, W) of every LayerNorm2d a served
+# forward normalises, by configuration, with the RoI bucket the benchmark's
+# cells serve (b0.batch32.coco: 124 RoIs -> 128; b7.crowdhuman2: 45 -> 64)
+LN_SHAPES = {
+    "b0": (128, [(32, 128, 96), (48, 64, 48), (64, 64, 48), (96, 32, 24), (96, 64, 48),
+                 (128, 64, 48), (128, 128, 96), (192, 16, 12), (192, 32, 24), (256, 64, 48),
+                 (384, 16, 12)]),
+    "b7": (64, [(32, 256, 192), (48, 128, 96), (64, 128, 96), (96, 64, 48), (96, 128, 96),
+                (128, 128, 96), (128, 256, 192), (192, 32, 24), (192, 64, 48), (256, 128, 96),
+                (384, 32, 24)]),
+}
+# The flagships the two cells serve (port_bench/configs), by configuration:
+# (variant, RoI, mask, images and RoIs a request, ln_act calls a forward)
+LN_SERVED = {"b0": ("b0", (64, 48), (128, 96), 32, 124, 52),
+             "b7": ("b7", (128, 96), (256, 192), 2, 45, 57)}
+# ln_act against ln_act_plain. Their statistics differ only in the order of
+# the float32 sums, so a normalised value rounds differently only where it
+# lies within ~1e-7 of a rounding boundary; one such flip moves the output
+# by about one ulp of the largest term the chain rounds (|y * g|, |b|, the
+# residual), which a sum that cancels can leave far above the output's own
+# ulp (and an error of the mean moves a value near the mean by that error,
+# relative to |mean|, not to the value: see _ln_scale). So: bf16 within 2
+# bf16 ulps of that term, under 0.1% of values differing; int8 codes within
+# 1, under 0.1% differing; float32 within 1e-5 of that term (every value
+# may differ in its last bits); the mean within 1e-6 of the sample's
+# standard deviation and the variance within 1e-6 relative of float64.
+LN_BF16_ULPS = 2
+LN_MAX_SHARE = 1e-3
+LN_F32_RTOL = 1e-5
+LN_STATS_RTOL = 1e-6
+
+
+def _ln_operands(n, shape, dtype, dev, seed, channels_last=True):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[0]
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = (torch.randn((n, *shape), generator=g, device=dev) * 2.0 + 0.5).to(dtype)
+    res = torch.randn((n, *shape), generator=g, device=dev).to(dtype)
+    x, res = x.contiguous(memory_format=fmt), res.contiguous(memory_format=fmt)
+    gamma = (1.0 + 0.2 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=g, device=dev)).to(dtype)
+    return x, res, gamma, beta
+
+
+def _ln_scale(x, gamma, beta, res):
+    """The largest magnitude the plain chain's steps handle, value by value,
+    in output units: (|x| + |mean|) * rstd * |g| + |b| (+ |residual|), in
+    float32. A step's rounding, and the statistics' own, err relative to it:
+    an error of the mean relative to |mean| moves a value near the mean by
+    that much times rstd * |g|, whatever the value itself."""
+    import torch
+
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(dim=(1, 2, 3), keepdim=True) + 1e-5)
+    s = (xf.abs() + mean.abs()) * rstd * gamma.float().abs()[:, None, None]
+    s = s + beta.float().abs()[:, None, None]
+    return s if res is None else s + res.float().abs()
+
+
+def _bf16_ulp(v):
+    import torch
+
+    e = torch.floor(torch.log2(v.clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def ln_compare(got, ref, scale) -> dict:
+    """Kernel against plain: the largest difference (in bf16 ulps of the
+    largest term, in codes, or relative to that term) and the share of
+    values that differ; raises where a tolerance is passed."""
+    import torch
+
+    if got.dtype != ref.dtype or got.shape != ref.shape or got.stride() != ref.stride():
+        raise AssertionError(f"ln_act: {got.dtype} {tuple(got.stride())} against "
+                             f"{ref.dtype} {tuple(ref.stride())}")
+    diff = (got.float() - ref.float()).abs()
+    share = (diff > 0).float().mean().item()
+    if got.dtype == torch.int8:
+        worst, ok = diff.max().item(), diff.max().item() <= 1
+    elif got.dtype == torch.bfloat16:
+        worst = (diff / _bf16_ulp(torch.maximum(scale, ref.float().abs()))).max().item()
+        ok = worst <= LN_BF16_ULPS
+    else:
+        worst = (diff / torch.maximum(scale, ref.float().abs()).clamp_min(1e-30)).max().item()
+        ok = worst <= LN_F32_RTOL
+    if not ok or (got.dtype != torch.float32 and share >= LN_MAX_SHARE):
+        raise AssertionError(f"ln_act {got.dtype} {tuple(got.shape)}: worst {worst}, "
+                             f"{share:.2e} of values differ")
+    return {"worst": worst, "share": share}
+
+
+def ln_stats_check(x, stats) -> float:
+    """The kernel's mean and variance against float64: the worst of |mean
+    error| / std and |variance error| / variance over the samples."""
+    import torch
+
+    x64 = x.double().reshape(x.shape[0], -1)
+    mean = x64.mean(dim=1)
+    var = (x64 - mean[:, None]).square().mean(dim=1)
+    e_mean = ((stats[:, 0].double() - mean).abs() / var.sqrt()).max().item()
+    e_var = ((stats[:, 1].double() - var).abs() / var).max().item()
+    if max(e_mean, e_var) > LN_STATS_RTOL:
+        raise AssertionError(f"ln_act statistics: mean {e_mean:.2e}, variance {e_var:.2e}")
+    return max(e_mean, e_var)
+
+
+def check_ln_kernel(card: str) -> dict:
+    """(a) the kernel pair against ln_act_plain at every served shape of both
+    configurations at their buckets: bf16 and float32, with and without a
+    residual, x's dtype and int8 out (ReLU; the identity on the small
+    shapes), channels-last as served; the statistics against float64; the
+    scalar form (NCHW, ragged C, x off 16 bytes) and a residual in another
+    layout, at ragged shapes. Returns the worst readings."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.ops import cuda_norm
+
+    dev = torch.device("cuda")
+    worst = {"bf16_ulps": 0.0, "bf16_share": 0.0, "int8_codes": 0.0, "int8_share": 0.0,
+             "f32_rel": 0.0, "stats_rel": 0.0}
+    checked = 0
+    for cfg, (n, shapes) in LN_SHAPES.items():
+        for i, shape in enumerate(shapes):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, res, gamma, beta = _ln_operands(n, shape, dtype, dev, seed=17 * i + 1)
+                small = x.numel() < 50e6
+                for residual, int8, relu in [(r, q, True) for r in (False, True)
+                                             for q in (False, True)] + (
+                        [(True, False, False)] if small else []):
+                    r = res if residual else None
+                    qscale = 4.0 / 127 if int8 else None
+                    stats = torch.empty((n, 2), dtype=torch.float32, device=dev)
+                    got = cuda_norm.ln_act(x, gamma, beta, 1e-5, r, relu, qscale, stats=stats)
+                    if not cuda_norm.ln_act.last_vec:
+                        raise AssertionError(f"{cfg} {shape}: the served layout took the "
+                                             "scalar form")
+                    ref = cuda_norm.ln_act_plain(x, gamma, beta, 1e-5, r, relu, qscale)
+                    o = ln_compare(got, ref, _ln_scale(x, gamma, beta, r))
+                    if int8:
+                        worst["int8_codes"] = max(worst["int8_codes"], o["worst"])
+                        worst["int8_share"] = max(worst["int8_share"], o["share"])
+                    elif dtype == torch.bfloat16:
+                        worst["bf16_ulps"] = max(worst["bf16_ulps"], o["worst"])
+                        worst["bf16_share"] = max(worst["bf16_share"], o["share"])
+                    else:
+                        worst["f32_rel"] = max(worst["f32_rel"], o["worst"])
+                    if not residual and not int8:
+                        worst["stats_rel"] = max(worst["stats_rel"], ln_stats_check(x, stats))
+                    checked += 1
+                    del got, ref
+                del x, res
+            torch.cuda.empty_cache()
+    # the other forms, at ragged and small shapes
+    forms = set()
+    for shape, cl, res_cl, offset in [((16, 12, 8), False, False, 0),   # NCHW: scalar
+                                      ((7, 5, 3), True, True, 0),       # C % 8: scalar
+                                      ((7, 5, 3), False, False, 0),
+                                      ((64, 16, 12), True, False, 0),   # residual's own strides
+                                      ((64, 16, 12), True, True, 1)]:   # x off 16 bytes: scalar
+        for dtype in (torch.bfloat16, torch.float32):
+            x, res, gamma, beta = _ln_operands(3, shape, dtype, dev, seed=5, channels_last=cl)
+            if not res_cl:
+                res = res.contiguous()
+            if offset:
+                flat = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+                x = flat[offset:].view(x.shape).copy_(x)
+            fmt = torch.channels_last if cl and not offset else torch.contiguous_format
+            for int8 in (False, True):
+                qscale = 4.0 / 127 if int8 else None
+                got = cuda_norm.ln_act(x, gamma, beta, 1e-5, res, True, qscale)
+                forms.add(cuda_norm.ln_act.last_vec)
+                if got.stride() != x.stride():
+                    raise AssertionError(f"ln_act {shape}: x's layout not kept")
+                # the plain chain's layout follows x and the residual together
+                ref = cuda_norm.ln_act_plain(x, gamma, beta, 1e-5, res, True, qscale)
+                ln_compare(got, ref.contiguous(memory_format=fmt), _ln_scale(x, gamma, beta, res))
+                checked += 1
+    if forms != {True, False}:
+        raise AssertionError(f"the ragged cases took the forms {forms}, not both")
+    torch.cuda.synchronize()
+    print(f"21a ln_act against ln_act_plain, {checked} cases (every served shape of B0 at 128 "
+          f"and B7 at 64 RoIs, bf16 and float32, residual, int8, ragged forms): worst bf16 "
+          f"{worst['bf16_ulps']:.3g} ulps of the largest term ({worst['bf16_share']:.2e} of "
+          f"values differ), int8 {worst['int8_codes']:.0f} codes ({worst['int8_share']:.2e}), "
+          f"float32 {worst['f32_rel']:.3g}, statistics {worst['stats_rel']:.3g} of float64 "
+          f"[{card}]")
+    return worst
+
+
+def time_ln_kernel(card: str) -> list:
+    """(b) the kernel pair's device time at the largest served shapes against
+    its byte bound and the plain chain, in its three served uses: norm ->
+    ReLU (ConvNormAct), norm -> + residual -> ReLU (ResidualBlock's norm2),
+    norm -> ReLU -> int8 (norm1). Returns chip_smoke's kernel entries."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.ops import cuda_norm
+
+    dev = torch.device("cuda")
+    rows = []
+    for n, shape in [(64, (256, 128, 96)), (64, (128, 256, 192))]:
+        x, res, gamma, beta = _ln_operands(n, shape, torch.bfloat16, dev, seed=3)
+        e = x.numel()
+        for use, r, q in [("relu", None, None), ("residual", res, None), ("int8", None, 4.0 / 127)]:
+            out_bytes = e if q is not None else 2 * e
+            nbytes = 2 * e + out_bytes + (2 * e if r is not None else 0)  # each byte once
+            two_pass = nbytes + 2 * e  # the statistics' read of x besides
+            kern = median_ms(lambda: cuda_norm.ln_act(x, gamma, beta, 1e-5, r, True, q),
+                             calls=10)
+            plain = median_ms(lambda: cuda_norm.ln_act_plain(x, gamma, beta, 1e-5, r, True, q),
+                              reps=5, calls=3)
+            split = device_ms_by_kernel(lambda: cuda_norm.ln_act(x, gamma, beta, 1e-5, r, True,
+                                                                 q))
+            b = bound(nbytes, 10 * e, "f32")
+            rows.append({"name": "ln_act", "shape": f"{n}x{'x'.join(map(str, shape))}",
+                         "use": use, "ms": kern, "plain_ms": plain, **b,
+                         "two_pass_ms": two_pass / HBM_BYTES_PER_S * 1e3,
+                         "device_ms": {k: round(v, 4) for k, v in split.items()}})
+            print(f"21b ln_act {n} x {shape} {use}: {kern:.4f} ms (stats + apply "
+                  f"{', '.join(f'{k} {v:.4f}' for k, v in split.items())}), bound "
+                  f"{b['bound_ms']:.4f} ms by bytes ({b['bound_ms'] / kern:.1%}; two-pass "
+                  f"floor {two_pass / HBM_BYTES_PER_S * 1e3:.4f}), plain chain {plain:.4f} ms "
+                  f"({plain / kern:.1f}x) [{card}]")
+        del x, res
+        torch.cuda.empty_cache()
+    return rows
+
+
+def served_ln_forwards(card: str, rng) -> dict:
+    """(c) each cell's flagship served once (bf16, int8, fused head) at its
+    request shape: ln_act calls a forward (B0 52, the fused unit taking the
+    five bottleneck units; B7 57), every call held against ln_act_plain on
+    that forward's own operands, and forward device time with the kernel
+    route against the plain chain (the route switched off), alternating.
+    Returns the calls a forward by configuration."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.inference import (InferenceEngine, create_flagship,
+                                                                 pad_rois, roi_bucket)
+    from human_instance_segmentation_tpu_torch.ops import cuda_norm
+
+    per_forward = {}
+    for cfg, (variant, roi, mask, b, nrois, want) in LN_SERVED.items():
+        model = create_flagship(variant=variant, roi_size=roi, mask_size=mask,
+                                image_size=IMAGE_HW, seed=0, device="cuda", mid_channels=256,
+                                use_contour_detection=True, use_distance_transform=True,
+                                pallas_roi_align=True, pallas_tail=True, encoder_fused_blocks=6)
+        engine = InferenceEngine(model, dilation_pixels=1, dtype=torch.bfloat16, fused_head=True,
+                                 quantize="int8")
+        del model
+        images, rois = make_request(rng, b, nrois, IMAGE_HW)
+        engine(images, rois)  # calibrates, then serves
+        real = cuda_norm.ln_act
+        seen = {"calls": 0, "int8": 0, "residual": 0, "worst_bf16": 0.0, "worst_int8": 0.0}
+
+        def checked(x, weight, bias, eps=1e-5, residual=None, relu=True, qscale=None, **kw):
+            y = real(x, weight, bias, eps, residual, relu, qscale, **kw)
+            ref = cuda_norm.ln_act_plain(x, weight, bias, eps, residual, relu, qscale)
+            o = ln_compare(y, ref, _ln_scale(x, weight, bias, residual))
+            seen["calls"] += 1
+            seen["int8"] += qscale is not None
+            seen["residual"] += residual is not None
+            key = "worst_int8" if qscale is not None else "worst_bf16"
+            seen[key] = max(seen[key], o["worst"])
+            return y
+
+        checked.launches = 0  # the wrapper counts under its module name, patched here
+        cuda_norm.ln_act = checked
+        try:
+            engine(images, rois)
+        finally:
+            cuda_norm.ln_act = real
+        torch.cuda.synchronize()
+        launched = checked.launches
+        if seen["calls"] != want or launched != want:
+            raise AssertionError(f"{cfg}: {seen['calls']} ln_act calls a forward, not {want}")
+        bucket = roi_bucket(nrois, max_bucket=engine.max_bucket)
+        images_t = torch.as_tensor(images).to("cuda", torch.bfloat16)
+        rois_t = torch.as_tensor(pad_rois(rois, bucket)).to("cuda")
+        counts = []
+        times = {"kernel": [], "plain": []}
+        for turn in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+            cuda_norm._KERNEL_DEVICE = "cuda" if turn == "kernel" else "no device"
+            c0 = real.launches
+            times[turn].append(median_ms(lambda: engine.forward(images_t, rois_t), reps=3,
+                                         warmup=1))
+            if turn == "kernel":
+                counts.append((real.launches - c0) / 4)
+        cuda_norm._KERNEL_DEVICE = "cuda"
+        per_forward[cfg] = want
+        print(f"21c {cfg} served ({b} images, {nrois} RoIs, bucket {bucket}): {seen['calls']} "
+              f"ln_act calls a forward ({seen['int8']} int8 out, {seen['residual']} with a "
+              f"residual; launches counted {launched} in the checked forward, "
+              f"{counts} a timed one), each held to ln_act_plain on its operands (worst bf16 "
+              f"{seen['worst_bf16']:.3g} ulps, int8 {seen['worst_int8']:.0f} codes); forward ms "
+              f"kernel {[round(t, 2) for t in times['kernel']]} against plain chain "
+              f"{[round(t, 2) for t in times['plain']]} [{card}]")
+        del engine, images_t, rois_t
+        torch.cuda.empty_cache()
+    return per_forward
+
+
+def layernorm_chains(card: str, rng) -> list:
+    """Phase 21: the LayerNorm2d kernel pair (``ops/cuda_norm.ln_act``)."""
+    worst = check_ln_kernel(card)
+    rows = time_ln_kernel(card)
+    PER_FORWARD["ln_act"] = served_ln_forwards(card, rng)
+    entry = dict(rows[-1])  # the largest served shape, norm -> ReLU -> int8
+    entry.update({"max_abs_err": worst, "timings": rows})
+    return [entry]
+
+
 def main() -> None:
     import torch
 
@@ -5409,7 +5736,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 21))
+    phases = set(range(1, 22))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -5532,6 +5859,12 @@ def main() -> None:
         torch.cuda.empty_cache()
         data_parallel(card)
         took("20")
+
+    if 21 in phases:
+        torch.cuda.empty_cache()
+        kernels += layernorm_chains(card, rng)
+        launches["ln_act"] = sum(PER_FORWARD["ln_act"].values())
+        took("21")
 
     for k in kernels:
         if k["name"] == "conv_ln_act" and A8_PER_FORWARD:

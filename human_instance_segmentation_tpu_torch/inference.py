@@ -123,7 +123,9 @@ class InferenceEngine:
     stage-1 tail (a model built with ``pallas_tail=True``) and the fused
     encoder blocks (``encoder_fused_blocks``) with their plain PyTorch
     versions on any device: the plain path of the same graph that a GPU run
-    holds the kernels against. ``pallas_tail`` with int8 ends stage 1 in the
+    holds the kernels against. The LayerNorm2d chains of stage 2 take their
+    kernel pair (``ops/cuda_norm``) on the card either way, in both paths
+    alike. ``pallas_tail`` with int8 ends stage 1 in the
     s8 fused tail once calibration has recorded its three scales, and in the
     float tail until then.
 

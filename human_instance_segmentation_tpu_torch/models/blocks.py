@@ -9,7 +9,10 @@ leaf.
 (``ops/cuda_head.py``) under the JAX package's gate: eval mode, the
 ``fused_head`` flag on (set by the inference engine through
 :func:`set_head_fusion`; JAX's thread-local ``head_fusion()`` context),
-LayerNorm2d + ReLU, and a tiny-spatial high-channel shape.
+LayerNorm2d + ReLU, and a tiny-spatial high-channel shape. Outside it
+their norm, residual add, activation and the int8 quantize between a
+ResidualBlock's convs run through :func:`..ops.cuda_norm.norm_act` (the
+LayerNorm2d kernel pair when serving on CUDA).
 
 Their convs are :class:`..ops.quant.QConv`. Under int8 serving (set by
 :func:`..ops.quant.set_int8_serving`) the JAX package's two rules hold: an
@@ -20,12 +23,15 @@ the producer-side quantization point (blocks.py:40).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import cuda_head
 from ..ops.activations import get_activation
+from ..ops.cuda_norm import norm_act
 from ..ops.norms import get_normalization
 from ..ops.quant import MIN_INT8_CONTRACTION, QConv
 from ..ops.s2d import quantize_static
@@ -42,18 +48,22 @@ def _hwio(conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
 _NO_FUSE = object()
 
 
+def producer_scale(conv: QConv, channels: int, k: int = 3) -> Optional[float]:
+    """The calibrated scale at which a producer quantizes a ``channels``-wide
+    map for its single consumer ``conv`` (the producer-side quantize of
+    blocks.py:40), or None whenever the consumer would not run int8:
+    serving off, denied, a contraction below 48 or no calibrated scale."""
+    if not conv.serving or conv.denied or k * k * channels < MIN_INT8_CONTRACTION:
+        return None
+    return conv.static_scale
+
+
 def prequantize_for(conv: QConv, x: torch.Tensor, k: int = 3) -> torch.Tensor:
-    """Quantize x to int8 for its single consumer ``conv`` with that conv's
-    calibrated scale (the producer-side quantize of blocks.py:40). Returns x
-    unchanged whenever the consumer would not run int8: serving off, x
-    already int8, denied, a contraction below 48 or no calibrated scale."""
-    if not conv.serving or x.dtype == torch.int8:
-        return x
-    if conv.denied or k * k * x.shape[1] < MIN_INT8_CONTRACTION:
-        return x
-    if conv.static_scale is None:
-        return x
-    return quantize_static(x, conv.static_scale)
+    """Quantize x to int8 for its single consumer ``conv`` at
+    :func:`producer_scale`; x unchanged where that is None or x is already
+    int8."""
+    scale = None if x.dtype == torch.int8 else producer_scale(conv, x.shape[1], k)
+    return x if scale is None else quantize_static(x, scale)
 
 
 def _fused_xscale(conv: QConv, x: torch.Tensor, k: int):
@@ -140,7 +150,7 @@ class ConvNormAct(_Fusable):
                 y = self._conv_ln_act(_nhwc(x), self.conv, self.norm, height=h, width=w,
                                       kernel=k, xscale=xs)
                 return y.permute(0, 3, 1, 2)
-        return self.act(self.norm(self.conv(x)))
+        return norm_act(self.conv(x), self.norm, self.act)
 
 
 class ResidualBlock(_Fusable):
@@ -168,10 +178,10 @@ class ResidualBlock(_Fusable):
                 y = self._conv_ln_act(y, self.conv2, self.norm2, residual=xh, height=h, width=w,
                                       xscale=xs2)
                 return y.permute(0, 3, 1, 2)
-        h = self.act(self.norm1(self.conv1(x)))
         # single-use internal boundary: int8 flows into conv2 (serving)
-        h = self.norm2(self.conv2(prequantize_for(self.conv2, h)))
-        return self.act(h + x)
+        h = norm_act(self.conv1(x), self.norm1, self.act,
+                     qscale=producer_scale(self.conv2, self.features))
+        return norm_act(self.conv2(h), self.norm2, self.act, residual=x)
 
 
 class Dropout2d(nn.Module):

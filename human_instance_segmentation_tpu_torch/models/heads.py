@@ -20,7 +20,9 @@ The 1x1/3x3 convs the JAX package builds as ``QConv`` are
 :class:`..ops.quant.QConv` here too (its plain ``nn.Conv`` are
 ``nn.Conv2d``), and the producer-side int8 quantization points
 (``prequantize_for``) sit where the JAX heads put them (heads.py:96, :107,
-:117, :123, :230-233).
+:117, :123, :230-233). Each bare norm -> activation runs through
+:func:`..ops.cuda_norm.norm_act` (the LayerNorm2d kernel pair when serving
+on CUDA).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from torch import nn
 from .. import tracing
 from ..ops.activations import get_activation
 from ..ops.attention import ChannelAttention, SpatialAttention
+from ..ops.cuda_norm import norm_act
 from ..ops.norms import get_normalization
 from ..ops.quant import QConv
 from ..ops.sampling import resize_bilinear
@@ -220,7 +223,7 @@ class HierarchicalHeadV2(nn.Module):
         shared = self.shared_res1(self.shared_drop1(self.shared_res0(shared)))
 
         bg_fg_low = self.bg_vs_fg_unet(shared)
-        up = act(self.upsample_norm(self.upsample_deconv(bg_fg_low)))
+        up = norm_act(self.upsample_deconv(bg_fg_low), self.upsample_norm, act)
         bg_fg_logits = _resize_to(self.upsample_out(up), mh, mw)
 
         g = self.gate_drop(act(self.gate0(bg_fg_low)))
@@ -230,7 +233,7 @@ class HierarchicalHeadV2(nn.Module):
         t = self.tnt_res0(shared * fg_attention)
         if self.tnt_satt is not None:
             t = self.tnt_satt(t)
-        t = act(self.tnt_norm(self.tnt_deconv(self.tnt_drop0(t))))
+        t = norm_act(self.tnt_deconv(self.tnt_drop0(t)), self.tnt_norm, act)
         if self.tnt_catt is not None:
             t = self.tnt_catt(t)
         t = self.tnt_res1(self.tnt_drop1(t))
@@ -281,12 +284,12 @@ class HierarchicalHeadV1(nn.Module):
         mh, mw = self.mask_size
         shared = self.shared_res1(self.shared_res0(self.shared_in(features)))
         bg_fg_low = self.bg_vs_fg_unet(shared)
-        up = act(self.upsample_norm(self.upsample_deconv(bg_fg_low)))
+        up = norm_act(self.upsample_deconv(bg_fg_low), self.upsample_norm, act)
         bg_fg_logits = _resize_to(self.upsample_out(up), mh, mw)
         g = act(self.gate1(act(self.gate0(bg_fg_low))))
         fg_attention = torch.sigmoid(self.gate2(g))
         t = self.tnt_res0(shared * fg_attention)
-        t = act(self.tnt_norm(self.tnt_deconv(t)))
+        t = norm_act(self.tnt_deconv(t), self.tnt_norm, act)
         tnt_logits = _resize_to(self.tnt_out(self.tnt_res1(t)), mh, mw)
         aux = {"bg_fg_logits": bg_fg_logits, "bg_fg_logits_low": bg_fg_low,
                "target_nontarget_logits": tnt_logits, "fg_attention": fg_attention}
@@ -328,11 +331,11 @@ class HierarchicalHeadV3(nn.Module):
         mh, mw = self.mask_size
         shared = self.shared_res1(self.shared_res0(self.shared_in(features)))
         bg_fg_low = self.bg_vs_fg_unet(shared)
-        up = act(self.up_bgfg_norm(self.up_bgfg_deconv(bg_fg_low)))
+        up = norm_act(self.up_bgfg_deconv(bg_fg_low), self.up_bgfg_norm, act)
         bg_fg_logits = _resize_to(self.up_bgfg_out(up), mh, mw)
         fg_attention = torch.sigmoid(self.fg_gate1(act(self.fg_gate0(bg_fg_low))))
         tnt_low = self.target_nontarget_unet(shared * fg_attention)
-        upt = act(self.up_tnt_norm(self.up_tnt_deconv(tnt_low)))
+        upt = norm_act(self.up_tnt_deconv(tnt_low), self.up_tnt_norm, act)
         tnt_logits = _resize_to(self.up_tnt_out(upt), mh, mw)
         target_attention = torch.sigmoid(self.target_gate1(act(self.target_gate0(tnt_low))))
         final = _combine(bg_fg_logits, tnt_logits, _resize_to(target_attention, mh, mw))
@@ -405,7 +408,7 @@ class HierarchicalHeadV4(nn.Module):
     def _branch(self, name: str, shared: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         mh, mw = self.mask_size
         low = getattr(self, f"{name}_unet")(shared)
-        u = self.act(getattr(self, f"{name}_norm")(getattr(self, f"{name}_deconv")(low)))
+        u = norm_act(getattr(self, f"{name}_deconv")(low), getattr(self, f"{name}_norm"), self.act)
         out = getattr(self, f"{name}_out")(getattr(self, f"{name}_res")(u))
         return low, _resize_to(out, mh, mw)
 
@@ -478,8 +481,8 @@ class BoundaryRefinement(nn.Module):
         emin, emax = edges.amin(), edges.amax()
         edges = torch.where(emax - emin < 1e-6, torch.zeros_like(edges),
                             (edges - emin) / (emax - emin + 1e-6))
-        h = self.act(self.edge_norm0(self.edge0(mask_logits)))
-        h = self.act(self.edge_norm1(self.edge1(h)))
+        h = norm_act(self.edge0(mask_logits), self.edge_norm0, self.act)
+        h = norm_act(self.edge1(h), self.edge_norm1, self.act)
         return mask_logits + self.blend_weight * self.edge_out(h) * edges
 
 
@@ -509,7 +512,7 @@ class ProgressiveUpsamplingDecoder(nn.Module):
         x = features
         for i in range(2):
             x = getattr(self, f"stage{i}_deconv")(x)
-            x = self.act(getattr(self, f"stage{i}_norm")(x))
+            x = norm_act(x, getattr(self, f"stage{i}_norm"), self.act)
             x = getattr(self, f"stage{i}_res")(x)
         return _resize_to(self.proj(x), target_hw[0], target_hw[1])
 

@@ -111,6 +111,12 @@ SIGNATURES = {
     # 2w), B, h, w, Ci, Cip, Cp, stream
     "tail_border_f32_launch": [_P, _L, _L, _L, _L, _I, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _P],
+    # x, residual or null and its element strides (N, C, H, W), 1 when they are x's, gamma,
+    # beta, out, partial (N, P, 4) f32, stats (N, 2) f32 or null, N, C, H, W, channels_last,
+    # P, values a block, form (0 channels-last vectors, 1 scalar), dtype
+    # (0 f32, 1 bf16), int8 out, eps, relu, float32(1 / scale), stream
+    "ln_act_launch": [_P, _P, _L, _L, _L, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _L, _I, _I, _I, _F, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

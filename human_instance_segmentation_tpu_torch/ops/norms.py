@@ -78,13 +78,22 @@ def running_stat_modules(model: nn.Module):
     return [m for m in model.modules() if isinstance(m, (BatchNorm2d, AdaptiveInstanceNorm2d))]
 
 
-class LayerNorm2d(nn.Module):
-    """LayerNorm over (C, H, W) jointly per sample, per-channel affine.
+def layer_norm_2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over (C, H, W) jointly per sample of NCHW x, per-channel
+    affine: statistics in float32 with the biased variance, the normalised
+    map cast back to x's dtype before the affine, as the JAX module does."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * weight[:, None, None] + bias[:, None, None]
 
-    Statistics in float32 with the biased variance and eps 1e-5; the
-    normalised map is cast back to the input dtype before the affine, as
-    the JAX module does.
-    """
+
+class LayerNorm2d(nn.Module):
+    """LayerNorm over (C, H, W) jointly per sample, per-channel affine
+    (:func:`layer_norm_2d`, eps 1e-5). Served chains of it run through
+    :func:`.cuda_norm.norm_act`."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -93,11 +102,7 @@ class LayerNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
-        y = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
-        return y * self.weight[:, None, None] + self.bias[:, None, None]
+        return layer_norm_2d(x, self.weight, self.bias, self.eps)
 
 
 class BatchNorm2d(nn.Module):

@@ -46,11 +46,13 @@ _NULL = contextlib.nullcontext()
 
 def launch_counts() -> Dict[str, int]:
     """The always-on counters of the kernel entry points, by family."""
-    from .ops import cuda_head, cuda_kernels, cuda_mbconv, cuda_roi_align, cuda_tail, quant
+    from .ops import (cuda_head, cuda_kernels, cuda_mbconv, cuda_norm, cuda_roi_align, cuda_tail,
+                      quant)
 
     fns = (quant.qconv2d, quant.s8_matmul, cuda_head.conv_ln_act, cuda_head.conv_ln_act_s8,
            cuda_tail.tail, cuda_tail.tail_q, cuda_mbconv.mbconv_sums, cuda_mbconv.mbconv_apply,
-           cuda_roi_align.roi_align, cuda_kernels.bilateral_filter, cuda_kernels.edge_smooth)
+           cuda_roi_align.roi_align, cuda_kernels.bilateral_filter, cuda_kernels.edge_smooth,
+           cuda_norm.ln_act)
     out = {f"launches.{f.__name__}": f.launches for f in fns}
     out["int8_calls"] = quant.QConv.int8_calls
     out["operand_builds"] = quant.QConv.operand_builds

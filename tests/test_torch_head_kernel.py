@@ -254,9 +254,9 @@ def test_library_name_tracks_sources(monkeypatch, tmp_path):
     assert _build.library_path() != first
     assert {p.name for p in _build._sources()} == {"k.cu"}
     real = {p.name for p in (_build.PACKAGE_DIR / "csrc").glob("*.cu")}
-    assert real == {"bilateral.cu", "conv_ln_act.cu", "mbconv.cu", "postprocess.cu", "qconv.cu",
-                    "roi_align.cu", "s8_narrow.cu", "s8_wide.cu", "s8_wide_1wg.cu", "tail.cu",
-                    "tail_q.cu"}
+    assert real == {"bilateral.cu", "conv_ln_act.cu", "layernorm_act.cu", "mbconv.cu",
+                    "postprocess.cu", "qconv.cu", "roi_align.cu", "s8_narrow.cu", "s8_wide.cu",
+                    "s8_wide_1wg.cu", "tail.cu", "tail_q.cu"}
     header = tmp_path / "k.cuh"  # a changed header builds anew too
     header.write_text("// one\n")
     with_header = _build.library_path()
