@@ -209,7 +209,22 @@ package beside the script; it imports nothing of JAX. Phases:
     chain; (c) each benchmark cell's flagship served once with every
     ``ln_act`` call of the forward held against the plain chain on its own
     operands (52 calls a B0 forward, 57 a B7 one), and forwards with the
-    route on and off in turns.
+    route on and off in turns;
+22. the B1 enhanced head (:func:`b1_enhanced_head`): (a) the fused unit
+    ``conv_ln_act`` at the seven shapes of the depth-4, 1024-channel
+    EnhancedUNet at RoI 80 x 60 (``B1_UNIT_CALLS``: 20 x 15 and 10 x 7
+    pixels, Ci and Co 256 to 1024, K up to 9216), 32 RoIs, in bf16 and in
+    its int8 form, each held against ``conv_ln_act_plain`` within
+    ``TOL_CONV`` and timed (one call and ten in a row, operands prepared
+    once, device time by kernel) against its bound; (b) the B1 enhanced
+    flagship (the benchmark's ``b1_enhanced_480x640_int8``) served at 8
+    images x 31 RoIs with the fused head: in bf16 every ``conv_ln_act``
+    call of a forward held against its plain version and counted by shape
+    (``B1_UNIT_CALLS``: the seven shapes, 20 a forward); in int8 every
+    ``conv_ln_act_s8`` call likewise (``B1_UNIT_CALLS_INT8``: 17, the three
+    ConvNormActs behind a pre-quantized boundary on the int8 QConv path),
+    every int8 QConv exact, one ``unet_skip_resizes`` a forward, and forward
+    times.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -1623,13 +1638,15 @@ def check_int8_calls(engine, images, rois) -> dict:
     """Serve one request and hold every s8 kernel call of that forward
     against its plain version on the very inputs the forward gave it:
     qconv2d exactly, conv_ln_act's int8 form within ``TOL_CONV``. Returns
-    {kernel: (calls checked, max abs error)}."""
+    {kernel: (calls checked, max abs error)}, and under ``"s8_shapes"`` the
+    int8 conv_ln_act calls by (H, W, Ci, Co)."""
     import torch
 
     from human_instance_segmentation_tpu_torch.ops import cuda_head, quant
 
     real_c = cuda_head.conv_ln_act
     seen = {"qconv": [0, 0.0], "conv_ln_act_s8": [0, 0.0]}
+    shapes: dict = {}
 
     def check_qconv(m, args, y):
         x = args[0]
@@ -1660,6 +1677,8 @@ def check_int8_calls(engine, images, rois) -> dict:
                 raise AssertionError(f"conv_ln_act s8 in the forward: {diff.max().item()}")
             seen["conv_ln_act_s8"][0] += 1
             seen["conv_ln_act_s8"][1] = max(seen["conv_ln_act_s8"][1], diff.max().item())
+            key = (args[0].shape[1], args[0].shape[2], args[0].shape[-1], args[1].shape[-1])
+            shapes[key] = shapes.get(key, 0) + 1
         return y
 
     # the wrapper's own launch counter resolves to this name while patched
@@ -1674,7 +1693,7 @@ def check_int8_calls(engine, images, rois) -> dict:
         for hook in hooks:
             hook.remove()
     torch.cuda.synchronize()
-    return {k: tuple(v) for k, v in seen.items()}
+    return {**{k: tuple(v) for k, v in seen.items()}, "s8_shapes": shapes}
 
 
 def serve_int8(mid: int, rng):
@@ -4338,6 +4357,103 @@ class ConvLnActSpy:
             raise AssertionError(f"{tag}: conv_ln_act outside its tolerance at {bad}")
 
 
+class StageKernelSpy:
+    """While active, every call of the fused MBConv (``cuda_mbconv.fused_mbconv``),
+    the crop pair (``cuda_roi_align.roi_align_pair``) and the int8 tail
+    (``cuda_tail.tail_q``) runs the kernel (counted on its wrapper, as
+    without the spy) and is held against its plain version on the same
+    inputs by the rules of phases 3 and 12: the MBConv within
+    ``TOL_MBCONV``, each crop within ``TOL_ROI_F32`` (float32) or one bf16
+    ulp, the tail's interior equal and its border within ``TOL_TAIL``.
+    ``calls[kernel][shape]`` holds the calls and the max abs error."""
+
+    def __init__(self):
+        from human_instance_segmentation_tpu_torch.ops import cuda_mbconv, cuda_roi_align, cuda_tail
+
+        self.sites = {"fused_mbconv": (cuda_mbconv, self._mbconv),
+                      "roi_align_pair": (cuda_roi_align, self._crops),
+                      "tail_q": (cuda_tail, self._tail_q)}
+        self.real = {name: getattr(mod, name) for name, (mod, _) in self.sites.items()}
+        self.calls: dict = {name: {} for name in self.sites}
+
+    def _wrap(self, name):
+        mod, check = self.sites[name]
+        real = self.real[name]
+
+        def call(*args, **kwargs):
+            setattr(mod, name, real)  # a wrapper counts its launches on its own name
+            try:
+                y = real(*args, **kwargs)
+            finally:
+                setattr(mod, name, call)
+            key, err = check(y, *args, **kwargs)
+            rec = self.calls[name].setdefault(key, [0, 0.0])
+            rec[0] += 1
+            rec[1] = max(rec[1], err)
+            return y
+
+        return call
+
+    @staticmethod
+    def _mbconv(y, x, *ops, **kw):
+        from human_instance_segmentation_tpu_torch.ops import cuda_mbconv
+
+        ref = cuda_mbconv.fused_mbconv_plain(x, *ops, **kw)
+        diff = (y.float() - ref.float()).abs()
+        atol, rtol = TOL_MBCONV[str(y.dtype).split(".")[1]]
+        key = (x.shape[1], y.shape[1], x.shape[2], x.shape[3], kw["kernel"], kw["stride"],
+               kw["residual"])
+        if y.shape != ref.shape or not bool((diff <= atol + rtol * ref.float().abs()).all()):
+            raise AssertionError(f"fused_mbconv {key} in the forward: {diff.max().item()}")
+        return key, diff.max().item()
+
+    @staticmethod
+    def _crops(y, first, second, rois, oh, ow, **kw):
+        import torch
+
+        from human_instance_segmentation_tpu_torch.ops import cuda_roi_align
+
+        err = 0.0
+        for got, m in zip(y, (first, second)):
+            ref = cuda_roi_align.roi_align_plain(m, rois, oh, ow, **kw)
+            diff = (got.float() - ref.float()).abs()
+            ok = (bool((diff <= TOL_ROI_F32).all()) if got.dtype == torch.float32
+                  else bool((diff <= 1e-6 + ROI_BF16_RTOL * ref.float().abs()).all()))
+            if got.shape != ref.shape or not ok:
+                raise AssertionError(f"roi_align_pair {tuple(m.shape)} -> {oh}x{ow} in the "
+                                     f"forward: {diff.max().item()}")
+            err = max(err, diff.max().item())
+        return (oh, ow, first.shape[-1], second.shape[-1], str(first.dtype)), err
+
+    @staticmethod
+    def _tail_q(y, x, *ops, **kw):
+        from human_instance_segmentation_tpu_torch.ops import cuda_tail
+
+        ref = cuda_tail.tail_q_plain(x, *ops, **{k: v for k, v in kw.items() if k != "packed"})
+        diff = (y.float() - ref.float()).abs()
+        bd = cuda_tail.BORDER
+        inner = diff[:, bd:-bd, bd:-bd]
+        atol, rtol = TOL_TAIL[str(y.dtype).split(".")[1]]
+        key = (*x.shape, str(x.dtype))
+        if (y.shape != ref.shape or (inner.numel() and inner.max().item() != 0.0)
+                or not bool((diff <= atol + rtol * ref.float().abs()).all())):
+            raise AssertionError(f"tail_q {key} in the forward: interior "
+                                 f"{inner.max().item()}, border {diff.max().item()}")
+        return key, diff.max().item()
+
+    def __enter__(self):
+        for name, (mod, _) in self.sites.items():
+            setattr(mod, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, _) in self.sites.items():
+            setattr(mod, name, self.real[name])
+
+    def counts(self) -> dict:
+        return {name: sum(r[0] for r in by.values()) for name, by in self.calls.items()}
+
+
 def serve_a8_family(card: str, rng, name: str, cfg) -> int:
     """Phase 19a/b: one family built by ``model_from_config`` from ``cfg``
     served through ``InferenceEngine`` at batch 8 x 8 ROIs a image: the
@@ -5382,7 +5498,8 @@ def data_parallel(card: str) -> None:
 
 # LayerNorm2d chains (phase 21): the (C, H, W) of every LayerNorm2d a served
 # forward normalises, by configuration, with the RoI bucket the benchmark's
-# cells serve (b0.batch32.coco: 124 RoIs -> 128; b7.crowdhuman2: 45 -> 64)
+# cells serve (b0.batch32.coco: 124 RoIs -> 128; b7.crowdhuman2: 45 -> 64;
+# b1.batch8.coco: 31 -> 32)
 LN_SHAPES = {
     "b0": (128, [(32, 128, 96), (48, 64, 48), (64, 64, 48), (96, 32, 24), (96, 64, 48),
                  (128, 64, 48), (128, 128, 96), (192, 16, 12), (192, 32, 24), (256, 64, 48),
@@ -5390,11 +5507,16 @@ LN_SHAPES = {
     "b7": (64, [(32, 256, 192), (48, 128, 96), (64, 128, 96), (96, 64, 48), (96, 128, 96),
                 (128, 128, 96), (128, 256, 192), (192, 32, 24), (192, 64, 48), (256, 128, 96),
                 (384, 32, 24)]),
+    "b1": (32, [(32, 160, 120), (64, 80, 60), (128, 40, 30), (128, 80, 60), (128, 160, 120),
+                (256, 20, 15), (256, 40, 30), (256, 80, 60), (512, 10, 7), (512, 20, 15),
+                (1024, 10, 7)]),
 }
-# The flagships the two cells serve (port_bench/configs), by configuration:
-# (variant, RoI, mask, images and RoIs a request, ln_act calls a forward)
-LN_SERVED = {"b0": ("b0", (64, 48), (128, 96), 32, 124, 52),
-             "b7": ("b7", (128, 96), (256, 192), 2, 45, 57)}
+# The flagships the three cells serve, by configuration: (the configuration
+# file under port_bench/configs, images and RoIs a request, ln_act calls a
+# forward)
+LN_SERVED = {"b0": ("b0_480x640_int8", 32, 124, 52),
+             "b7": ("b7_ultra_480x640_int8", 2, 45, 57),
+             "b1": ("b1_enhanced_480x640_int8", 8, 31, 50)}
 # ln_act against ln_act_plain. Their statistics differ only in the order of
 # the float32 sums, so a normalised value rounds differently only where it
 # lies within ~1e-7 of a rounding boundary; one such flip moves the output
@@ -5410,6 +5532,19 @@ LN_BF16_ULPS = 2
 LN_MAX_SHARE = 1e-3
 LN_F32_RTOL = 1e-5
 LN_STATS_RTOL = 1e-6
+
+
+def served_flagship(config: str):
+    """The flagship a benchmark configuration serves, built on the card from
+    the model keywords of ``port_bench/configs/<config>.json`` with seeded
+    weights (seed 0)."""
+    from human_instance_segmentation_tpu_torch.inference import create_flagship
+
+    kw = dict(json.loads((ROOT / "port_bench" / "configs" / f"{config}.json").read_text())["model"])
+    variant = kw.pop("encoder_variant")
+    for key in ("roi_size", "mask_size", "image_size"):
+        kw[key] = tuple(kw[key])
+    return create_flagship(variant=variant, seed=0, device="cuda", **kw)
 
 
 def _ln_operands(n, shape, dtype, dev, seed, channels_last=True):
@@ -5563,8 +5698,8 @@ def check_ln_kernel(card: str) -> dict:
     if forms != {True, False}:
         raise AssertionError(f"the ragged cases took the forms {forms}, not both")
     torch.cuda.synchronize()
-    print(f"21a ln_act against ln_act_plain, {checked} cases (every served shape of B0 at 128 "
-          f"and B7 at 64 RoIs, bf16 and float32, residual, int8, ragged forms): worst bf16 "
+    print(f"21a ln_act against ln_act_plain, {checked} cases (every served shape of B0 at 128, "
+          f"B7 at 64 and B1 at 32 RoIs, bf16 and float32, residual, int8, ragged forms): worst bf16 "
           f"{worst['bf16_ulps']:.3g} ulps of the largest term ({worst['bf16_share']:.2e} of "
           f"values differ), int8 {worst['int8_codes']:.0f} codes ({worst['int8_share']:.2e}), "
           f"float32 {worst['f32_rel']:.3g}, statistics {worst['stats_rel']:.3g} of float64 "
@@ -5614,22 +5749,21 @@ def time_ln_kernel(card: str) -> list:
 def served_ln_forwards(card: str, rng) -> dict:
     """(c) each cell's flagship served once (bf16, int8, fused head) at its
     request shape: ln_act calls a forward (B0 52, the fused unit taking the
-    five bottleneck units; B7 57), every call held against ln_act_plain on
+    five bottleneck units; B7 57; B1 50, among them the int8 outputs at
+    20 x 15 x 512 and 10 x 7 x 1024 that feed the three pre-quantized
+    ConvNormActs), every call held against ln_act_plain on
     that forward's own operands, and forward device time with the kernel
     route against the plain chain (the route switched off), alternating.
     Returns the calls a forward by configuration."""
     import torch
 
-    from human_instance_segmentation_tpu_torch.inference import (InferenceEngine, create_flagship,
-                                                                 pad_rois, roi_bucket)
+    from human_instance_segmentation_tpu_torch.inference import (InferenceEngine, pad_rois,
+                                                                 roi_bucket)
     from human_instance_segmentation_tpu_torch.ops import cuda_norm
 
     per_forward = {}
-    for cfg, (variant, roi, mask, b, nrois, want) in LN_SERVED.items():
-        model = create_flagship(variant=variant, roi_size=roi, mask_size=mask,
-                                image_size=IMAGE_HW, seed=0, device="cuda", mid_channels=256,
-                                use_contour_detection=True, use_distance_transform=True,
-                                pallas_roi_align=True, pallas_tail=True, encoder_fused_blocks=6)
+    for cfg, (config, b, nrois, want) in LN_SERVED.items():
+        model = served_flagship(config)
         engine = InferenceEngine(model, dilation_pixels=1, dtype=torch.bfloat16, fused_head=True,
                                  quantize="int8")
         del model
@@ -5695,6 +5829,187 @@ def layernorm_chains(card: str, rng) -> list:
     return [entry]
 
 
+# the fused unit's shapes in the B1 enhanced head (base 128, depth 4, RoI
+# 80 x 60: levels 80 x 60, 40 x 30, 20 x 15 and 10 x 7), (H, W, Ci, Co),
+# with the calls a forward makes at each (a ResidualBlock two, with the
+# residual on the second; a ConvNormAct one). In int8 serving the three
+# ConvNormActs whose input their producer quantized (enc2_out, enc3_out,
+# dec0_in) take the int8 QConv path instead, by the fused gate's rule for a
+# pre-quantized boundary (the JAX package's models/blocks.py:29).
+B1_UNIT_CALLS = {(20, 15, 256, 256): 4, (20, 15, 256, 512): 1, (20, 15, 512, 512): 4,
+                 (20, 15, 1024, 512): 1, (10, 7, 512, 512): 4, (10, 7, 512, 1024): 1,
+                 (10, 7, 1024, 1024): 5}
+B1_PREQUANTIZED = {"enc2_out": (20, 15, 256, 512), "enc3_out": (10, 7, 512, 1024),
+                   "dec0_in": (20, 15, 1024, 512)}
+B1_UNIT_CALLS_INT8 = {k: v for k, v in B1_UNIT_CALLS.items()
+                      if k not in B1_PREQUANTIZED.values()}
+B1_CONFIG = "b1_enhanced_480x640_int8"
+
+
+def b1_unit_shapes(card: str, rng, n: int = 32) -> list:
+    """(a) conv_ln_act at the shapes of ``B1_UNIT_CALLS``, k = 3, n RoIs, bf16 activations,
+    bf16 and int8 forms (the residual where Ci == Co, as a ResidualBlock's
+    second conv): each against ``conv_ln_act_plain`` within ``TOL_CONV``,
+    timed with its operands prepared once against its bound (x, residual,
+    output and weights once; the conv's operations at the peak of its
+    type). Returns a row a shape and form."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch.ops import cuda_head
+
+    dev = torch.device("cuda")
+    rows = []
+    for h, w, ci, co in B1_UNIT_CALLS:
+        x = torch.tensor(rng.standard_normal((n, h, w, ci)), dtype=torch.bfloat16, device=dev)
+        wt = torch.tensor(rng.standard_normal((3, 3, ci, co)) / (9 * ci) ** 0.5,
+                          dtype=torch.bfloat16, device=dev)
+        b = torch.tensor(rng.standard_normal(co) * 0.1, dtype=torch.float32, device=dev)
+        g = torch.tensor(1 + rng.standard_normal(co) * 0.2, dtype=torch.float32, device=dev)
+        be = torch.tensor(rng.standard_normal(co) * 0.1, dtype=torch.float32, device=dev)
+        r = (torch.tensor(rng.standard_normal((n, h, w, co)), dtype=torch.bfloat16, device=dev)
+             if ci == co else None)
+        xs = float(x.float().abs().max()) / 127.0 * 0.9
+        px = n * h * w
+        for kind in ("bf16", "int8"):
+            q = xs if kind == "int8" else None
+            ops = (cuda_head.prepare_s8(wt, xs, b, g, be) if q is not None
+                   else cuda_head.prepare_bf16(wt, b, g, be))
+
+            def fused():
+                return cuda_head.conv_ln_act(x, wt, b, g, be, r, height=h, width=w, xscale=q,
+                                             prepared=ops)
+
+            got = fused()
+            torch.cuda.synchronize()
+            ref = cuda_head.conv_ln_act_plain(x, wt, b, g, be, r, xscale=q)
+            diff = (got.float() - ref.float()).abs()
+            err = diff.max().item()
+            atol, rtol = TOL_CONV["bfloat16"]
+            if not (bool((diff <= atol + rtol * ref.float().abs()).all())
+                    and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"22a conv_ln_act {kind} {(n, h, w, ci)}->{co}: {err}")
+            kms = median_ms(fused)
+            kms10 = median_ms(fused, calls=10)
+            split = device_ms_by_kernel(fused)
+            nbytes = (2 * px * ci + 2 * px * co * (2 if r is not None else 1)
+                      + 9 * ci * co * (1 if q is not None else 2) + 3 * co * 4)
+            bd = bound(nbytes, 2 * 9 * ci * co * px + 10 * px * co, kind)
+            rows.append({"shape": f"{n}x{h}x{w}x{ci}->{co}", "kind": kind, "max_abs_err": err,
+                         "ms": kms, "ms_10": kms10, **bd,
+                         "device_ms": {k_: round(v, 4) for k_, v in split.items()}})
+            print(f"22a conv_ln_act {kind} {n}x{h}x{w}x{ci}->{co} k=3 residual={r is not None}: "
+                  f"max_abs_err={err:.3e} (TOL_CONV); {kms:.4f} ms one call, {kms10:.4f} ten in "
+                  f"a row, device {sum(split.values()):.4f} "
+                  f"{ {k_: round(v, 4) for k_, v in split.items()} }; bound "
+                  f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} ({bd['bound_ms'] / kms10:.1%} "
+                  f"of ten in a row) [{card}]")
+            del ops, got, ref, diff
+        del x, wt, r
+        torch.cuda.empty_cache()
+    return rows
+
+
+def b1_served(card: str, rng, batch: int = 8, nrois: int = 31) -> dict:
+    """(b) the B1 enhanced flagship (``port_bench/configs/b1_enhanced_480x640_int8.json``)
+    served with the fused head in bf16 activations: without quantization
+    every conv_ln_act call of a forward held against its plain version and
+    counted by shape (all seven shapes, 20 calls); in int8 (the benchmark
+    configuration's switches) every conv_ln_act_s8 call held against its
+    plain version and counted by shape (17 calls: four shapes), the three
+    pre-quantized ConvNormActs' QConvs fed int8, every int8 QConv exact
+    (:func:`check_int8_calls`), and the same forward's six fused MBConv
+    blocks, its crop pair at 80 x 60 and its int8 tail each held against
+    their plain versions (:class:`StageKernelSpy`; the ln_act calls are phase
+    21c's); then the spans' ``unet_skip_resizes`` and launch counters of a
+    request, and forward times. Returns the launches a forward by kernel
+    family (int8)."""
+    import torch
+
+    from human_instance_segmentation_tpu_torch import tracing
+    from human_instance_segmentation_tpu_torch.inference import (InferenceEngine, pad_rois,
+                                                                 roi_bucket)
+
+    model = served_flagship(B1_CONFIG)
+    images, rois = make_request(rng, batch, nrois, IMAGE_HW)
+    bf16 = InferenceEngine(model, dilation_pixels=1, dtype=torch.bfloat16, fused_head=True)
+    with ConvLnActSpy() as spy:
+        bf16(images, rois)
+    spy.report("22b B1 bf16")
+    by_shape = {(*map(int, hw.split("x")), ci, co): r["calls"]
+                for (ci, co, hw, _, _), r in spy.shapes.items()}
+    if by_shape != B1_UNIT_CALLS:
+        raise AssertionError(f"22b B1 bf16: fused unit calls by shape {by_shape}, want "
+                             f"{B1_UNIT_CALLS}")
+    del bf16
+    engine = InferenceEngine(model, dilation_pixels=1, dtype=torch.bfloat16, fused_head=True,
+                             quantize="int8")
+    del model
+    engine(images, rois)  # calibrates, then serves
+    fed: dict = {}
+    unet = engine.model.head.base_head.bg_vs_fg_unet
+    hooks = [getattr(unet, name).conv.register_forward_pre_hook(
+        lambda m, args, name=name: fed.__setitem__(name, (args[0].dtype, tuple(args[0].shape))))
+        for name in B1_PREQUANTIZED]
+    try:
+        with StageKernelSpy() as stage:
+            calls = check_int8_calls(engine, images, rois)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    shapes = calls["s8_shapes"]
+    if (shapes != B1_UNIT_CALLS_INT8
+            or calls["conv_ln_act_s8"][0] != sum(B1_UNIT_CALLS_INT8.values())
+            or any(dt != torch.int8 for dt, _ in fed.values()) or len(fed) != 3):
+        raise AssertionError(f"22b B1 int8: fused unit calls by shape {shapes}, checked "
+                             f"{calls['conv_ln_act_s8']}, want {B1_UNIT_CALLS_INT8}; "
+                             f"pre-quantized inputs {fed}")
+    fused_blocks = engine.model.pretrained_unet.encoder.fused_blocks
+    want = {"fused_mbconv": fused_blocks, "roi_align_pair": 1, "tail_q": 1}
+    if stage.counts() != want:
+        raise AssertionError(f"22b B1 int8: stage kernel calls {stage.calls}, want {want}")
+    for name, by in stage.calls.items():
+        for key, (n, err) in by.items():
+            print(f"  22b B1 int8 {name} {key}: {n} calls, max_abs_err vs its plain version "
+                  f"{err:.3e}")
+    with tracing.recording() as records:
+        engine(images, rois)
+    counters = records[0]["counters"]
+    if counters.get("unet_skip_resizes") != 1:
+        raise AssertionError(f"22b B1: unet_skip_resizes {counters.get('unet_skip_resizes')}")
+    bucket = roi_bucket(nrois, max_bucket=engine.max_bucket)
+    images_t = torch.as_tensor(images).to("cuda", torch.bfloat16)
+    rois_t = torch.as_tensor(pad_rois(rois, bucket)).to("cuda")
+    fwd = [median_ms(lambda: engine.forward(images_t, rois_t), reps=5, warmup=1)
+           for _ in range(3)]
+    launches = {k.split(".", 1)[1]: v for k, v in counters.items()
+                if k.startswith("launches.") and v}
+    print(f"22b B1 enhanced served int8 ({batch} images, {nrois} RoIs, bucket {bucket}): fused "
+          f"unit calls by (H, W, Ci, Co) {shapes}, each within TOL_CONV of its plain version "
+          f"(worst {calls['conv_ln_act_s8'][1]:.3e}); the pre-quantized ConvNormActs' QConvs "
+          f"fed {fed}; {calls['qconv'][0]} int8 QConv calls exact; stage kernel calls "
+          f"{stage.counts()}, each held to its plain version; a request's counters: "
+          f"unet_skip_resizes {counters['unet_skip_resizes']}, launches {launches}, int8_calls "
+          f"{counters['int8_calls']}; forward ms {[round(t, 2) for t in fwd]} (median of 5, "
+          f"CUDA events) [{card}]")
+    del engine, images_t, rois_t
+    torch.cuda.empty_cache()
+    return launches
+
+
+def b1_enhanced_head(card: str, rng) -> list:
+    """Phase 22: the fused unit at the B1 enhanced head's shapes, alone and
+    served."""
+    rows = b1_unit_shapes(card, rng)
+    PER_FORWARD["conv_ln_act_b1"] = {"b1_enhanced": b1_served(card, rng)["conv_ln_act_s8"]}
+    worst = max(rows, key=lambda row: row["ms_10"] / row["bound_ms"])
+    return [{"name": "conv_ln_act_b1", "route": "cuda",
+             "source": "human_instance_segmentation_tpu_torch/csrc/conv_ln_act.cu",
+             "replaces": "human_instance_segmentation_tpu/ops/pallas_head.py:243",
+             "max_abs_err": max(row["max_abs_err"] for row in rows), "ms": worst["ms_10"],
+             "bound_ms": worst["bound_ms"], "plain_ms": None, "library_ms": None,
+             "timings": rows}]
+
+
 def main() -> None:
     import torch
 
@@ -5736,7 +6051,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 22))
+    phases = set(range(1, 23))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -5865,6 +6180,12 @@ def main() -> None:
         kernels += layernorm_chains(card, rng)
         launches["ln_act"] = sum(PER_FORWARD["ln_act"].values())
         took("21")
+
+    if 22 in phases:
+        torch.cuda.empty_cache()
+        kernels += b1_enhanced_head(card, rng)
+        launches["conv_ln_act_b1"] = PER_FORWARD["conv_ln_act_b1"]["b1_enhanced"]
+        took("22")
 
     for k in kernels:
         if k["name"] == "conv_ln_act" and A8_PER_FORWARD:

@@ -113,7 +113,10 @@ class EnhancedUNet(nn.Module):
         x = self.bott_conv(x) * a
         for d, i in enumerate(range(self.depth - 1, 0, -1)):
             skip = skips[i - 1]
-            x = _resize_to(getattr(self, f"up{d}")(x), skip.shape[2], skip.shape[3])
+            x = getattr(self, f"up{d}")(x)
+            if x.shape[2:] != skip.shape[2:]:  # an odd size pooled down (15 -> 7 -> 14)
+                tracing.count("unet_skip_resizes")
+            x = _resize_to(x, skip.shape[2], skip.shape[3])
             x = torch.cat([x, skip], dim=1)
             cna = getattr(self, f"dec{d}_in")
             x = self._run(cna(prequantize_for(cna.conv, x)), f"dec{d}_res0", f"dec{d}_res1")
@@ -222,7 +225,8 @@ class HierarchicalHeadV2(nn.Module):
         shared = self.shared_drop0(self.shared_in(features))
         shared = self.shared_res1(self.shared_drop1(self.shared_res0(shared)))
 
-        bg_fg_low = self.bg_vs_fg_unet(shared)
+        with tracing.span("model.head.bgfg_unet"):
+            bg_fg_low = self.bg_vs_fg_unet(shared)
         up = norm_act(self.upsample_deconv(bg_fg_low), self.upsample_norm, act)
         bg_fg_logits = _resize_to(self.upsample_out(up), mh, mw)
 

@@ -20,12 +20,14 @@ from human_instance_segmentation_tpu_torch.ops import quant
 TINY = dict(roi_size=(16, 12), mask_size=(32, 24), image_size=(64, 96), mid_channels=32)
 ENGINE_SPANS = ["engine.call", "engine.pad", "engine.upload", "engine.forward",
                 "engine.switches", "model.stage1", "model.crops", "model.stage2",
-                "model.head.unread", "engine.outputs", "engine.download"]
+                "model.head.bgfg_unet", "model.head.unread", "engine.outputs",
+                "engine.download"]
 PARENTS = {"engine.pad": "engine.call", "engine.upload": "engine.call",
            "engine.forward": "engine.call", "engine.download": "engine.call",
            "engine.switches": "engine.forward", "model.stage1": "engine.forward",
            "model.crops": "engine.forward", "model.stage2": "engine.forward",
-           "engine.outputs": "engine.forward", "model.head.unread": "model.stage2"}
+           "engine.outputs": "engine.forward", "model.head.unread": "model.stage2",
+           "model.head.bgfg_unet": "model.stage2"}
 
 
 def _request(n_rois: int, seed: int = 0):
@@ -96,7 +98,8 @@ def test_on_spans_nest_in_one_request_and_reach_the_profiler(traced):
     records = traced["records"]
     assert _names(records) == ENGINE_SPANS * 2 + ["engine.call"]
     first = records[0]["request"]
-    assert [r["request"] for r in records] == [first] * 11 + [first + 1] * 11 + [first + 2]
+    n = len(ENGINE_SPANS)
+    assert [r["request"] for r in records] == [first] * n + [first + 1] * n + [first + 2]
     for r in records:
         name = r["name"][len(tracing.PREFIX):]
         if name == "engine.call":
@@ -109,6 +112,39 @@ def test_on_spans_nest_in_one_request_and_reach_the_profiler(traced):
     host = [e for e in traced["events"] if e.name.startswith(tracing.PREFIX)]
     assert sorted(e.name for e in host) == sorted(r["name"] for r in records)
     assert all(e.is_user_annotation for e in host)
+
+
+def test_bgfg_unet_span_once_a_call_inside_stage2(traced):
+    """``model.head.bgfg_unet`` (the head's EnhancedUNet) is recorded once a
+    served call, inside that call's ``model.stage2``."""
+    records = traced["records"]
+    calls = [i for i, r in enumerate(records) if r["name"] == tracing.PREFIX + "engine.call"]
+    unets = [r for r in records if r["name"] == tracing.PREFIX + "model.head.bgfg_unet"]
+    assert len(unets) == 2 and len(calls) == 3  # two served calls and a bare span
+    for r in unets:
+        parent = records[r["parent"]]
+        assert parent["name"] == tracing.PREFIX + "model.stage2"
+        assert parent["start_ns"] <= r["start_ns"] <= r["end_ns"] <= parent["end_ns"]
+    assert sorted(r["request"] for r in unets) == [records[i]["request"] for i in calls[:2]]
+
+
+@pytest.mark.parametrize("roi,depth,resizes", [((80, 60), 4, 1), ((64, 48), 3, 0)],
+                         ids=["b1_enhanced_80x60", "b0_64x48"])
+def test_unet_skip_resizes_counts_odd_sizes(roi, depth, resizes):
+    """``unet_skip_resizes`` counts the EnhancedUNet's up-steps resized to
+    their skips: at B1's RoI 80 x 60 and depth 4 the pooled width 15 floors
+    to 7 and the first up-step (20 x 14) is resized to 20 x 15, once a
+    forward; at B0's 64 x 48 and depth 3 no size is odd."""
+    from human_instance_segmentation_tpu_torch.models.heads import EnhancedUNet
+
+    unet = EnhancedUNet(8, base_channels=4, depth=depth).eval()
+    x = torch.randn(1, 8, *roi, generator=torch.Generator().manual_seed(0))
+    with tracing.recording() as records, torch.no_grad():
+        for _ in range(2):
+            with tracing.span("engine.call"):
+                out = unet(x)
+    assert tuple(out.shape) == (1, 2, *roi)
+    assert [r["counters"].get("unet_skip_resizes", 0) for r in records] == [resizes] * 2
 
 
 def test_self_time_is_duration_less_children(traced):
