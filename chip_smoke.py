@@ -244,6 +244,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -1622,7 +1623,8 @@ def check_int8_kernels(card: str, rng) -> list:
 def int8_engine(mid: int, dtype, kernels: bool, scales=None):
     """The B0 flagship served with ``quantize="int8", fused_head=True``: the
     kernel path, or (``kernels=False``) the same graph computed by the
-    plain versions (plain fused unit and s8 conv, plain crops)."""
+    plain versions (plain fused unit, s8 conv and LayerNorm2d chains, plain
+    crops)."""
     from human_instance_segmentation_tpu_torch.inference import InferenceEngine, create_flagship
 
     model = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
@@ -1791,9 +1793,7 @@ def time_int8(served_bf16, served_int8, card: str, rng) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from human_instance_segmentation_tpu_torch.inference import pad_rois
-    from human_instance_segmentation_tpu_torch.models.blocks import set_head_fusion
     from human_instance_segmentation_tpu_torch.ops import cuda_head, quant
-    from human_instance_segmentation_tpu_torch.ops.quant import set_int8_serving
 
     batch = 32
     images, rois = make_request(rng, batch, batch)
@@ -1803,17 +1803,14 @@ def time_int8(served_bf16, served_int8, card: str, rng) -> None:
     served_int8.calibrate(images, rois)
     crops = {}
     for name, e in engines.items():
-        e.forward(images_t, rois_t)  # sets the engine's serving switches on its model
+        e.forward(images_t, rois_t)
         with torch.inference_mode():
             _, aux = e.model(images_t, rois_t)
         crops[name] = (aux["roi_patches"], aux["roi_bg_fg"])
 
     def stage2(name):
-        e = engines[name]
-        set_head_fusion(e.model, e.fused_head, e.kernels)
-        set_int8_serving(e.model, e.quantize == "int8", e.scales, e.int8_deny, e.kernels)
         with torch.inference_mode():
-            return e.model.stage2(*crops[name])
+            return engines[name].model.stage2(*crops[name])
 
     fwd = {"bf16": [], "int8": []}
     st2 = {"bf16": [], "int8": []}
@@ -1974,9 +1971,10 @@ def binary_mask_mode(card: str, rng) -> dict:
     ``edge_smooth_binary_mask`` -> 1 px dilation, and on the same
     probability map the exact ``bilateral_filter(k=7, 1.5, 0.2)``.
 
-    Held against the same pipeline on the plain versions (the tail's plain
-    version, ``use_kernel=False`` on the two filters) twice: stage by stage
-    on the served run's own tensors (edge smoothing equal, bilateral within
+    Held against the same pipeline on the plain versions (inside
+    ``ops._build.plain()``: the tail's and the two filters' plain twins)
+    twice: stage by stage on the served run's own tensors (edge smoothing
+    equal, bilateral within
     ``TOL_BILATERAL``), and end to end, where the tail's rounding differences
     move a probability across a threshold for a few pixels (mask agreement
     >= 0.999). Returns the launch counts of the served bf16 run."""
@@ -1985,7 +1983,7 @@ def binary_mask_mode(card: str, rng) -> dict:
 
     from human_instance_segmentation_tpu_torch.inference import create_flagship
     from human_instance_segmentation_tpu_torch.models import postprocess as pp
-    from human_instance_segmentation_tpu_torch.ops import cuda_kernels, cuda_tail
+    from human_instance_segmentation_tpu_torch.ops import _build, cuda_kernels, cuda_tail
     from human_instance_segmentation_tpu_torch.ops.morphology import dilate
 
     batch = 32
@@ -1996,10 +1994,10 @@ def binary_mask_mode(card: str, rng) -> dict:
     def pipeline(unet, x, kernels: bool):
         if not unet.pallas_tail:
             raise AssertionError("binary mode must end stage 1 in the fused tail")
-        out = pp.binary_mode(unet, x, use_kernel=kernels, kernel_size=7, num_iterations=2,
-                             dilation_pixels=1)
-        with torch.inference_mode():
-            out["exact"] = pp.bilateral_filter(out["prob"], 7, 1.5, 0.2, use_kernel=kernels)
+        with contextlib.nullcontext() if kernels else _build.plain():
+            out = pp.binary_mode(unet, x, kernel_size=7, num_iterations=2, dilation_pixels=1)
+            with torch.inference_mode():
+                out["exact"] = pp.bilateral_filter(out["prob"], 7, 1.5, 0.2)
         return out
 
     launches = {}
@@ -2035,9 +2033,10 @@ def binary_mask_mode(card: str, rng) -> dict:
         if not torch.isfinite(served["exact"]).all():
             raise AssertionError("non-finite bilateral output")
         # stage by stage, on the served run's own tensors
-        edged_plain = pp.edge_smooth_binary_mask(served["smoothed"], use_kernel=False)
+        with _build.plain():
+            edged_plain = pp.edge_smooth_binary_mask(served["smoothed"])
+            exact_plain = pp.bilateral_filter(served["prob"], 7, 1.5, 0.2)
         ndiff = int((edged_plain != served["edged"]).sum())
-        exact_plain = pp.bilateral_filter(served["prob"], 7, 1.5, 0.2, use_kernel=False)
         berr = (exact_plain - served["exact"]).abs().max().item()
         # end to end on the plain versions
         plain = pipeline(unet, x, False)
@@ -2062,7 +2061,6 @@ def binary_mask_mode(card: str, rng) -> dict:
                       f"{batch / med * 1e3:.1f} img/s, mask and exact bilateral (per-round "
                       f"medians {ms}, {TIMING_REPS // 2} batches each, CUDA events) [{card}]")
             xn, prob, sm = x.permute(0, 3, 1, 2), served["prob"], served["smoothed"]
-            unet.tail_use_kernel = True
             with torch.inference_mode():
                 stages = {
                     "UNet with the tail": median_ms(lambda: unet(xn, raw=True)),
@@ -2468,19 +2466,16 @@ def train_entry_point(card: str, rng) -> dict:
 
 def _train_models():
     """The flagship at mid 256 with the two stage-1 kernels, and the same
-    weights with both switches off and ``kernels=False``."""
+    weights with both switches off."""
     import torch
 
     from human_instance_segmentation_tpu_torch.inference import create_flagship
 
     def build(kernels: bool):
-        m = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW, image_size=IMAGE_HW,
-                            mid_channels=256, seed=0, pallas_roi_align=False,
-                            pallas_tail=kernels, encoder_fused_blocks=6 if kernels else 0)
-        if not kernels:
-            m.pretrained_unet.tail_use_kernel = False
-            m.pretrained_unet.encoder.set_fused_kernels(False)
-        return m
+        return create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                               image_size=IMAGE_HW, mid_channels=256, seed=0,
+                               pallas_roi_align=False, pallas_tail=kernels,
+                               encoder_fused_blocks=6 if kernels else 0)
 
     mk, mp = build(True), build(False)
     a, b = mk.state_dict(), mp.state_dict()
@@ -2528,7 +2523,7 @@ def _loss_and_grads(model, loss_cfg, batch, dtype: str, delta=None):
 def train_step_kernels(card: str, rng) -> None:
     """Phase 14 (b): ``make_train_step`` on the flagship at mid 256 with
     ``pallas_tail=True, encoder_fused_blocks=6`` against the same weights and
-    batch with both switches off (``kernels=False``), TF32 off. Launches per
+    batch with both switches off, TF32 off. Launches per
     step asserted (6 ``mbconv_sums``, 6 ``mbconv_apply``, 1 ``tail``); in
     float32 the stage-1 logits within ``TOL_STAGE1_F32`` and the loss and
     stage-2 gradients within twice the effect of a stage-1 error at that
@@ -3901,7 +3896,8 @@ def distillation_run(card: str, teacher_kernels: dict) -> dict:
 
 def _distill_models(teacher_kernels: dict):
     """The B0 student and the B7 teacher at the config's widths, and the same
-    teacher weights without the kernel flags (``kernels=False`` too)."""
+    teacher weights without the kernel flags (no fused tail, no fused
+    blocks: its forward reaches no hand kernel)."""
     import torch
 
     from human_instance_segmentation_tpu_torch.training.distill import build_student_teacher
@@ -3910,8 +3906,6 @@ def _distill_models(teacher_kernels: dict):
     student, teacher = build_student_teacher("b0", "b7", device="cuda", decoder_channels=DECODER,
                                              teacher_overrides=teacher_kernels)
     _, plain = build_student_teacher("tiny", "b7", device="cuda", decoder_channels=DECODER)
-    plain.tail_use_kernel = False
-    plain.encoder.set_fused_kernels(False)
     a, b = teacher.state_dict(), plain.state_dict()
     if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
         raise AssertionError("the two teachers do not hold the same weights")
@@ -4166,14 +4160,10 @@ def hierarchical_distill(card: str, rng) -> dict:
     batches = [next(gen) for _ in range(4)]
 
     def build(mid: int, seed: int, kernels: bool):
-        m = create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
-                            image_size=IMAGE_HW, mid_channels=mid, seed=seed,
-                            pallas_roi_align=kernels, pallas_tail=kernels,
-                            encoder_fused_blocks=6 if kernels else 0)
-        if not kernels:
-            m.pretrained_unet.tail_use_kernel = False
-            m.pretrained_unet.encoder.set_fused_kernels(False)
-        return m
+        return create_flagship(variant="b0", roi_size=ROI_HW, mask_size=MASK_HW,
+                               image_size=IMAGE_HW, mid_channels=mid, seed=seed,
+                               pallas_roi_align=kernels, pallas_tail=kernels,
+                               encoder_fused_blocks=6 if kernels else 0)
 
     runs = {}
     for kernels in (True, False):
@@ -4663,7 +4653,8 @@ def train_multiscale_rgb(card: str) -> None:
 
 def _yolo_models(teacher_kernels: dict):
     """The B0 YOLO student and the B7 teacher with the kernel flags, and the
-    same teacher weights without them (``kernels=False`` too)."""
+    same teacher weights without them (its forward reaches no hand
+    kernel)."""
     import torch
 
     from human_instance_segmentation_tpu_torch.models.yolo_distill import (
@@ -4674,8 +4665,6 @@ def _yolo_models(teacher_kernels: dict):
     kw = dict(device="cuda", decoder_channels=DECODER, student_cls=YOLOFeatureDistillStudent)
     student, teacher = build_student_teacher("b0", "b7", teacher_overrides=teacher_kernels, **kw)
     _, plain = build_student_teacher("tiny", "b7", **kw)
-    plain.tail_use_kernel = False
-    plain.encoder.set_fused_kernels(False)
     a, b = teacher.state_dict(), plain.state_dict()
     if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
         raise AssertionError("the two teachers do not hold the same weights")
@@ -5630,10 +5619,24 @@ def check_ln_kernel(card: str) -> dict:
     residual, x's dtype and int8 out (ReLU; the identity on the small
     shapes), channels-last as served; the statistics against float64; the
     scalar form (NCHW, ragged C, x off 16 bytes) and a residual in another
-    layout, at ragged shapes. Returns the worst readings."""
+    layout, at ragged shapes. In every case, too, the kernels' statistics
+    against ln_stats_plain and their output against their twin (ln_act
+    inside plain()), bit for bit. Returns the worst readings."""
     import torch
 
-    from human_instance_segmentation_tpu_torch.ops import cuda_norm
+    from human_instance_segmentation_tpu_torch.ops import _build, cuda_norm
+
+    def twin_equal(got, x, gamma, beta, r, relu, qscale, stats=None):
+        """The kernels' output (and statistics) against the twin's, exactly."""
+        if stats is not None and not torch.equal(stats, cuda_norm.ln_stats_plain(x, gamma, beta,
+                                                                                 r)):
+            raise AssertionError(f"ln_act {tuple(x.shape)}: statistics differ from "
+                                 "ln_stats_plain")
+        with _build.plain():
+            twin = cuda_norm.ln_act(x, gamma, beta, 1e-5, r, relu, qscale)
+        if not torch.equal(got, twin):
+            raise AssertionError(f"ln_act {tuple(x.shape)} {x.dtype}: output differs from its "
+                                 "twin")
 
     dev = torch.device("cuda")
     worst = {"bf16_ulps": 0.0, "bf16_share": 0.0, "int8_codes": 0.0, "int8_share": 0.0,
@@ -5654,6 +5657,7 @@ def check_ln_kernel(card: str) -> dict:
                     if not cuda_norm.ln_act.last_vec:
                         raise AssertionError(f"{cfg} {shape}: the served layout took the "
                                              "scalar form")
+                    twin_equal(got, x, gamma, beta, r, relu, qscale, stats)
                     ref = cuda_norm.ln_act_plain(x, gamma, beta, 1e-5, r, relu, qscale)
                     o = ln_compare(got, ref, _ln_scale(x, gamma, beta, r))
                     if int8:
@@ -5687,10 +5691,12 @@ def check_ln_kernel(card: str) -> dict:
             fmt = torch.channels_last if cl and not offset else torch.contiguous_format
             for int8 in (False, True):
                 qscale = 4.0 / 127 if int8 else None
-                got = cuda_norm.ln_act(x, gamma, beta, 1e-5, res, True, qscale)
+                stats = torch.empty((3, 2), dtype=torch.float32, device=dev)
+                got = cuda_norm.ln_act(x, gamma, beta, 1e-5, res, True, qscale, stats=stats)
                 forms.add(cuda_norm.ln_act.last_vec)
                 if got.stride() != x.stride():
                     raise AssertionError(f"ln_act {shape}: x's layout not kept")
+                twin_equal(got, x, gamma, beta, res, True, qscale, stats)
                 # the plain chain's layout follows x and the residual together
                 ref = cuda_norm.ln_act_plain(x, gamma, beta, 1e-5, res, True, qscale)
                 ln_compare(got, ref.contiguous(memory_format=fmt), _ln_scale(x, gamma, beta, res))
@@ -5702,8 +5708,9 @@ def check_ln_kernel(card: str) -> dict:
           f"B7 at 64 and B1 at 32 RoIs, bf16 and float32, residual, int8, ragged forms): worst bf16 "
           f"{worst['bf16_ulps']:.3g} ulps of the largest term ({worst['bf16_share']:.2e} of "
           f"values differ), int8 {worst['int8_codes']:.0f} codes ({worst['int8_share']:.2e}), "
-          f"float32 {worst['f32_rel']:.3g}, statistics {worst['stats_rel']:.3g} of float64 "
-          f"[{card}]")
+          f"float32 {worst['f32_rel']:.3g}, statistics {worst['stats_rel']:.3g} of float64; "
+          f"statistics and outputs equal to ln_stats_plain and the twin bit for bit in all "
+          f"{checked} [{card}]")
     return worst
 
 
@@ -5761,6 +5768,11 @@ def served_ln_forwards(card: str, rng) -> dict:
                                                                  roi_bucket)
     from human_instance_segmentation_tpu_torch.ops import cuda_norm
 
+    engages = cuda_norm.engages
+
+    def never(*args):  # the plain chain's turns: norm_act runs the modules' own chain
+        return False
+
     per_forward = {}
     for cfg, (config, b, nrois, want) in LN_SERVED.items():
         model = served_flagship(config)
@@ -5798,14 +5810,16 @@ def served_ln_forwards(card: str, rng) -> dict:
         rois_t = torch.as_tensor(pad_rois(rois, bucket)).to("cuda")
         counts = []
         times = {"kernel": [], "plain": []}
-        for turn in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
-            cuda_norm._KERNEL_DEVICE = "cuda" if turn == "kernel" else "no device"
-            c0 = real.launches
-            times[turn].append(median_ms(lambda: engine.forward(images_t, rois_t), reps=3,
-                                         warmup=1))
-            if turn == "kernel":
-                counts.append((real.launches - c0) / 4)
-        cuda_norm._KERNEL_DEVICE = "cuda"
+        try:
+            for turn in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+                cuda_norm.engages = engages if turn == "kernel" else never
+                c0 = real.launches
+                times[turn].append(median_ms(lambda: engine.forward(images_t, rois_t), reps=3,
+                                             warmup=1))
+                if turn == "kernel":
+                    counts.append((real.launches - c0) / 4)
+        finally:
+            cuda_norm.engages = engages
         per_forward[cfg] = want
         print(f"21c {cfg} served ({b} images, {nrois} RoIs, bucket {bucket}): {seen['calls']} "
               f"ln_act calls a forward ({seen['int8']} int8 out, {seen['residual']} with a "

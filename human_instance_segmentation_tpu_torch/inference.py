@@ -24,6 +24,7 @@ there is no CUDA, and the engine serves on its model's device.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -37,6 +38,7 @@ from .models.assembly import HierarchicalInstanceSegmenter
 from .models.blocks import set_head_fusion
 from .models.postprocess import mask_dilation_logit_boost
 from .models.unet import PeopleSegUNetWrapper
+from .ops._build import plain
 from .ops.quant import calibration, collect_scales, merge_scales, set_int8_serving
 
 DeviceLike = Union[str, torch.device]
@@ -44,11 +46,6 @@ DeviceLike = Union[str, torch.device]
 # Default int8 denylist (inference.py:39): the whole stage-1 encoder stays
 # in the engine's float dtype under int8 serving.
 ENCODER_INT8_DENY = ("encoder/",)
-
-# The device type whose engines move each request through host staging
-# buffers (page-locked where the device is CUDA); tests set it to "cpu" to
-# run that path on a CPU engine, without page-locking.
-_STAGED_DEVICE = "cuda"
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
@@ -114,23 +111,24 @@ class InferenceEngine:
     ``dtype`` (float32 or bfloat16; LayerNorm2d statistics stay float32) on
     ``device`` and in eval mode: the caller's model keeps its dtype, device,
     mode and serving switches, as the JAX engine leaves ``params`` alone.
+    The copy's serving state is set when it changes: at construction, when
+    :attr:`scales` is set, and around :meth:`calibrate`'s forward;
+    :meth:`forward` sets nothing.
     ``fused_head=True`` routes the stage-2 conv + LayerNorm2d + ReLU units
-    that pass the JAX package's gate through the fused CUDA kernel; the flag
-    is set on the copy at every call, as JAX's ``head_fusion()`` context is
-    entered at every trace.
+    that pass the JAX package's gate through the fused CUDA kernel.
 
     ``quantize="int8"`` runs every eligible, not denied :class:`QConv` in
     s8 x s8 -> s32 (``int8_deny`` path substrings stay in ``dtype``; the
     default denies the stage-1 encoder) and the fused units in their int8
     form. Activation scales are calibrated from the first batch served, or
     by :meth:`calibrate`; until then :meth:`forward` uses dynamic scales.
-    ``kernels=False`` computes the fused unit, the int8 convs, the fused
-    stage-1 tail (a model built with ``pallas_tail=True``) and the fused
-    encoder blocks (``encoder_fused_blocks``) with their plain PyTorch
-    versions on any device: the plain path of the same graph that a GPU run
-    holds the kernels against. The LayerNorm2d chains of stage 2 take their
-    kernel pair (``ops/cuda_norm``) on the card either way, in both paths
-    alike. ``pallas_tail`` with int8 ends stage 1 in the
+    ``kernels=False`` runs :meth:`forward` and :meth:`calibrate` inside
+    ``ops._build.plain()``: every hand kernel (the fused unit, the int8
+    convs, the LayerNorm2d pair, the RoIAlign crops, the fused stage-1 tail
+    and the fused encoder blocks) computes its plain PyTorch twin on any
+    device (the LayerNorm2d pair's on the card with the kernels' own
+    statistics), the plain path of the same graph that a GPU run holds the
+    kernels against. ``pallas_tail`` with int8 ends stage 1 in the
     s8 fused tail once calibration has recorded its three scales, and in the
     float tail until then.
 
@@ -151,14 +149,15 @@ class InferenceEngine:
     maximum of the scales over the ranks, so every rank serves the same
     int8 graph.
 
-    On a CUDA device a request crosses PCIe through page-locked host memory:
-    the images are cast into a staging tensor kept for each request shape
-    (and the padded RoIs into one kept for each bucket), sent without
-    blocking, and the outputs come back without blocking into page-locked
-    tensors from PyTorch's caching host allocator, which the returned arrays
-    are views of. Each call's arrays are its own, and their block goes back
-    to the allocator's cache when the caller drops them: a caller that keeps
-    many outputs alive keeps as much page-locked memory.
+    A request's images are cast into a staging tensor kept for each request
+    shape (and the padded RoIs into one kept for each bucket) and sent
+    without blocking; the outputs come back without blocking into new host
+    tensors, which the returned arrays are views of. On a CUDA device both
+    are page-locked, the outputs' from PyTorch's caching host allocator, and
+    the call synchronises the stream before it returns. Each call's arrays
+    are its own, and their block goes back to the allocator's cache when the
+    caller drops them: a caller that keeps many outputs alive keeps as much
+    page-locked memory.
     """
 
     def __init__(
@@ -185,43 +184,75 @@ class InferenceEngine:
         self.dtype = dtype
         self.dilation_pixels = dilation_pixels
         self.max_bucket = max_bucket
-        self.fused_head = fused_head
-        self.quantize = quantize
-        self.int8_deny = tuple(int8_deny)
+        self._fused_head = fused_head
+        self._quantize = quantize
+        self._int8_deny = tuple(int8_deny)
         self.kernels = kernels
         self.mesh = mesh
-        self.scales: Optional[Dict[str, float]] = None
         self._warned: set = set()
         self._staging: Dict[tuple, torch.Tensor] = {}
+        set_head_fusion(self.model, fused_head)
+        self.scales = None
 
-    def _stage1_kernels(self) -> None:
-        unet = getattr(self.model, "pretrained_unet", None)
-        if unet is not None:
-            unet.tail_use_kernel = self.kernels
-            unet.encoder.set_fused_kernels(self.kernels)
+    @property
+    def fused_head(self) -> bool:
+        """Whether the fused stage-2 unit serves (set at construction)."""
+        return self._fused_head
+
+    @property
+    def quantize(self) -> Optional[str]:
+        """The quantize mode, None or ``"int8"`` (set at construction)."""
+        return self._quantize
+
+    @property
+    def int8_deny(self) -> Tuple[str, ...]:
+        """The path substrings that stay in ``dtype`` (set at construction)."""
+        return self._int8_deny
+
+    @property
+    def scales(self) -> Optional[Dict[str, float]]:
+        """The calibrated activation scales (None: dynamic ones). Setting
+        them sets int8 serving on the served copy."""
+        return self._scales
+
+    @scales.setter
+    def scales(self, scales: Optional[Dict[str, float]]) -> None:
+        self._scales = scales
+        set_int8_serving(self.model, self.quantize == "int8", scales, self.int8_deny)
+
+    def _route(self):
+        """The context of the engine's forwards: the hand kernels, or with
+        ``kernels=False`` their plain twins."""
+        return contextlib.nullcontext() if self.kernels else plain()
 
     def calibrate(self, images: np.ndarray, rois: np.ndarray) -> None:
         """Record every eligible QConv's input abs-max on (images, rois),
         served unfused and un-quantized in the engine's dtype (and, for a
         ``pallas_tail`` model, the s8 tail's three points), and fold the
-        scales into int8 serving (pointwise max over calls)."""
+        scales into int8 serving (pointwise max over calls). The head fusion
+        and int8 serving come back on after it, with the merged scales or,
+        where it raises, with the ones it found."""
         with tracing.span("engine.calibrate"):
             bucket = roi_bucket(max(rois.shape[0], 1), max_bucket=self.max_bucket)
             rois_p = torch.as_tensor(pad_rois(np.asarray(rois, np.float32), bucket)).to(
                 self.device)
             images_t = torch.as_tensor(np.asarray(images, np.float32)).to(self.device, self.dtype)
+            merged = self.scales
             set_head_fusion(self.model, False)
             set_int8_serving(self.model, False)
-            self._stage1_kernels()
-            with torch.inference_mode(), calibration(self.model) as calib:
-                self._model_forward(images_t, rois_p)
-            scales = collect_scales(calib)
-            if self.mesh is not None:  # every rank serves the same graph
-                from .parallel.mesh import all_gather_object
+            try:
+                with self._route(), torch.inference_mode(), calibration(self.model) as calib:
+                    self._model_forward(images_t, rois_p)
+                scales = collect_scales(calib)
+                if self.mesh is not None:  # every rank serves the same graph
+                    from .parallel.mesh import all_gather_object
 
-                for other in all_gather_object(scales, self.mesh):
-                    scales = merge_scales(scales, other)
-            self.scales = merge_scales(self.scales, scales) if self.scales else scales
+                    for other in all_gather_object(scales, self.mesh):
+                        scales = merge_scales(scales, other)
+                merged = merge_scales(merged, scales) if merged else scales
+            finally:
+                set_head_fusion(self.model, self.fused_head)
+                self.scales = merged
 
     def _mesh_plan(self, batch: int, bucket: int) -> Tuple[bool, bool]:
         """Whether the images and the ROI bucket shard over the mesh, logging
@@ -276,12 +307,7 @@ class InferenceEngine:
         (instance_masks, binary_masks, logits), the whole request's on every
         rank of a mesh."""
         with tracing.span("engine.forward"):
-            with tracing.span("engine.switches"):
-                set_head_fusion(self.model, self.fused_head, self.kernels)
-                set_int8_serving(self.model, self.quantize == "int8", self.scales,
-                                 self.int8_deny, self.kernels)
-                self._stage1_kernels()
-            with torch.inference_mode():
+            with self._route(), torch.inference_mode():
                 logits, aux, mine = self._model_forward(images.to(self.dtype),
                                                         rois.to(torch.float32))
                 with tracing.span("engine.outputs"):
@@ -326,8 +352,7 @@ class InferenceEngine:
         before)."""
         with tracing.span("engine.call"):
             n = rois.shape[0]
-            staged = self.device.type == _STAGED_DEVICE
-            pin = staged and self.device.type == "cuda"
+            pin = self.device.type == "cuda"
             if self.quantize == "int8" and self.scales is None:
                 self.calibrate(images, rois)
             with tracing.span("engine.pad"):
@@ -336,12 +361,8 @@ class InferenceEngine:
                 images_np = np.asarray(images, np.float32)
             with tracing.span("engine.upload"):
                 kept = len(self._staging)
-                if staged:
-                    images_t = self._upload(images_np, self.dtype, pin)
-                    rois_t = self._upload(rois_p, torch.float32, pin)
-                else:
-                    images_t = torch.as_tensor(images_np).to(self.device, self.dtype)
-                    rois_t = torch.as_tensor(rois_p).to(self.device)
+                images_t = self._upload(images_np, self.dtype, pin)
+                rois_t = self._upload(rois_p, torch.float32, pin)
             h2d = images_t.nbytes + rois_t.nbytes
             tracing.count("images", images_t.shape[0])
             tracing.count("rois", n)
@@ -355,12 +376,11 @@ class InferenceEngine:
                 d2h = inst.nbytes + (0 if binary is None else binary.nbytes)
                 tracing.count("d2h_bytes", d2h)
                 tracing.count("pinned_bytes", h2d + d2h if pin else 0)
-                if staged:
-                    inst = self._download(inst, pin)
-                    binary = None if binary is None else self._download(binary, pin)
-                    if pin:
-                        torch.cuda.current_stream(self.device).synchronize()
-                return inst.cpu().numpy(), None if binary is None else binary.cpu().numpy()
+                inst = self._download(inst, pin)
+                binary = None if binary is None else self._download(binary, pin)
+                if pin:
+                    torch.cuda.current_stream(self.device).synchronize()
+                return inst.numpy(), None if binary is None else binary.numpy()
 
     def warmup(self, batch: int = 1, buckets: Tuple[int, ...] = (1, 2, 4, 8, 16)) -> None:
         """One zero batch through :meth:`forward` for each ROI bucket, on the

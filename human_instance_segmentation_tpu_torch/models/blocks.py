@@ -88,7 +88,6 @@ class _Fusable(nn.Module):
     def __init__(self):
         super().__init__()
         self.fused_head = False
-        self.use_kernel = True  # False: the fused unit's plain version
 
     def _conv_ln_act(self, x: torch.Tensor, conv: QConv, norm: nn.Module, residual=None, *,
                      xscale=None, **kwargs) -> torch.Tensor:
@@ -111,11 +110,8 @@ class _Fusable(nn.Module):
                 "fused", (conv.weight, conv.bias, norm.weight, norm.bias), (x.dtype, xscale),
                 lambda: cuda_head.prepare_s8(w.detach().to(x.dtype), xscale, conv.bias,
                                              norm.weight, norm.bias))
-        args = (x, w, conv.bias, norm.weight, norm.bias, residual)
-        if self.use_kernel:
-            return cuda_head.conv_ln_act(*args, xscale=xscale, prepared=prepared, **kwargs)
-        kwargs.pop("height"), kwargs.pop("width")
-        return cuda_head.conv_ln_act_plain(*args, xscale=xscale, prepared=prepared, **kwargs)
+        return cuda_head.conv_ln_act(x, w, conv.bias, norm.weight, norm.bias, residual,
+                                     xscale=xscale, prepared=prepared, **kwargs)
 
     def _fusable(self, x: torch.Tensor) -> bool:
         if self.training or not self.fused_head or x.dtype == torch.int8:
@@ -242,12 +238,9 @@ def pixel_shuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
     return F.pixel_shuffle(x, factor)
 
 
-def set_head_fusion(module: nn.Module, enabled: bool, kernel: bool = True) -> None:
+def set_head_fusion(module: nn.Module, enabled: bool) -> None:
     """Route every ConvNormAct/ResidualBlock under ``module`` through the
-    fused unit (where its gate allows) or through the unfused chain; with
-    ``kernel`` False the fused unit computes its plain version on any
-    device."""
+    fused unit (where its gate allows) or through the unfused chain."""
     for m in module.modules():
         if isinstance(m, _Fusable):
             m.fused_head = enabled
-            m.use_kernel = kernel

@@ -106,7 +106,7 @@ class MBConv(nn.Module):
     the same function through ``ops/cuda_mbconv.fused_mbconv``: the three BNs
     folded into the convs, the folded weights cast to the activation dtype;
     the hand-written CUDA kernel on a CUDA tensor, its plain version on the
-    CPU or with ``use_kernel = False``. Same parameters by name.
+    CPU or inside ``ops._build.plain()``. Same parameters by name.
     """
 
     def __init__(self, in_channels: int, out_channels: int, expand_ratio: int, kernel: int,
@@ -116,7 +116,6 @@ class MBConv(nn.Module):
         self.kernel = kernel
         self.stride = stride
         self.fused = fused
-        self.use_kernel = True  # False: the fused block's plain version on any device
         self._fold = None
         self.residual = stride == 1 and in_channels == out_channels
         if expand_ratio != 1:
@@ -167,9 +166,8 @@ class MBConv(nn.Module):
         return ops
 
     def _fused(self, x: torch.Tensor) -> torch.Tensor:
-        fn = cuda_mbconv.fused_mbconv if self.use_kernel else cuda_mbconv.fused_mbconv_plain
-        return fn(x, *self._folded(x.dtype), kernel=self.kernel, stride=self.stride,
-                  residual=self.residual)
+        return cuda_mbconv.fused_mbconv(x, *self._folded(x.dtype), kernel=self.kernel,
+                                        stride=self.stride, residual=self.residual)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused and not self.training and self.se is not None:
@@ -213,13 +211,6 @@ class EfficientNetEncoder(nn.Module):
                 ch = out_ch
                 block_idx += 1
             self.stages.append(names)
-
-    def set_fused_kernels(self, use_kernel: bool) -> None:
-        """``False`` routes the fused blocks through their plain version on
-        any device (the path a GPU run holds the kernel against)."""
-        for m in self.modules():
-            if isinstance(m, MBConv):
-                m.use_kernel = use_kernel
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         h = F.silu(self.stem_bn(self.stem_conv(x)))

@@ -6,9 +6,9 @@ on NHWC tensors; channels are processed together.
 
 Two of them have a hand-written kernel (``ops/cuda_kernels.py``):
 :func:`bilateral_filter` and :func:`edge_smooth_binary_mask`. On a CUDA
-tensor they launch it; on a CPU tensor, or with ``use_kernel=False`` on any
-device, they compute the plain version. Everything else is plain PyTorch on
-every device.
+tensor they launch it; on a CPU tensor, or inside ``ops._build.plain()`` on
+any device, they compute the plain version. Everything else is plain
+PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -54,12 +54,11 @@ def _col(k1d):
 
 
 def edge_smooth_binary_mask(mask: torch.Tensor, threshold: float = 0.5,
-                            blur_strength: float = 3.0, use_kernel: bool = True) -> torch.Tensor:
+                            blur_strength: float = 3.0) -> torch.Tensor:
     """Binary-mask edge smoothing: Laplacian edge map -> sigmoid edge weight
     -> blend the 3x3 Gaussian blur in at edges -> re-binarise.
     mask (B, H, W, C) in {0, 1} (float)."""
-    fn = cuda_kernels.edge_smooth if use_kernel else cuda_kernels.edge_smooth_plain
-    return fn(mask, threshold, blur_strength)
+    return cuda_kernels.edge_smooth(mask, threshold, blur_strength)
 
 
 def directional_edge_smooth(mask: torch.Tensor) -> torch.Tensor:
@@ -141,12 +140,11 @@ def _gaussian_kernel_1d(kernel_size: int, sigma: float, device=None) -> torch.Te
 
 
 def bilateral_filter(x: torch.Tensor, kernel_size: int = 5, sigma_spatial: float = 1.0,
-                     sigma_range: float = 0.1, use_kernel: bool = True) -> torch.Tensor:
+                     sigma_range: float = 0.1) -> torch.Tensor:
     """Exact bilateral filter: a sum over the k^2 window offsets with
     reflect padding, Gaussian spatial x Gaussian range weights.
     x (B, H, W, C)."""
-    fn = cuda_kernels.bilateral_filter if use_kernel else cuda_kernels.bilateral_filter_plain
-    return fn(x, kernel_size, sigma_spatial, sigma_range)
+    return cuda_kernels.bilateral_filter(x, kernel_size, sigma_spatial, sigma_range)
 
 
 def fast_bilateral_filter(x: torch.Tensor, kernel_size: int = 5, sigma_spatial: float = 1.0,
@@ -207,8 +205,8 @@ def morphological_bilateral(x: torch.Tensor, kernel_size: int = 5, sigma: float 
     return (closed > 0.5).to(x.dtype)
 
 
-def binary_mode(unet: torch.nn.Module, images: torch.Tensor, use_kernel: bool = True,
-                kernel_size: int = 7, num_iterations: int = 2,
+def binary_mode(unet: torch.nn.Module, images: torch.Tensor, kernel_size: int = 7,
+                num_iterations: int = 2,
                 dilation_pixels: int = 1) -> Dict[str, torch.Tensor]:
     """Binary-mask serving, the JAX bench's pipeline
     (``scripts/bench_baseline_configs.py:106-160``, its plain form; the
@@ -218,22 +216,15 @@ def binary_mode(unet: torch.nn.Module, images: torch.Tensor, use_kernel: bool = 
     (``kernel_size``, ``num_iterations``) -> :func:`edge_smooth_binary_mask`
     -> dilation by ``dilation_pixels``, cast to the images' dtype. Returns
     every stage, each (B, H, W, 1): ``prob``, ``smoothed``, ``edged`` and
-    ``mask``. ``use_kernel=False`` takes the fused tail's and the edge
-    smoothing's plain versions on any device (the UNet's own switch is
-    restored after). Runs without autograd."""
-    was = getattr(unet, "tail_use_kernel", None)
-    if was is not None:
-        unet.tail_use_kernel = use_kernel
-    try:
-        with torch.inference_mode():
-            form, logit = unet(images.permute(0, 3, 1, 2), raw=True)
-            logit = logit[..., None] if form == "dense" else logit.permute(0, 2, 3, 1)
-            prob = torch.sigmoid(logit.float())
-            smoothed = binary_mask_bilateral(prob, kernel_size=kernel_size,
-                                             num_iterations=num_iterations)
-            edged = edge_smooth_binary_mask(smoothed, use_kernel=use_kernel)
-            mask = dilate(edged, dilation_pixels).to(images.dtype)
-    finally:
-        if was is not None:
-            unet.tail_use_kernel = was
+    ``mask``. Inside ``ops._build.plain()`` the fused tail and the edge
+    smoothing take their plain versions on any device. Runs without
+    autograd."""
+    with torch.inference_mode():
+        form, logit = unet(images.permute(0, 3, 1, 2), raw=True)
+        logit = logit[..., None] if form == "dense" else logit.permute(0, 2, 3, 1)
+        prob = torch.sigmoid(logit.float())
+        smoothed = binary_mask_bilateral(prob, kernel_size=kernel_size,
+                                         num_iterations=num_iterations)
+        edged = edge_smooth_binary_mask(smoothed)
+        mask = dilate(edged, dilation_pixels).to(images.dtype)
     return {"prob": prob, "smoothed": smoothed, "edged": edged, "mask": mask}

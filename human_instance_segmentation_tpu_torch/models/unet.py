@@ -86,7 +86,6 @@ class PeopleSegmentationUNet(nn.Module):
         self.classes = classes
         self.upsample_mode = upsample_mode
         self.pallas_tail = pallas_tail
-        self.tail_use_kernel = True  # False: the fused tail's plain version on any device
         # (s_x, s_mid, s_head) of the s8 tail, set by ops.quant.set_int8_serving
         self.tail_scales: Optional[Tuple[float, float, float]] = None
         # {(sub-path, tag): [abs-max, ...]} while ops.quant.calibration records
@@ -171,12 +170,8 @@ class PeopleSegmentationUNet(nn.Module):
                     hwio(self.seg_head), self.seg_head.bias)
         x = h.permute(0, 2, 3, 1)
         if form == "int8":
-            if not self.tail_use_kernel:
-                return cuda_tail.tail_q_plain(x, *operands, *self.tail_scales)
             packed = self._tail_operands(operands, h.dtype, form) if h.is_cuda else None
             return cuda_tail.tail_q(x, *operands, *self.tail_scales, packed=packed)
-        if not self.tail_use_kernel:
-            return cuda_tail.tail_plain(x, *operands)
         if h.is_cuda and h.dtype == torch.bfloat16:
             return cuda_tail.tail(x, *operands, packed=self._tail_operands(operands, h.dtype, form))
         return cuda_tail.tail(x, *operands)

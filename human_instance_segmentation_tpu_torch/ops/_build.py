@@ -11,10 +11,18 @@ raises: there is no fallback.
 
 Nothing is built at import time; the first wrapper that launches a kernel
 calls :func:`library`.
+
+Every entry point that has a plain PyTorch twin asks :func:`takes_kernel`
+whether to launch: a CPU tensor takes the twin, a CUDA tensor the kernel,
+except inside :func:`plain`, where every entry point takes its twin on any
+device (the plain path of the same graph, which a GPU run holds the
+kernels against).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -22,7 +30,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Iterator, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -227,3 +235,32 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().hist_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+_PLAIN = contextvars.ContextVar("plain", default=False)
+
+
+@contextlib.contextmanager
+def plain() -> Iterator[None]:
+    """Inside the block every entry point with a plain twin computes the
+    twin, on any device, and no hand kernel launches. Nested blocks restore
+    the outer value."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
+def takes_kernel(t, name: str) -> bool:
+    """Whether entry point ``name`` launches its kernel on tensor ``t``:
+    False on the CPU and inside :func:`plain`, True on CUDA; any other
+    device raises. Entry points call it through the module
+    (``_build.takes_kernel(...)``, not a name imported from it), so that a
+    test that substitutes it reaches every one."""
+    kind = t.device.type
+    if kind == "cpu" or _PLAIN.get():
+        return False
+    if kind != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {t.device}")
+    return True

@@ -193,8 +193,9 @@ def conv_ln_act(
     Where the kernel reads it (the int8 form, and bf16 at a wgmma shape), w
     is then only checked for its shape and may be any view.
 
-    A CPU tensor takes :func:`conv_ln_act_plain`. A CUDA tensor launches
-    the kernel (:func:`conv_ln_act_s8` for the int8 form) or raises.
+    A CPU tensor (or any inside :func:`._build.plain`) takes
+    :func:`conv_ln_act_plain`. A CUDA tensor launches the kernel
+    (:func:`conv_ln_act_s8` for the int8 form) or raises.
     """
     if xscale is not None and not (math.isfinite(xscale) and xscale > 0):
         raise ValueError(f"xscale must be a positive finite scale, got {xscale}")
@@ -219,11 +220,9 @@ def conv_ln_act(
         raise TypeError("prepared must be prepare_s8's result with xscale, prepare_bf16's "
                         "without")
 
-    if x.device.type == "cpu":
+    if not _build.takes_kernel(x, "conv_ln_act"):
         return conv_ln_act_plain(x, w, b, gamma, beta, residual, kernel=kernel, eps=eps, act=act,
                                  xscale=xscale, prepared=prepared if s8 else None)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"conv_ln_act: no kernel for device {x.device}")
 
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv_ln_act kernel takes float32 or bfloat16, got {x.dtype}")

@@ -13,8 +13,8 @@ width and the alignment allow (:func:`edge_smooth_vec`). Beside each is
 its plain PyTorch version (:func:`bilateral_filter_plain`: k^2 shifted
 multiply-adds, as the JAX package's ``models/postprocess.bilateral_filter``;
 :func:`edge_smooth_plain`: two depthwise 3x3 convs, as its
-``edge_smooth_binary_mask``): the path for CPU tensors and the oracle the
-kernel is held against.
+``edge_smooth_binary_mask``): the path for CPU tensors (and for any inside
+:func:`._build.plain`) and the oracle the kernel is held against.
 ``models/postprocess.py`` exposes both under the JAX package's names.
 """
 
@@ -73,9 +73,7 @@ def _check(x: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name}: expected a floating tensor, got {x.dtype}")
 
 
-def _kernel_device(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {x.device}")
+def _check_planes(x: torch.Tensor, name: str) -> None:
     if x.shape[0] * x.shape[3] > _MAX_PLANES:
         raise ValueError(f"{name}: at most {_MAX_PLANES} planes (B * C) per launch")
 
@@ -117,13 +115,14 @@ def bilateral_rates(kernel_size: int, sigma_spatial: float, sigma_range: float) 
 
 def bilateral_filter(x: torch.Tensor, kernel_size: int = 5, sigma_spatial: float = 1.0,
                      sigma_range: float = 0.1) -> torch.Tensor:
-    """:func:`bilateral_filter_plain`'s function. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (float32 planes, the result
-    cast back to x's dtype) or raises."""
+    """:func:`bilateral_filter_plain`'s function. A CPU tensor (or any inside
+    :func:`._build.plain`) takes the plain version; a CUDA tensor launches
+    the kernel (float32 planes, the result cast back to x's dtype) or
+    raises."""
     _check(x, "bilateral_filter")
-    if x.device.type == "cpu":
+    if not _build.takes_kernel(x, "bilateral_filter"):
         return bilateral_filter_plain(x, kernel_size, sigma_spatial, sigma_range)
-    _kernel_device(x, "bilateral_filter")
+    _check_planes(x, "bilateral_filter")
     a_s, a_r = bilateral_rates(kernel_size, sigma_spatial, sigma_range)
     pad = kernel_size // 2
     if pad >= x.shape[1] or pad >= x.shape[2]:
@@ -166,13 +165,14 @@ def edge_smooth_vec(planes: torch.Tensor, out: torch.Tensor) -> int:
 
 def edge_smooth(mask: torch.Tensor, threshold: float = 0.5,
                 blur_strength: float = 3.0) -> torch.Tensor:
-    """:func:`edge_smooth_plain`'s function. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (its four-column form where
-    :func:`edge_smooth_vec` allows, else its one-column form) or raises."""
+    """:func:`edge_smooth_plain`'s function. A CPU tensor (or any inside
+    :func:`._build.plain`) takes the plain version; a CUDA tensor launches
+    the kernel (its four-column form where :func:`edge_smooth_vec` allows,
+    else its one-column form) or raises."""
     _check(mask, "edge_smooth")
-    if mask.device.type == "cpu":
+    if not _build.takes_kernel(mask, "edge_smooth"):
         return edge_smooth_plain(mask, threshold, blur_strength)
-    _kernel_device(mask, "edge_smooth")
+    _check_planes(mask, "edge_smooth")
     planes = _planes(mask)
     p, h, w = planes.shape
     out = torch.empty_like(planes)

@@ -194,13 +194,12 @@ def _launch(x, we, be, wdw, bdw, se, wp, bp, out, partial, dims, kernel, stride,
 
 def mbconv_sums(x, we, be, wdw, bdw, kernel: int = 3, stride: int = 1) -> torch.Tensor:
     """Pass 1: float32 (B, Cm) sums of ``d`` over the kept grid. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (per-tile sums,
-    added here in a fixed order) or raises."""
+    (or any inside :func:`._build.plain`) takes the plain version; a CUDA
+    tensor launches the kernel (per-tile sums, added here in a fixed order)
+    or raises."""
     ci, cm, _ = _check(x, we, be, wdw, bdw, kernel, stride)
-    if x.device.type == "cpu":
+    if not _build.takes_kernel(x, "mbconv_sums"):
         return mbconv_sums_plain(x, we, be, wdw, bdw, kernel, stride)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"mbconv_sums: no kernel for device {x.device}")
     b, _, h, w = x.shape
     tiles = _build.library().mbconv_tiles_for(h // stride, w // stride, stride, x.element_size())
     partial = torch.empty((b, tiles, cm), dtype=torch.float32, device=x.device)
@@ -216,16 +215,14 @@ mbconv_sums.launches = 0
 def mbconv_apply(x, se, we, be, wdw, bdw, wp, bp, kernel: int = 3, stride: int = 1,
                  residual: bool = False) -> torch.Tensor:
     """Pass 2: ``se`` (B, Cm) in x's dtype -> y (B, Co, H / stride, W / stride).
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
+    A CPU tensor (or any inside :func:`._build.plain`) takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
     ci, cm, co = _check(x, we, be, wdw, bdw, kernel, stride, wp, bp, residual)
     b, _, h, w = x.shape
     if tuple(se.shape) != (b, cm):
         raise ValueError(f"mbconv_apply: se must be ({b}, {cm}), got {tuple(se.shape)}")
-    if x.device.type == "cpu":
+    if not _build.takes_kernel(x, "mbconv_apply"):
         return mbconv_apply_plain(x, se, we, be, wdw, bdw, wp, bp, kernel, stride, residual)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"mbconv_apply: no kernel for device {x.device}")
     fmt = torch.channels_last if x.stride(1) == 1 and ci > 1 else torch.contiguous_format
     out = torch.empty((b, co, h // stride, w // stride), dtype=x.dtype, device=x.device,
                       memory_format=fmt)

@@ -10,8 +10,9 @@ copy; the crops are contiguous NHWC. ``roi_align.launches`` counts the
 kernel's launches from either entry point.
 
 Its plain version is the separable-product :func:`..sampling.roi_align`,
-re-exported here as :data:`roi_align_plain`: the path for CPU tensors and
-the oracle the kernel is held against. Same contract as
+re-exported here as :data:`roi_align_plain`: the path for CPU tensors (and
+for any inside :func:`._build.plain`) and the oracle the kernel is held
+against. Same contract as
 ``ops.sampling.roi_align``; there is no channel limit.
 """
 
@@ -44,8 +45,6 @@ def _launch(maps, rois, output_height: int, output_width: int, spatial_scale: Sc
     """One kernel launch over one or two maps; returns their crops. Kept lean:
     the host's time to reach the launch is most of a served call's time."""
     dev = maps[0].device
-    if dev.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {dev}")
     if rois.device != dev:
         raise ValueError(f"{name}: rois must be on the features' device")
     if rois.dtype != torch.float32 or not rois.is_contiguous():
@@ -92,11 +91,11 @@ def roi_align(
     ``[batch_idx, x1, y1, x2, y2]`` in [0, 1] -> (N, oh, ow, C) in the
     features' dtype.
 
-    A CPU tensor takes :data:`roi_align_plain`. A CUDA tensor launches the
-    kernel or raises.
+    A CPU tensor (or any inside :func:`._build.plain`) takes
+    :data:`roi_align_plain`. A CUDA tensor launches the kernel or raises.
     """
     _check(features, rois)
-    if features.device.type == "cpu":
+    if not _build.takes_kernel(features, "roi_align"):
         return roi_align_plain(features, rois, output_height, output_width,
                                spatial_scale=spatial_scale, aligned=aligned)
     return _launch((features,), rois, output_height, output_width, spatial_scale, aligned,
@@ -117,8 +116,9 @@ def roi_align_pair(
     strides -> (N, oh, ow, C1), (N, oh, ow, C2), contiguous, in the maps'
     dtype.
 
-    CPU tensors take :data:`roi_align_plain` once a map. CUDA tensors
-    launch the kernel once or raise.
+    CPU tensors (or any inside :func:`._build.plain`) take
+    :data:`roi_align_plain` once a map. CUDA tensors launch the kernel once
+    or raise.
     """
     _check(first, rois)
     _check(second, rois)
@@ -126,7 +126,7 @@ def roi_align_pair(
         raise ValueError(f"roi_align_pair: the maps must share batch, height, width and dtype, "
                          f"got {tuple(first.shape)} {first.dtype} and {tuple(second.shape)} "
                          f"{second.dtype}")
-    if first.device.type == "cpu" and second.device.type == "cpu":
+    if not any([_build.takes_kernel(m, "roi_align_pair") for m in (first, second)]):
         return tuple(roi_align_plain(m, rois, output_height, output_width,
                                      spatial_scale=spatial_scale, aligned=aligned).contiguous()
                      for m in (first, second))

@@ -207,15 +207,14 @@ def _f32_operands(k0, bn0, k1, bn1, kh, bh):
 
 def tail(x: torch.Tensor, k0: torch.Tensor, bn0: BatchNormParams, k1: torch.Tensor,
          bn1: BatchNormParams, kh: torch.Tensor, bh: torch.Tensor, packed=None) -> torch.Tensor:
-    """:func:`tail_plain`'s function. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises. ``x`` may have any strides.
+    """:func:`tail_plain`'s function. A CPU tensor (or any inside
+    :func:`._build.plain`) takes the plain version; a CUDA tensor launches
+    the kernel or raises. ``x`` may have any strides.
     ``packed``: :func:`pack_tail_weights`'s result for these weights, made
     earlier (bfloat16 only; built here when None)."""
     ci, c = _check(x, k0, bn0, k1, bn1, kh, bh)
-    if x.device.type == "cpu":
+    if not _build.takes_kernel(x, "tail"):
         return tail_plain(x, k0, bn0, k1, bn1, kh, bh)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"tail: no kernel for device {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"tail kernel takes float32 or bfloat16, got {x.dtype}")
     b, h, w, _ = x.shape
@@ -459,14 +458,13 @@ def tail_q(x: torch.Tensor, k0, bn0, k1, bn1, kh, bh, s_x: float, s_mid: float, 
     bfloat16 with any strides, or int8 already quantized with ``s_x``;
     operands as :func:`tail`; returns (B, 2h, 2w). ``packed`` is
     :func:`pack_tail_weights_q`'s result for these weights and scales and
-    this output dtype, made earlier (built here when None). A CPU tensor
-    takes :func:`tail_q_plain`; a CUDA tensor launches the kernel (and, for a
-    float32 output, the float32 border) or raises."""
+    this output dtype, made earlier (built here when None). A CPU tensor (or
+    any inside :func:`._build.plain`) takes :func:`tail_q_plain`; a CUDA
+    tensor launches the kernel (and, for a float32 output, the float32
+    border) or raises."""
     edge = _check_q(x, k0, bn0, k1, bn1, kh, bh, out_dtype)
-    if x.device.type == "cpu":
+    if not _build.takes_kernel(x, "tail_q"):
         return tail_q_plain(x, k0, bn0, k1, bn1, kh, bh, s_x, s_mid, s_head, out_dtype)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"tail_q: no kernel for device {x.device}")
     b, h, w, ci = x.shape
     c = k0.shape[3]
     cip, cp = -(-ci // 16) * 16, -(-c // 16) * 16

@@ -79,13 +79,18 @@ def running_stat_modules(model: nn.Module):
 
 
 def layer_norm_2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                  eps: float = 1e-5) -> torch.Tensor:
+                  eps: float = 1e-5, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LayerNorm over (C, H, W) jointly per sample of NCHW x, per-channel
     affine: statistics in float32 with the biased variance, the normalised
-    map cast back to x's dtype before the affine, as the JAX module does."""
+    map cast back to x's dtype before the affine, as the JAX module does.
+    ``stats``, (N, 2) float32 means and biased variances, stands for the
+    statistics, which are then not computed."""
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=(1, 2, 3), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+    if stats is None:
+        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+    else:
+        mean, var = (stats[:, i].view(-1, 1, 1, 1) for i in (0, 1))
     y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
     return y * weight[:, None, None] + bias[:, None, None]
 

@@ -23,7 +23,8 @@ reads x through its strides and takes the int8 weights packed K-major
 the bias (:class:`S8Operands`) until a weight or a scale changes, so a
 static-scale int8 forward is the kernel launches and their ``torch.empty``.
 :func:`qconv2d_plain` is the same function in plain PyTorch, the path for CPU
-tensors and the oracle the kernel is held against. Its integer convolution is
+tensors (and for any inside :func:`._build.plain`) and the oracle the kernel
+is held against. Its integer convolution is
 exact: it accumulates in float64, where every partial sum of s8 x s8 products
 is an integer far below 2^53 (float32 is not exact: 9 * 384 * 127^2 > 2^24).
 
@@ -317,17 +318,16 @@ def qconv2d(x: torch.Tensor, w: Optional[torch.Tensor], stride: int = 1, padding
     ``static_scale`` and ``bias``, which are then not read. x may have any
     strides (an NCHW tensor permuted to NHWC comes in without a copy).
 
-    A CPU tensor takes :func:`qconv2d_plain`. A CUDA tensor launches
-    ``csrc/qconv.cu`` (stride 1, square kernel, symmetric padding) or raises.
+    A CPU tensor (or any inside :func:`._build.plain`) takes
+    :func:`qconv2d_plain`. A CUDA tensor launches ``csrc/qconv.cu`` (stride
+    1, square kernel, symmetric padding) or raises.
     """
     ci = prepared.wq.shape[2] if prepared is not None else (w.shape[2] if w.dim() == 4 else -1)
     if x.dim() != 4 or ci != x.shape[3]:
         raise ValueError(f"x (N, H, W, Ci) and w (kh, kw, Ci, Co) disagree: {tuple(x.shape)}, "
                          f"{tuple(prepared.wq.shape if prepared is not None else w.shape)}")
-    if x.device.type == "cpu":
+    if not _build.takes_kernel(x, "qconv2d"):
         return qconv2d_plain(x, w, stride, padding, static_scale, prepared, bias, out_dtype)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"qconv2d: no kernel for device {x.device}")
     if prepared is None and w.shape[0] != w.shape[1]:
         raise ValueError("qconv2d kernel takes stride 1 and a square kernel")
     out_dtype = _out_dtype(x, w, out_dtype)
@@ -339,19 +339,16 @@ qconv2d.launches = 0
 
 
 def qconv2d_nchw(x: torch.Tensor, ops: S8Operands, stride: int = 1, padding: int = 0,
-                 out_dtype: Optional[torch.dtype] = None, kernel: bool = True) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """:func:`qconv2d` for the modules: x (N, Ci, H, W) as it lies in memory
     (channels-last or contiguous, no copy is made), prepared operands; returns
-    (N, Co, Ho, Wo) in channels-last memory. ``kernel`` False computes the
-    plain version on any device."""
+    (N, Co, Ho, Wo) in channels-last memory."""
     out_dtype = _out_dtype(x, None, out_dtype)
-    if x.device.type == "cpu" or not kernel:
-        y = qconv2d_plain(x.permute(0, 2, 3, 1), None, stride, padding, prepared=ops,
-                          out_dtype=out_dtype)
-    elif x.device.type == "cuda":
+    if _build.takes_kernel(x, "qconv2d"):
         y = _qconv_cuda(x, ops, stride, padding, out_dtype)
     else:
-        raise RuntimeError(f"qconv2d: no kernel for device {x.device}")
+        y = qconv2d_plain(x.permute(0, 2, 3, 1), None, stride, padding, prepared=ops,
+                          out_dtype=out_dtype)
     return y.permute(0, 3, 1, 2)
 
 
@@ -372,16 +369,14 @@ def s8_matmul(a: torch.Tensor, b: torch.Tensor,
     """s8 x s8 -> s32 GEMM through the qconv kernel's main loop (a 1x1 conv
     over M pixels, no float epilogue). ``packed`` is ``pack_matmul_b(b)``
     made earlier (a conv packs its weights once; without it b is packed at
-    every call). A CPU tensor takes :func:`s8_matmul_plain`; a CUDA tensor
-    launches the kernel or raises."""
+    every call). A CPU tensor (or any inside :func:`._build.plain`) takes
+    :func:`s8_matmul_plain`; a CUDA tensor launches the kernel or raises."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"need (M, K) and (K, N), got {tuple(a.shape)}, {tuple(b.shape)}")
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError("s8_matmul takes int8 operands")
-    if a.device.type == "cpu":
+    if not _build.takes_kernel(a, "s8_matmul"):
         return s8_matmul_plain(a, b)
-    if a.device.type != "cuda":
-        raise RuntimeError(f"s8_matmul: no kernel for device {a.device}")
     m = a.shape[0]
     out = torch.empty((1, 1, m, b.shape[1]), device=a.device, dtype=torch.int32)
     if packed is None:
@@ -426,7 +421,6 @@ class QConv(nn.Conv2d):
         self.serving = False
         self.denied = False
         self.static_scale: Optional[float] = None
-        self.use_kernel = True
         self.calib_amax: Optional[list] = None
         self._cache: dict = {}  # slot -> (key, tensors kept alive, value); see cached()
 
@@ -488,26 +482,22 @@ class QConv(nn.Conv2d):
                 or self.stride[0] != self.stride[1]:
             raise ValueError("QConv int8 path takes symmetric zero padding and square strides")
         dtype = self.weight.dtype if pre else x.dtype
-        y = qconv2d_nchw(x, self.prepared(dtype), self.stride[0], self.padding[0], dtype,
-                         self.use_kernel)
+        y = qconv2d_nchw(x, self.prepared(dtype), self.stride[0], self.padding[0], dtype)
         QConv.int8_calls += 1
         return y
 
 
 def set_int8_serving(model: nn.Module, enabled: bool, scales: Optional[Dict[str, float]] = None,
-                     deny: Sequence[str] = (), kernel: bool = True) -> None:
+                     deny: Sequence[str] = ()) -> None:
     """Set int8 serving on every QConv under ``model`` (the JAX package's
     ``int8_serving(enabled, scales, deny)`` context): the mode, the deny
-    decision and the calibrated scale, keyed by the module path. ``kernel``
-    False routes the int8 convs through :func:`qconv2d_plain` on any device
-    (the plain int8 path a GPU run is compared against)."""
+    decision and the calibrated scale, keyed by the module path."""
     for name, m in model.named_modules():
         key = name.replace(".", "/")
         if isinstance(m, QConv):
             m.serving = enabled
             m.denied = int8_denied(key, deny)
             m.static_scale = scales.get(key) if scales else None
-            m.use_kernel = kernel
         elif hasattr(m, "set_tail_scales"):  # the UNet: its s8 tail's ``#x``, ``#mid``, ``#head``
             m.set_tail_scales(scales if enabled else None, key)
 

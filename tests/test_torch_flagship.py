@@ -188,8 +188,8 @@ def test_engine_leaves_the_callers_model_alone():
     for key, value in before.items():
         assert after[key].dtype == value.dtype and torch.equal(after[key], value), key
     assert not any(getattr(m, "serving", False) or getattr(m, "fused_head", False)
-                   or getattr(m, "use_kernel", True) is False for m in port.modules())
-    assert port.pretrained_unet.tail_use_kernel and port.pretrained_unet.tail_scales is None
+                   for m in port.modules())
+    assert port.pretrained_unet.tail_scales is None
 
     fresh = create_flagship(variant="tiny", device="cpu", seed=1, pallas_tail=True,
                             encoder_fused_blocks=2, **TINY)

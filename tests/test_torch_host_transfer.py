@@ -3,10 +3,11 @@ each request's images and RoIs cast into a staging tensor kept for their
 shape and sent without blocking, the outputs copied without blocking into
 new host tensors, page-locked on a CUDA device.
 
-On the CPU the staged path is forced (``inference._STAGED_DEVICE`` set to
-"cpu", page-locking off) on the tiny int8 flagship and held bit for bit
-against the direct path, which a CPU engine serves by default. The tests
-marked ``cuda`` skip without a card; run them there with
+Every engine serves through the staging tensors (page-locking only on a
+CUDA device). On the tiny int8 flagship, ``__call__`` is held bit for bit
+against ``forward`` on the same request, its tensors made and read back
+directly. The tests marked ``cuda`` skip without a card; run them there
+with
 
     python -m pytest --noconftest tests/test_torch_host_transfer.py -q
 """
@@ -15,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from human_instance_segmentation_tpu_torch import inference, tracing
-from human_instance_segmentation_tpu_torch.inference import InferenceEngine, create_flagship
+from human_instance_segmentation_tpu_torch import tracing
+from human_instance_segmentation_tpu_torch.inference import (InferenceEngine, create_flagship,
+                                                             pad_rois, roi_bucket)
 
 TINY = dict(roi_size=(16, 12), mask_size=(32, 24), image_size=(64, 96), mid_channels=32)
 FLAGSHIP = dict(variant="tiny", seed=0, pallas_tail=True, encoder_fused_blocks=6,
@@ -40,13 +42,22 @@ def _engine(device: str, dtype: torch.dtype, **model) -> InferenceEngine:
     return eng
 
 
-def _serve(engine, staged_on: str, images, rois, entry="__call__"):
-    """One request with ``_STAGED_DEVICE`` set to ``staged_on``."""
-    old, inference._STAGED_DEVICE = inference._STAGED_DEVICE, staged_on
-    try:
-        return getattr(engine, entry)(images, rois)
-    finally:
-        inference._STAGED_DEVICE = old
+def _direct(engine, images, rois):
+    """The request through ``forward``: its tensors made on the device with
+    ``torch.as_tensor(...).to(...)`` and the outputs read back with
+    ``.cpu()``, no staging tensor and nothing page-locked."""
+    n = rois.shape[0]
+    bucket = roi_bucket(max(n, 1), max_bucket=engine.max_bucket)
+    images_t = torch.as_tensor(np.asarray(images, np.float32)).to(engine.device, engine.dtype)
+    rois_t = torch.as_tensor(pad_rois(np.asarray(rois, np.float32), bucket)).to(engine.device)
+    inst, binary, _ = engine.forward(images_t, rois_t)
+    return inst[:n].float().cpu().numpy(), binary.float().cpu().numpy()
+
+
+def _direct_nchw(engine, images, rois):
+    """:func:`_direct` behind ``predict_nchw``'s transposes."""
+    inst, binary = _direct(engine, np.transpose(images, (0, 2, 3, 1)), rois)
+    return np.transpose(inst, (0, 3, 1, 2)), np.transpose(binary, (0, 3, 1, 2))
 
 
 def _assert_same(got, want):
@@ -73,19 +84,19 @@ def engine(request):
 @pytest.mark.parametrize("n_rois", [3, 4], ids=["n_below_bucket", "n_at_bucket"])
 def test_staged_outputs_equal_the_direct_path(engine, n_rois):
     images, rois = _request(n_rois, seed=n_rois)
-    direct = _serve(engine, "cuda", images, rois)
-    staged = _serve(engine, "cpu", images, rois)
+    direct = _direct(engine, images, rois)
+    staged = engine(images, rois)
     assert staged[0].shape[0] == n_rois and staged[1].shape[0] == 2
     _assert_same(staged, direct)
 
 
 def test_staged_nchw_entry_keeps_the_layout(engine):
     """``predict_nchw`` hands the engine transposed (strided) images: the
-    staging tensor takes their layout, as the direct upload does."""
+    staging tensor takes their layout, as a direct upload does."""
     images, rois = _request(3, seed=5)
     nchw = np.ascontiguousarray(np.transpose(images, (0, 3, 1, 2)))
-    direct = _serve(engine, "cuda", nchw, rois, "predict_nchw")
-    staged = _serve(engine, "cpu", nchw, rois, "predict_nchw")
+    direct = _direct_nchw(engine, nchw, rois)
+    staged = engine.predict_nchw(nchw, rois)
     _assert_same(staged, direct)
     strided = torch.from_numpy(np.transpose(nchw, (0, 2, 3, 1))).stride()
     assert any(stride == strided for _, stride, _ in engine._staging)
@@ -93,9 +104,9 @@ def test_staged_nchw_entry_keeps_the_layout(engine):
 
 
 def test_staged_arrays_outlive_the_next_call(engine):
-    first = _serve(engine, "cpu", *_request(3, seed=1))
+    first = engine(*_request(3, seed=1))
     kept = [a.copy() for a in first]
-    second = _serve(engine, "cpu", *_request(3, seed=2))
+    second = engine(*_request(3, seed=2))
     assert not np.array_equal(second[1], kept[1])  # the staging tensor was refilled
     _assert_same(first, kept)
 
@@ -108,7 +119,7 @@ def test_staging_builds_once_a_shape(engine):
     requests = [_request(3), _request(3, seed=1), _request(5), _request(5, batch=3)]
     with tracing.recording() as records:
         for images, rois in requests:
-            _serve(engine, "cpu", images, rois)
+            engine(images, rois)
     calls = [r["counters"] for r in records if r["parent"] is None]
     assert [c["staging_builds"] for c in calls] == [2, 0, 1, 1]
     assert [c["pinned_bytes"] for c in calls] == [0] * 4  # nothing page-locked on the CPU
@@ -116,15 +127,17 @@ def test_staging_builds_once_a_shape(engine):
 
 
 def test_cpu_engine_serves_the_direct_path(engine):
-    """By default a CPU engine uploads and downloads as it always has: no
-    staging tensor, nothing page-locked."""
+    """A CPU engine's direct path is the CUDA engine's path without the
+    page-locking: the same staging tensors (the images' and the RoIs', built
+    at its first request), nothing pinned."""
     engine._staging.clear()
     with tracing.recording() as records:
         engine(*_request(3))
     c = records[0]["counters"]
-    assert (c["staging_builds"], c["pinned_bytes"]) == (0, 0)
+    assert (c["staging_builds"], c["pinned_bytes"]) == (2, 0)
     assert c["h2d_bytes"] > 0 and c["d2h_bytes"] > 0
-    assert not engine._staging
+    assert len(engine._staging) == 2
+    assert not any(t.is_pinned() for t in engine._staging.values())
 
 
 @pytest.fixture(scope="module")
@@ -140,9 +153,9 @@ def cuda_engines():
 def test_pinned_outputs_equal_a_pageable_call(cuda_engines, dtype, n_rois):
     engine = cuda_engines[dtype]
     images, rois = _request(n_rois, seed=n_rois)
-    pageable = _serve(engine, "cpu", images, rois)  # not staged on a CUDA engine
+    pageable = _direct(engine, images, rois)
     with tracing.recording() as records:
-        pinned = _serve(engine, "cuda", images, rois)
+        pinned = engine(images, rois)
     _assert_same(pinned, pageable)
     assert all(isinstance(a.base, torch.Tensor) and a.base.is_pinned() for a in pinned)
     assert all(t.is_pinned() for t in engine._staging.values())
@@ -160,11 +173,11 @@ def test_pinned_transfer_at_the_served_shape():
     engine = _engine("cuda", torch.bfloat16, image_size=(480, 640))
     first = _request(124, batch=32, size=(480, 640), seed=1)
     second = _request(124, batch=32, size=(480, 640), seed=2)
-    pageable = _serve(engine, "cpu", *first)
+    pageable = _direct(engine, *first)
     with tracing.recording() as records:
-        pinned = _serve(engine, "cuda", *first)
+        pinned = engine(*first)
         kept = [a.copy() for a in pinned]
-        _serve(engine, "cuda", *second)
+        engine(*second)
     _assert_same(pinned, pageable)
     _assert_same(pinned, kept)
     c = [r["counters"] for r in records if r["parent"] is None]

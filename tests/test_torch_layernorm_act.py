@@ -4,9 +4,10 @@
 the kernel existed (written out below), at every (C, H, W) that the served
 B0 and B7 stage 2 normalises; the modules that route through ``norm_act``
 are held to their unrouted outputs on the CPU, with the kernel's route
-forced (``_KERNEL_DEVICE`` set to the CPU, where ``ln_act`` computes the
-plain chain) and counted. The CUDA kernels run only on a GPU:
-``chip_smoke.py`` phase 21 holds them against ``ln_act_plain`` there.
+forced (``_build.takes_kernel`` answering yes for ``ln_act``, which then
+computes the plain chain) and counted. The CUDA kernels run only on a GPU:
+``chip_smoke.py`` phase 21 holds them against ``ln_act_plain`` there, and
+``tests/test_torch_ln_twin.py`` against their twin.
 """
 
 import itertools
@@ -21,7 +22,7 @@ from human_instance_segmentation_tpu_torch.inference import InferenceEngine, cre
 from human_instance_segmentation_tpu_torch.models.blocks import (ConvNormAct, ResidualBlock,
                                                                  set_head_fusion)
 from human_instance_segmentation_tpu_torch.models.heads import HierarchicalHeadV2
-from human_instance_segmentation_tpu_torch.ops import cuda_norm
+from human_instance_segmentation_tpu_torch.ops import _build, cuda_norm
 from human_instance_segmentation_tpu_torch.ops.activations import get_activation
 from human_instance_segmentation_tpu_torch.ops.norms import GroupNorm2d, LayerNorm2d
 from human_instance_segmentation_tpu_torch.ops.quant import (calibration, collect_scales,
@@ -129,17 +130,19 @@ class _Norm(torch.nn.Module):
 
 
 def request_route(monkeypatch):
-    """norm_act's kernel route on CPU tensors (ln_act then computes the plain
-    chain), each call recorded as (x's shape, qscale)."""
+    """norm_act's kernel route on CPU tensors (the predicate answers yes for
+    ``ln_act``, every other family keeps its CPU twin; ``ln_act`` computes
+    the plain chain), each call recorded as (x's shape, qscale)."""
     calls = []
-    plain = cuda_norm.ln_act_plain
+    takes_kernel = _build.takes_kernel
 
     def counted(x, weight, bias, eps, residual, relu, qscale):
         calls.append((tuple(x.shape), qscale))
-        return plain(x, weight, bias, eps, residual, relu, qscale)
+        return cuda_norm.ln_act_plain(x, weight, bias, eps, residual, relu, qscale)
 
-    monkeypatch.setattr(cuda_norm, "_KERNEL_DEVICE", "cpu")
-    monkeypatch.setattr(cuda_norm, "ln_act_plain", counted)
+    monkeypatch.setattr(_build, "takes_kernel",
+                        lambda t, name: name == "ln_act" or takes_kernel(t, name))
+    monkeypatch.setattr(cuda_norm, "ln_act", counted)
     return calls
 
 
@@ -178,10 +181,15 @@ def test_export_traces_the_modules_chain(kernel_route):
     assert len(kernel_route) == 1  # the eager call only
 
 
-def test_routing_sends_cpu_tensors_to_the_modules():
+def test_routing_sends_cpu_tensors_to_the_modules(monkeypatch):
+    """CPU tensors take no kernel, however eligible: norm_act runs the
+    modules' chain and never reaches ln_act."""
     ln = LayerNorm2d(8)
+    x = torch.randn(2, 8, 4, 4)
+    monkeypatch.setattr(cuda_norm, "ln_act", None)  # reaching it would raise
     with torch.no_grad():
-        assert not cuda_norm.engages(torch.randn(2, 8, 4, 4), ln, F.relu)
+        assert cuda_norm.engages(x, ln, F.relu) and not _build.takes_kernel(x, "ln_act")
+        assert torch.equal(cuda_norm.norm_act(x, ln, F.relu), F.relu(ln(x)))
 
 
 def _old_conv_norm_act(m, x):
@@ -282,7 +290,7 @@ def test_served_b0_forward_routes_every_layernorm(monkeypatch, kernel_route, fus
         got = model(images, rois)[0]
     assert len(kernel_route) == count
     kernel_route.clear()
-    monkeypatch.setattr(cuda_norm, "_KERNEL_DEVICE", "cuda")  # the modules' route
+    monkeypatch.undo()  # the modules' route
     with torch.inference_mode():
         want = model(images, rois)[0]
     assert kernel_route == [] and torch.equal(got, want)

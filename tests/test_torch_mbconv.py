@@ -25,7 +25,7 @@ from human_instance_segmentation_tpu.ops.pallas_mbconv import fused_mbconv_chw
 from human_instance_segmentation_tpu_torch.inference import InferenceEngine, create_flagship
 from human_instance_segmentation_tpu_torch.models.efficientnet import EfficientNetEncoder, MBConv
 from human_instance_segmentation_tpu_torch.models.unet import PeopleSegmentationUNet
-from human_instance_segmentation_tpu_torch.ops import cuda_mbconv
+from human_instance_segmentation_tpu_torch.ops import _build, cuda_mbconv
 from human_instance_segmentation_tpu_torch.weights import load_jax_params
 
 ATOL = 2e-5
@@ -225,8 +225,8 @@ def test_fused_is_ignored_in_training_mode(monkeypatch):
         block.project_conv.weight.mul_(2.0)
         assert block._folded(torch.float32) is not ops
         assert not torch.allclose(block(x), y)
-        block.use_kernel = False  # the plain version, named explicitly
-        assert len(calls) == 2 and torch.isfinite(block(x)).all() and len(calls) == 2
+        with _build.plain():  # the plain twins, through the same entry point
+            assert len(calls) == 2 and torch.isfinite(block(x)).all() and len(calls) == 3
 
 
 @pytest.fixture(scope="module")
@@ -262,15 +262,13 @@ def test_unet_hands_encoder_fused_blocks_down():
     unet = PeopleSegmentationUNet("tiny", encoder_fused_blocks=2)
     blocks = [m for m in unet.encoder.modules() if isinstance(m, MBConv)]
     assert [m.fused for m in blocks] == [True, True] + [False] * (len(blocks) - 2)
-    unet.encoder.set_fused_kernels(False)
-    assert not any(m.use_kernel for m in blocks)
     x = torch.from_numpy(np.random.default_rng(2).random((1, 3, 32, 32)).astype(np.float32))
-    plain = PeopleSegmentationUNet("tiny")
-    plain.load_state_dict(unet.state_dict())
-    with torch.no_grad():
-        np.testing.assert_allclose(unet.eval()(x).numpy(), plain.eval()(x).numpy(), atol=ATOL)
+    unfused = PeopleSegmentationUNet("tiny")
+    unfused.load_state_dict(unet.state_dict())
+    with torch.no_grad(), _build.plain():
+        np.testing.assert_allclose(unet.eval()(x).numpy(), unfused.eval()(x).numpy(), atol=ATOL)
     # training mode runs every block unfused
-    assert unet.train()(x).shape == plain.train()(x).shape
+    assert unet.train()(x).shape == unfused.train()(x).shape
 
 
 def test_fused_mbconv_takes_any_memory_format(rng):
@@ -287,10 +285,10 @@ def test_fused_mbconv_takes_any_memory_format(rng):
                                want.numpy(), atol=1e-6)
 
 
-def test_flagship_serves_encoder_fused_blocks():
+def test_flagship_serves_encoder_fused_blocks(monkeypatch):
     """``create_flagship(encoder_fused_blocks=N)`` reaches the encoder, the
-    engine's ``kernels=False`` reaches the blocks' plain version, and the
-    flag changes the route, not the result."""
+    engine's ``kernels=False`` serves the blocks inside ``plain()`` (their
+    plain twins), and the flag changes the route, not the result."""
     tiny = dict(roi_size=(16, 12), mask_size=(32, 24), image_size=(64, 96), mid_channels=32,
                 base_channels=64)
     rng = np.random.default_rng(3)
@@ -301,14 +299,17 @@ def test_flagship_serves_encoder_fused_blocks():
     blocks = [m for m in fused.pretrained_unet.encoder.modules() if isinstance(m, MBConv)]
     assert sum(m.fused for m in blocks) == 3
     assert fused.state_dict().keys() == plain.state_dict().keys()
+    routes = []  # whether each fused block ran inside plain()
+    real = cuda_mbconv.fused_mbconv
+    monkeypatch.setattr(cuda_mbconv, "fused_mbconv",
+                        lambda *a, **k: routes.append(_build._PLAIN.get()) or real(*a, **k))
     engine = InferenceEngine(fused, device="cpu", dilation_pixels=1, kernels=False)
     inst, binary = engine(images, rois)
-    served = [m for m in engine.model.pretrained_unet.encoder.modules() if isinstance(m, MBConv)]
-    assert not any(m.use_kernel for m in served) and all(m.use_kernel for m in blocks)
+    assert routes == [True] * 3
+    routes.clear()
     engine_k = InferenceEngine(fused, device="cpu", dilation_pixels=1)
     inst_k, binary_k = engine_k(images, rois)
-    assert all(m.use_kernel for m in engine_k.model.pretrained_unet.encoder.modules()
-               if isinstance(m, MBConv))
+    assert routes == [False] * 3
     inst_p, binary_p = InferenceEngine(plain, device="cpu", dilation_pixels=1)(images, rois)
     np.testing.assert_allclose(binary, binary_p, atol=1e-5)
     np.testing.assert_array_equal(binary, binary_k)

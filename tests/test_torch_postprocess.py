@@ -10,6 +10,8 @@ plain version; the CUDA kernels themselves are held against those plain
 versions on a GPU by ``chip_smoke.py``.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from human_instance_segmentation_tpu.ops.pallas_kernels import (bilateral_filter
                                                                 edge_smooth_pallas)
 from human_instance_segmentation_tpu_torch.models import postprocess as pp
 from human_instance_segmentation_tpu_torch.ops import cuda_kernels, morphology
+from human_instance_segmentation_tpu_torch.ops._build import plain
 
 ATOL = 1e-5
 SHAPES = [(2, 16, 24, 3), (1, 9, 13, 1)]
@@ -144,27 +147,30 @@ def test_guided_filter_with_guide_matches_jax(rng):
     np.testing.assert_allclose(pp.guided_filter(_t(x), _t(g), 1, 0.05).numpy(), ref, atol=ATOL)
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("kernels", [True, False])
 @pytest.mark.parametrize("shape,k,ss,sr", [((2, 16, 24, 3), 5, 1.0, 0.1),
                                            ((1, 8, 8, 1), 7, 1.5, 0.2)])
-def test_bilateral_filter_matches_pallas(rng, shape, k, ss, sr, use_kernel):
-    """The shapes of tests/test_pallas_kernels.py; on the CPU both settings
-    of ``use_kernel`` compute the plain version and launch nothing."""
+def test_bilateral_filter_matches_pallas(rng, shape, k, ss, sr, kernels):
+    """The shapes of tests/test_pallas_kernels.py; on the CPU, inside
+    ``plain()`` or not, the wrapper computes the plain version and launches
+    nothing."""
     x = _soft(rng, shape)
     ref = np.asarray(bilateral_filter_pallas(jnp.asarray(x), k, ss, sr, interpret=True))
     before = cuda_kernels.bilateral_filter.launches
-    out = pp.bilateral_filter(_t(x), k, ss, sr, use_kernel=use_kernel)
+    with contextlib.nullcontext() if kernels else plain():
+        out = pp.bilateral_filter(_t(x), k, ss, sr)
     assert cuda_kernels.bilateral_filter.launches == before
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
 
 
-@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("kernels", [True, False])
 @pytest.mark.parametrize("shape", [(2, 16, 16, 1), (2, 16, 24, 3)])
-def test_edge_smooth_matches_pallas(rng, shape, use_kernel):
+def test_edge_smooth_matches_pallas(rng, shape, kernels):
     m = (rng.random(shape) > 0.5).astype(np.float32)
     ref = np.asarray(edge_smooth_pallas(jnp.asarray(m), 0.5, 3.0, interpret=True))
     before = cuda_kernels.edge_smooth.launches
-    out = pp.edge_smooth_binary_mask(_t(m), 0.5, 3.0, use_kernel=use_kernel)
+    with contextlib.nullcontext() if kernels else plain():
+        out = pp.edge_smooth_binary_mask(_t(m), 0.5, 3.0)
     assert cuda_kernels.edge_smooth.launches == before
     np.testing.assert_array_equal(out.numpy(), ref)
 

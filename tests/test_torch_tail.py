@@ -10,6 +10,8 @@ the kernel's plain version; the CUDA kernel is held against it on a GPU by
 ``chip_smoke.py``.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,7 @@ from human_instance_segmentation_tpu.ops.pallas_tail import TR, tail_reference, 
 from human_instance_segmentation_tpu.ops.s2d import space_to_depth
 from human_instance_segmentation_tpu_torch.inference import InferenceEngine, create_flagship
 from human_instance_segmentation_tpu_torch.models.unet import PeopleSegmentationUNet
-from human_instance_segmentation_tpu_torch.ops import cuda_tail, quant
+from human_instance_segmentation_tpu_torch.ops import _build, cuda_tail, quant
 from human_instance_segmentation_tpu_torch.ops.sampling import upsample_2x_bilinear
 from human_instance_segmentation_tpu_torch.weights import load_jax_params
 
@@ -256,8 +258,8 @@ def test_unet_tail_matches_plain_and_jax(unet_pair, monkeypatch):
 @pytest.mark.parametrize("why", ["training", "nearest", "two_classes", "plain_version"])
 def test_unet_tail_gate(unet_pair, monkeypatch, why):
     """The gate keeps what is semantic of the JAX one: eval mode, bilinear
-    upsample, one class. ``tail_use_kernel=False`` takes the plain version
-    explicitly (the comparison path on a GPU)."""
+    upsample, one class. Inside ``plain()`` the tail computes its plain
+    version on any device (the comparison path on a GPU)."""
     base, fast, images, _ = unet_pair
     x = torch.from_numpy(images[:1]).permute(0, 3, 1, 2)
     calls = {"tail": 0, "plain": 0}
@@ -280,11 +282,10 @@ def test_unet_tail_gate(unet_pair, monkeypatch, why):
     else:
         model = PeopleSegmentationUNet("tiny", pallas_tail=True).eval()
         model.load_state_dict(fast.state_dict())
-        model.tail_use_kernel = False
-    with torch.no_grad():
+    with torch.no_grad(), _build.plain() if why == "plain_version" else contextlib.nullcontext():
         form, y = model(x, raw=True)
     if why == "plain_version":
-        assert form == "dense" and calls == {"tail": 0, "plain": 1}
+        assert form == "dense" and calls == {"tail": 1, "plain": 1}
         with torch.no_grad():
             assert torch.equal(y, fast(x, raw=True)[1])
     else:
@@ -347,7 +348,7 @@ def test_person_prob_is_the_wrapper_softmax(flagship_pair, rng):
         np.testing.assert_allclose(model.person_prob(x).numpy(), want.numpy(), atol=1e-6)
 
 
-def test_flagship_dense_branch_matches_its_plain_branch(flagship_pair):
+def test_flagship_dense_branch_matches_its_plain_branch(flagship_pair, monkeypatch):
     _, _, port, images = flagship_pair
     plain = create_flagship(variant="tiny", device="cpu", seed=0, **TINY)
     plain.load_state_dict(port.state_dict())
@@ -357,11 +358,14 @@ def test_flagship_dense_branch_matches_its_plain_branch(flagship_pair):
                                        dilation_pixels=1, fused_head=True)(images, ROIS)
     np.testing.assert_allclose(binary, binary_p, atol=1e-5)
     assert float((inst == inst_p).mean()) >= 0.999
-    # kernels=False reaches the tail's plain version through the engine
+    # kernels=False serves the tail inside plain(), and leaves the caller's context alone
+    routes = []
+    real = cuda_tail.tail
+    monkeypatch.setattr(cuda_tail, "tail",
+                        lambda *a, **k: routes.append(_build._PLAIN.get()) or real(*a, **k))
     engine = InferenceEngine(port, device="cpu", dilation_pixels=1, kernels=False)
     engine(images, ROIS)
-    assert engine.model.pretrained_unet.tail_use_kernel is False
-    assert port.pretrained_unet.tail_use_kernel is True  # the caller's model is left alone
+    assert routes == [True] and not _build._PLAIN.get()
 
 
 def test_calibration_pass_takes_the_unfused_stage(flagship_pair):

@@ -30,7 +30,7 @@ from human_instance_segmentation_tpu.ops.pallas_tail_q import (
     build_tail_weights_q as jax_build_q, tail_with_borders_q)
 from human_instance_segmentation_tpu.ops.s2d import compose_up_conv_kernel
 from human_instance_segmentation_tpu_torch.models.unet import PeopleSegmentationUNet
-from human_instance_segmentation_tpu_torch.ops import cuda_tail, quant
+from human_instance_segmentation_tpu_torch.ops import _build, cuda_tail, quant
 from human_instance_segmentation_tpu_torch.weights import load_jax_params
 from test_torch_tail import _jax_ops, _torch_ops, _weights
 
@@ -276,10 +276,8 @@ def test_unet_int8_routes_through_tail_q(unet_q, monkeypatch):
         print(f"int8 UNet with the s8 tail vs float logits: {100 * err:.2f}% of max |ref|")
         assert err < 0.08  # tests/test_pallas_tail_q.py:114-116
         del calls[:]
-        fast.tail_use_kernel = False  # the plain version, named explicitly
-        with torch.no_grad():
-            assert torch.equal(fast(x, raw=True)[1], y) and calls == ["p"]
-        fast.tail_use_kernel = True
+        with torch.no_grad(), _build.plain():  # the plain version, through the entry point
+            assert torch.equal(fast(x, raw=True)[1], y) and calls == ["q", "p"]
         for missing in ("decoder4#x", "decoder4#mid", "#head"):
             del calls[:]
             quant.set_int8_serving(fast, True, {k: v for k, v in scales.items() if k != missing})
@@ -295,7 +293,6 @@ def test_unet_int8_routes_through_tail_q(unet_q, monkeypatch):
         assert calls == ["f"]
     finally:
         quant.set_int8_serving(fast, False)
-        fast.tail_use_kernel = True
     assert fast.tail_scales is None
 
 

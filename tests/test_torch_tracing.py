@@ -19,12 +19,11 @@ from human_instance_segmentation_tpu_torch.ops import quant
 
 TINY = dict(roi_size=(16, 12), mask_size=(32, 24), image_size=(64, 96), mid_channels=32)
 ENGINE_SPANS = ["engine.call", "engine.pad", "engine.upload", "engine.forward",
-                "engine.switches", "model.stage1", "model.crops", "model.stage2",
-                "model.head.bgfg_unet", "model.head.unread", "engine.outputs",
-                "engine.download"]
+                "model.stage1", "model.crops", "model.stage2", "model.head.bgfg_unet",
+                "model.head.unread", "engine.outputs", "engine.download"]
 PARENTS = {"engine.pad": "engine.call", "engine.upload": "engine.call",
            "engine.forward": "engine.call", "engine.download": "engine.call",
-           "engine.switches": "engine.forward", "model.stage1": "engine.forward",
+           "model.stage1": "engine.forward",
            "model.crops": "engine.forward", "model.stage2": "engine.forward",
            "engine.outputs": "engine.forward", "model.head.unread": "model.stage2",
            "model.head.bgfg_unet": "model.stage2"}
