@@ -224,7 +224,15 @@ package beside the script; it imports nothing of JAX. Phases:
     ``conv_ln_act_s8`` call likewise (``B1_UNIT_CALLS_INT8``: 17, the three
     ConvNormActs behind a pre-quantized boundary on the int8 QConv path),
     every int8 QConv exact, one ``unet_skip_resizes`` a forward, and forward
-    times.
+    times;
+23. CUDA graphs (:func:`graph_serving`): each benchmark cell's engine as
+    ``port_bench`` builds it (configuration, seed-7 weights, calibration,
+    request pool) served from its graph against eager serving on the same
+    engine: every request of the pool replayed equal bit for bit to its
+    eager call, wall ms a ``__call__`` of each in turns and of the capture,
+    the profiler's busy time of replayed requests within 5% of eager ones
+    (read by the benchmark's ``lib/trace.py``), 1 capture, a replay a call
+    and no fallback.
 
 ``python3 chip_smoke.py --phases 1,2,6`` runs a subset (for bring-up); the
 contract run takes no arguments.
@@ -1636,6 +1644,18 @@ def int8_engine(mid: int, dtype, kernels: bool, scales=None):
     return engine
 
 
+@contextlib.contextmanager
+def served_eagerly(engine):
+    """The engine's calls in the block serve eagerly, never from a CUDA
+    graph: for checks that read values back to the host inside a served
+    call, which no graph can hold (and for eager timings)."""
+    engine._graphs_on = lambda: False
+    try:
+        yield
+    finally:
+        del engine._graphs_on
+
+
 def check_int8_calls(engine, images, rois) -> dict:
     """Serve one request and hold every s8 kernel call of that forward
     against its plain version on the very inputs the forward gave it:
@@ -1689,7 +1709,8 @@ def check_int8_calls(engine, images, rois) -> dict:
              if isinstance(m, quant.QConv)]
     cuda_head.conv_ln_act = fused
     try:
-        engine(images, rois)
+        with served_eagerly(engine):  # the checks read values back to the host
+            engine(images, rois)
     finally:
         cuda_head.conv_ln_act = real_c
         for hook in hooks:
@@ -5798,7 +5819,8 @@ def served_ln_forwards(card: str, rng) -> dict:
         checked.launches = 0  # the wrapper counts under its module name, patched here
         cuda_norm.ln_act = checked
         try:
-            engine(images, rois)
+            with served_eagerly(engine):  # the check reads values back to the host
+                engine(images, rois)
         finally:
             cuda_norm.ln_act = real
         torch.cuda.synchronize()
@@ -6024,7 +6046,230 @@ def b1_enhanced_head(card: str, rng) -> list:
              "timings": rows}]
 
 
+# phase 23: the benchmark's cells, most dispatch-bound first, and the seed
+GRAPH_CELLS = ("b7.crowdhuman2", "b1.batch8.coco", "b0.batch32.coco")
+GRAPH_SEED = 7
+GRAPH_TIMED = 12  # calls of each kind timed, in four turns
+GRAPH_BUSY_SHARE = 0.05  # a replayed request's profiled busy time within 5% of an eager one's
+# the hand-written kernels' device names (csrc/), by the entry points whose
+# ``.launches`` count their calls: entry points that share device kernels
+# are one family; every call launches one of its family's kernels or more
+HAND_FAMILIES = {
+    "s8 convs and conv_ln_act": (("qconv2d", "s8_matmul", "conv_ln_act", "conv_ln_act_s8"),
+                                 ("stage_kernel", "wide_kernel", "narrow_kernel",
+                                  "conv_bf16_kernel", "conv_bf16_wgmma_kernel",
+                                  "conv_f32_kernel", "ln_act_kernel")),
+    "tails": (("tail", "tail_q"), ("tail_kernel", "tail_bf16_kernel", "tail_q_kernel")),
+    "mbconv": (("mbconv_sums", "mbconv_apply"), ("mbconv_kernel", "mbconv_bf16_kernel")),
+    "roi_align": (("roi_align",), ("roi_align_kernel",)),
+    "bilateral_filter": (("bilateral_filter",), ("bilateral_kernel",)),
+    "edge_smooth": (("edge_smooth",), ("edge_smooth_kernel",)),
+    "ln_act": (("ln_act",), ("ln_stats_kernel", "ln_apply_kernel")),
+}
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's name without its namespaces, template arguments
+    and parameters (``void ns::(anonymous namespace)::wide_kernel<8>(...)``
+    -> ``wide_kernel``)."""
+    name = re.sub(r"\(anonymous namespace\)", "", name)
+    depth, cut = 0, len(name)
+    for i, ch in enumerate(name):  # the first '<' or '(' outside brackets ends the name
+        if ch in "<(" and depth == 0:
+            cut = i
+            break
+    name = name[:cut]
+    return name.split("::")[-1].split(" ")[-1]
+
+
+def device_kind(name: str) -> str:
+    """A device event's name for counting: kernels by :func:`kernel_name`,
+    memsets and memcpys by kind and direction (a graph's memset node is
+    named ``memset32`` where an eager memset reads ``Memset (Device)``)."""
+    low = name.lower()
+    if low.startswith(("memset", "memcpy")):
+        found = re.search(r"(htod|dtoh|dtod)", low)
+        return low[:6] + (f" {found.group(1)}" if found else "")
+    return kernel_name(name)
+
+
+def counted_launches(fn, reqs, warm) -> tuple:
+    """The device launches, by :func:`device_kind`, of ``fn`` over
+    ``reqs`` under ``torch.profiler``, and the ``launches.*`` counters'
+    calls over them: ``fn(warm)`` runs first in the same trace, whose first
+    records may be lost, and only device events that start after the
+    counted requests' range opened are counted."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from human_instance_segmentation_tpu_torch.tracing import launch_counts
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(warm)
+        torch.cuda.synchronize()
+        before = launch_counts()
+        with record_function("smoke.counted"):
+            for req in reqs:
+                fn(req)
+            torch.cuda.synchronize()
+        after = launch_counts()
+    events = prof.events()
+    start = min(ev.time_range.start for ev in events
+                if ev.name == "smoke.counted" and ev.device_type.name == "CPU")
+    names = Counter(device_kind(ev.name) for ev in events
+                    if ev.device_type.name == "CUDA" and ev.name != "smoke.counted"
+                    and ev.time_range.start >= start)
+    calls = {k[len("launches."):]: after[k] - before[k]
+             for k in after if k.startswith("launches.")}
+    return names, calls
+
+
+def hand_launches(names, calls: dict) -> dict:
+    """By family of :data:`HAND_FAMILIES`: its kernels' device launches in
+    ``names`` and the calls its entry points counted in ``calls``."""
+    return {family: (sum(names[k] for k in kernels), sum(calls[e] for e in entries))
+            for family, (entries, kernels) in HAND_FAMILIES.items()}
+
+
+def graph_serving(card: str) -> dict:
+    """Phase 23: each benchmark cell's engine as ``port_bench`` builds it
+    (its configuration, the seed's weights, calibration and request pool)
+    served from its CUDA graph against eager serving on the same engine:
+    every request of the pool replayed equal bit for bit to its eager
+    call; wall ms a ``__call__`` of each, in turns; the capture's wall ms;
+    ``torch.profiler`` busy time of replayed requests against eager ones,
+    reduced by the benchmark's own ``lib/trace.py`` (a profiler that missed
+    the graph's kernels would read less); the counters (1 capture, a replay
+    a call, 0 fallbacks). The launch counters are Python that a replay
+    does not run, so the replayed path's kernels are checked by name in the
+    traces: every device kernel's launches in the replayed requests equal
+    those in the eager ones, and each hand-written family that the eager
+    calls counted launched on the device in both, at least once a call.
+    Returns wall ms and busy ms by cell."""
+    import numpy as np
+    import torch
+
+    from port_bench.lib import spec, system, traffic
+    from port_bench.lib import weights as weights_mod
+    from port_bench.lib.trace import profile
+
+    def eager(engine, req):
+        with served_eagerly(engine):
+            return engine(req.images, req.rois)
+
+    def timed(fn, reqs) -> list:
+        out = []
+        for req in reqs:
+            t0 = time.perf_counter()
+            fn(req)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    results = {}
+    for name in GRAPH_CELLS:
+        cell = spec.cell(name)
+        config, mix = cell["config"], cell["traffic"]
+        size = tuple(config["model"]["image_size"])
+        w = weights_mod.draw(system.parameter_shapes(config), GRAPH_SEED, "cuda")
+        engine = system.build_engine(config, w, "cuda")
+        calib = traffic.calibration(mix, size, GRAPH_SEED)
+        engine.calibrate(calib.images, calib.rois)
+        pool = traffic.pool(mix, size, GRAPH_SEED)
+        want = [eager(engine, req) for req in pool]
+        engine(pool[0].images, pool[0].rois)  # the shape's first call: eager
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine(pool[0].images, pool[0].rois)  # captures, then replays
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        if (engine.graph_captures, engine.graph_replays, engine.graph_fallbacks) != (1, 0, 0):
+            raise AssertionError(f"23 {name}: counters {engine.graph_captures}, "
+                                 f"{engine.graph_replays}, {engine.graph_fallbacks} after the "
+                                 "capture, want 1, 0, 0")
+        for k, req in enumerate(pool):
+            got = engine(req.images, req.rois)
+            for g, e in zip(got, want[k]):
+                if g.dtype != e.dtype or g.shape != e.shape or not np.array_equal(g, e):
+                    raise AssertionError(f"23 {name}: request {k} replayed differs from its "
+                                         f"eager call ({int((g != e).sum())} values)")
+        if (engine.graph_replays, engine.graph_fallbacks) != (len(pool), 0):
+            raise AssertionError(f"23 {name}: {engine.graph_replays} replays and "
+                                 f"{engine.graph_fallbacks} fallbacks over {len(pool)} calls")
+        reqs = [pool[k % len(pool)] for k in range(GRAPH_TIMED // 4)]
+        ms = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            fn = ((lambda r: eager(engine, r)) if kind == "eager"
+                  else (lambda r: engine(r.images, r.rois)))
+            ms[kind] += timed(fn, reqs)
+        traces, names, hand = {}, {}, {}
+        for kind in ("eager", "graph"):
+            fn = ((lambda r: eager(engine, r)) if kind == "eager"
+                  else (lambda r: engine(r.images, r.rois)))
+            traces[kind] = profile(lambda: [fn(r) for r in pool[:4]], torch.cuda.synchronize)
+            names[kind], calls = counted_launches(fn, pool[:4], pool[4])
+            hand[kind] = hand_launches(names[kind], calls)
+        differ = {n: (names["eager"][n], names["graph"][n])
+                  for n in set(names["eager"]) | set(names["graph"])
+                  if names["eager"][n] != names["graph"][n]}
+        used = {f: list(v) for f, v in hand["eager"].items() if v[0] or v[1]}
+        print(f"23 {name}: device launches of 4 requests eager {sum(names['eager'].values())}, "
+              f"replayed {sum(names['graph'].values())}, differing by name (eager, replayed) "
+              f"{differ}; hand-written families (device launches, calls counted) eager {used}, "
+              f"replayed { {f: list(hand['graph'][f]) for f in used} } [{card}]", flush=True)
+        if differ:
+            raise AssertionError(f"23 {name}: device launches eager and replayed differ")
+        for family, (device, calls) in hand["eager"].items():
+            replayed, replay_calls = hand["graph"][family]
+            if calls and not (device >= calls and replayed == device):
+                raise AssertionError(
+                    f"23 {name}: {family}: {calls} calls counted eager, {device} device "
+                    f"launches eager, {replayed} replayed")
+            if replay_calls or (device and not calls):
+                raise AssertionError(f"23 {name}: {family}: calls counted eager {calls} and "
+                                     f"replayed {replay_calls}, device launches {device}")
+        if not any(calls for _, calls in hand["eager"].values()):
+            raise AssertionError(f"23 {name}: no hand-written kernel ran")
+        busy = {k: t.busy_s / 4 * 1e3 for k, t in traces.items()}
+        idle = {k: 100.0 * (1.0 - t.busy_s / t.window_s) for k, t in traces.items()}
+        kernels = {k: len(t.kernels) for k, t in traces.items()}
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        print(f"23 {name}: {pool[0].images.shape[0]} images x {pool[0].rois.shape[0]} RoIs; "
+              f"{len(pool)} requests replayed equal to their eager calls bit for bit; ms a "
+              f"__call__ (median of {len(ms['eager'])}, in turns) eager {med['eager']:.2f} "
+              f"{[round(t, 2) for t in ms['eager']]}, replayed {med['graph']:.2f} "
+              f"{[round(t, 2) for t in ms['graph']]}; capture call {capture_ms:.1f} ms; "
+              f"profiled busy ms a request eager {busy['eager']:.3f}, replayed "
+              f"{busy['graph']:.3f}; idle eager {idle['eager']:.1f}%, replayed "
+              f"{idle['graph']:.1f}%; device ops seen eager {kernels['eager']}, replayed "
+              f"{kernels['graph']}; counters: {engine.graph_captures} capture, "
+              f"{engine.graph_replays} replays, {engine.graph_fallbacks} fallbacks; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+        if engine.graph_fallbacks or engine.graph_captures != 1:
+            raise AssertionError(f"23 {name}: a capture failed or ran again")
+        if abs(busy["graph"] - busy["eager"]) > GRAPH_BUSY_SHARE * busy["eager"]:
+            raise AssertionError(f"23 {name}: the profiler's busy time of replayed requests "
+                                 f"{busy['graph']:.3f} ms against eager {busy['eager']:.3f}: "
+                                 "it does not see the graph's kernels as it sees eager ones")
+        results[name] = {"eager_ms": med["eager"], "graph_ms": med["graph"],
+                         "busy_ms": busy, "idle_pct": idle, "capture_ms": capture_ms}
+        del engine, w, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def phases_of(label: str) -> set:
+    """The phases of a group label of the summary ("3,6,9,12", "4-8")."""
+    out = set()
+    for part in label.split(","):
+        lo, _, hi = part.partition("-")
+        out |= set(range(int(lo), int(hi or lo) + 1))
+    return out
+
+
 def main() -> None:
+    import atexit
+
     import torch
 
     if not torch.cuda.is_available():
@@ -6065,7 +6310,7 @@ def main() -> None:
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     rng = np.random.default_rng(0)
-    phases = set(range(1, 23))
+    phases = set(range(1, 24))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":
         phases = {int(p) for p in sys.argv[2].split(",")}
     kernels, launches = [], {}
@@ -6077,6 +6322,12 @@ def main() -> None:
         now = time.perf_counter()
         seconds[label] = round(now - mark, 1)
         mark = now
+
+    def passed() -> None:  # the last line, after a failing phase's traceback too
+        done = sorted(p for p in phases if any(p in phases_of(label) for label in seconds))
+        print(f"phases passed: {done} of {sorted(phases)} asked [{card}]", flush=True)
+
+    atexit.register(passed)
 
     if 3 in phases:
         kernels += check_kernels(card, rng)
@@ -6200,6 +6451,11 @@ def main() -> None:
         kernels += b1_enhanced_head(card, rng)
         launches["conv_ln_act_b1"] = PER_FORWARD["conv_ln_act_b1"]["b1_enhanced"]
         took("22")
+
+    if 23 in phases:
+        torch.cuda.empty_cache()
+        graph_serving(card)
+        took("23")
 
     for k in kernels:
         if k["name"] == "conv_ln_act" and A8_PER_FORWARD:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import logging
+from collections import OrderedDict
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -36,17 +37,17 @@ from torch import nn
 from . import tracing
 from .models.assembly import HierarchicalInstanceSegmenter
 from .models.blocks import set_head_fusion
+from .models.efficientnet import MBConv
 from .models.postprocess import mask_dilation_logit_boost
-from .models.unet import PeopleSegUNetWrapper
+from .models.unet import PeopleSegmentationUNet, PeopleSegUNetWrapper
 from .ops._build import plain
-from .ops.quant import calibration, collect_scales, merge_scales, set_int8_serving
+from .ops.quant import QConv, calibration, collect_scales, merge_scales, set_int8_serving
 
 DeviceLike = Union[str, torch.device]
 
 # Default int8 denylist (inference.py:39): the whole stage-1 encoder stays
 # in the engine's float dtype under int8 serving.
 ENCODER_INT8_DENY = ("encoder/",)
-
 
 def resolve_device(device: DeviceLike) -> torch.device:
     """``torch.device(device)``, refusing CUDA where there is none (no
@@ -99,6 +100,51 @@ def deployed_outputs(
         return instance, None
     binary = torch.softmax(full_image_logits, dim=-1)[..., 0:1]
     return instance, binary
+
+
+def _operand_builds() -> Tuple[int, int, int]:
+    """The always-on counters of the operands the served model keeps: the
+    QConvs' packed weights and operands, the fused MBConv blocks' folds and
+    the fused tail's packs."""
+    return QConv.operand_builds, MBConv.fold_builds, PeopleSegmentationUNet.tail_builds
+
+
+def _copied(out):
+    """``out`` (tensors in tuples, lists and dicts) with every tensor cloned."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _copied(v) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_copied(v) for v in out)
+    return out
+
+
+def _python_hooks(model: nn.Module) -> list:
+    """Where Python would run inside ``model``'s forward beside its ops,
+    which a replayed graph skips: global module hooks, forward pre-hooks,
+    and the forward hooks of its submodules (the model's own forward hooks
+    are called after each replay)."""
+    from torch.nn.modules import module as modules
+
+    found = modules._global_forward_hooks or modules._global_forward_pre_hooks
+    return ["global"] * bool(found) + [name or "model" for name, m in model.named_modules()
+                    if m._forward_pre_hooks or (m is not model and m._forward_hooks)]
+
+
+class _Graph:
+    """One request shape's CUDA graph: the static inputs a call copies its
+    request into, the captured forward's outputs that a replay writes, and
+    the model's own arguments and output, for its forward hooks."""
+
+    __slots__ = ("key", "images", "rois", "graph", "out", "model_args", "model_out")
+
+    def __init__(self, key: tuple, images: torch.Tensor, rois: torch.Tensor):
+        self.key, self.images, self.rois = key, images, rois
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: tuple = ()
+        self.model_args: tuple = ()
+        self.model_out = None
 
 
 class InferenceEngine:
@@ -158,6 +204,32 @@ class InferenceEngine:
     are its own, and their block goes back to the allocator's cache when the
     caller drops them: a caller that keeps many outputs alive keeps as much
     page-locked memory.
+
+    On a CUDA device, without a mesh and with tracing off, ``__call__``
+    serves each request shape (the images' shape and layout and the RoI
+    bucket) from a CUDA graph of ``engine.forward``, looked up on the
+    instance as an eager call looks it up: the first call of a shape serves
+    eagerly (it builds the kernels and the operands the model keeps), the
+    second captures the graph, and later ones copy the request into the
+    graph's static inputs and replay it. Every shape keeps its graph (the
+    graphs share one memory pool) until :attr:`scales` is set (by
+    :meth:`calibrate` too), which drops them all, since a graph holds the
+    int8 scales, the operands and ``engine.forward`` as they were captured:
+    after a change to ``engine.model``'s parameters or to
+    ``engine.forward``, set ``engine.scales`` to its own value so that the
+    next calls serve anew. A shape serves eagerly from then on, logged
+    once, where its capture fails (an op a graph cannot hold) or where
+    Python would run inside the model's forward at its capture (a global
+    module hook, a forward pre-hook, a forward hook of a submodule), which
+    a replay would skip. Under tracing (:mod:`.tracing`), whose spans and
+    launch counters are host code around each op, and under a mesh, whose
+    collectives stay eager, every call serves eagerly. After a replay the
+    served model's own forward hooks are called as an eager forward calls
+    them, once a call, on the graph's arguments of the model and a copy of
+    its output (what they return is not used). The always-on counters
+    ``graph_captures``, ``graph_replays`` and ``graph_fallbacks`` count
+    captures, replays (calls served by an earlier capture) and shapes left
+    eager at their capture.
     """
 
     def __init__(
@@ -191,6 +263,10 @@ class InferenceEngine:
         self.mesh = mesh
         self._warned: set = set()
         self._staging: Dict[tuple, torch.Tensor] = {}
+        self._graphs: Dict[tuple, Optional[_Graph]] = {}
+        self._uncapturable: set = set()
+        self._pool = None  # the memory pool the engine's graphs share
+        self.graph_captures = self.graph_replays = self.graph_fallbacks = 0
         set_head_fusion(self.model, fused_head)
         self.scales = None
 
@@ -212,13 +288,17 @@ class InferenceEngine:
     @property
     def scales(self) -> Optional[Dict[str, float]]:
         """The calibrated activation scales (None: dynamic ones). Setting
-        them sets int8 serving on the served copy."""
+        them sets int8 serving on the served copy and drops the CUDA graphs
+        (a shape left eager at its capture tries again)."""
         return self._scales
 
     @scales.setter
     def scales(self, scales: Optional[Dict[str, float]]) -> None:
         self._scales = scales
         set_int8_serving(self.model, self.quantize == "int8", scales, self.int8_deny)
+        self._graphs.clear()
+        self._uncapturable.clear()
+        self._pool = None
 
     def _route(self):
         """The context of the engine's forwards: the hand kernels, or with
@@ -318,10 +398,126 @@ class InferenceEngine:
                     inst, logits = all_gather(inst, self.mesh), all_gather(logits, self.mesh)
         return inst, binary, logits
 
-    def _upload(self, array: np.ndarray, dtype: torch.dtype, pin: bool) -> torch.Tensor:
+    def _graphs_on(self) -> bool:
+        """Whether this call may be served from a CUDA graph: on a CUDA
+        device, without a mesh and with tracing off."""
+        return self.device.type == "cuda" and self.mesh is None and not tracing.enabled()
+
+    def _graph(self, images: torch.Tensor, rois: torch.Tensor) -> Optional[_Graph]:
+        """The CUDA graph of the request in the staging tensors ``images``
+        and ``rois``, None where the call serves eagerly: off a CUDA device,
+        under a mesh, with tracing on, at a shape's first call and for a
+        shape left eager at its capture. The graph that the second call
+        gets has no capture yet (:meth:`_replay` makes it); its static
+        inputs take the staging tensors' layout, as an eager upload does."""
+        if not self._graphs_on():
+            return None
+        key = (tuple(images.shape), images.stride(), rois.shape[0])
+        if key in self._uncapturable:
+            return None
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return None
+        g = self._graphs[key]
+        if g is None:
+            g = self._graphs[key] = _Graph(key, torch.empty_like(images, device=self.device),
+                                           torch.empty_like(rois, device=self.device))
+        return g
+
+    def _capture(self, g: _Graph) -> bool:
+        """Capture ``engine.forward`` (the instance's, as an eager call
+        finds it) on ``g``'s static inputs into a CUDA graph in the engine's
+        memory pool; False where the shape serves eagerly instead: Python
+        would run inside the model's forward (:func:`_python_hooks`), or the
+        capture failed (logged and counted either way). The shape's first
+        call built every kernel and kept operand, so a capture builds none:
+        one built now would hold the pool's memory and values the capture
+        never computed, and raises. The model's forward hooks are held back
+        meanwhile (:meth:`_replay` calls them); one of the capture's own
+        keeps the model's arguments and output."""
+        hooked = _python_hooks(self.model)
+        if hooked:
+            self._leave_eager(g, f"Python a replay would skip runs in the model's forward "
+                                 f"(hooks: {', '.join(hooked)})")
+            return False
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        builds = _operand_builds()
+        stream = torch.cuda.current_stream(self.device)
+        held = {}
+
+        def keep(module, args, out):
+            held["args"], held["out"] = args, out
+
+        hooks, self.model._forward_hooks = self.model._forward_hooks, OrderedDict([(-1, keep)])
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                out = self.forward(g.images, g.rois)
+        except RuntimeError as err:
+            self._abandon_capture(stream)
+            self._leave_eager(g, f"its CUDA graph capture failed: {err}")
+            return False
+        finally:
+            self.model._forward_hooks = hooks
+        if _operand_builds() != builds:
+            raise RuntimeError(
+                f"InferenceEngine: the capture of request shape {g.key} built kept operands "
+                f"(QConv, MBConv fold, tail pack: {builds} -> {_operand_builds()}); the "
+                "shape's eager call should have built them")
+        g.graph, g.out = graph, tuple(out)
+        g.model_args, g.model_out = held.get("args", ()), held.get("out")
+        self.graph_captures += 1
+        return True
+
+    def _leave_eager(self, g: _Graph, why: str) -> None:
+        """Serve ``g``'s shape eagerly from now on (until the graphs are
+        dropped), logged once and counted."""
+        del self._graphs[g.key]
+        self._uncapturable.add(g.key)
+        self.graph_fallbacks += 1
+        logging.getLogger(__name__).warning(
+            "InferenceEngine: request shape %s serves eagerly; %s", g.key, why)
+
+    def _abandon_capture(self, stream: torch.cuda.Stream) -> None:
+        """Undo what a failed capture leaves behind: where ending it raises,
+        ``torch.cuda.graph`` restores neither the caller's stream nor the
+        allocator, which keeps recording into the pool (the next capture
+        would then refuse it). The pool is left to the graphs already in it;
+        later captures take a new one."""
+        torch.cuda.set_stream(stream)
+        try:
+            torch._C._cuda_endAllocateToPool(stream.device_index, self._pool)
+        except RuntimeError:  # the capture had ended its recording
+            pass
+        self._pool = None
+
+    def _replay(self, g: _Graph) -> Optional[tuple]:
+        """The captured forward's outputs for the request in ``g``'s static
+        inputs, from its graph (captured first, where it has none), then
+        the model's forward hooks, each on the graph's arguments of the
+        model and a copy of its output; None where the shape serves
+        eagerly."""
+        if g.graph is not None:
+            self.graph_replays += 1
+        elif not self._capture(g):
+            return None
+        g.graph.replay()
+        m = self.model
+        if m._forward_hooks and g.model_out is not None:
+            with torch.inference_mode():
+                out = _copied(g.model_out)
+                for key, hook in list(m._forward_hooks.items()):
+                    if key in m._forward_hooks_with_kwargs:
+                        hook(m, g.model_args, {}, out)
+                    else:
+                        hook(m, g.model_args, out)
+        return g.out
+
+    def _stage(self, array: np.ndarray, dtype: torch.dtype, pin: bool) -> torch.Tensor:
         """``array`` cast into the staging tensor of its shape and layout
-        (built the first time they are seen; page-locked where ``pin``) and
-        sent to the device without blocking the host. The previous call
+        (built the first time they are seen; page-locked where ``pin``), to
+        be sent to the device without blocking the host. The previous call
         synchronised before it returned, so no copy still reads the staging
         tensor when this one refills it."""
         src = torch.from_numpy(array)
@@ -329,8 +525,7 @@ class InferenceEngine:
         staging = self._staging.get(key)
         if staging is None:
             staging = self._staging[key] = torch.empty_like(src, dtype=dtype, pin_memory=pin)
-        staging.copy_(src)
-        return staging.to(self.device, non_blocking=True)
+        return staging.copy_(src)
 
     def _download(self, t: torch.Tensor, pin: bool) -> torch.Tensor:
         """``t`` copied without blocking into a new host tensor of its layout,
@@ -361,15 +556,23 @@ class InferenceEngine:
                 images_np = np.asarray(images, np.float32)
             with tracing.span("engine.upload"):
                 kept = len(self._staging)
-                images_t = self._upload(images_np, self.dtype, pin)
-                rois_t = self._upload(rois_p, torch.float32, pin)
+                images_s = self._stage(images_np, self.dtype, pin)
+                rois_s = self._stage(rois_p, torch.float32, pin)
+                graph = self._graph(images_s, rois_s)
+                if graph is None:
+                    images_t = images_s.to(self.device, non_blocking=True)
+                    rois_t = rois_s.to(self.device, non_blocking=True)
+                else:
+                    images_t = graph.images.copy_(images_s, non_blocking=True)
+                    rois_t = graph.rois.copy_(rois_s, non_blocking=True)
             h2d = images_t.nbytes + rois_t.nbytes
             tracing.count("images", images_t.shape[0])
             tracing.count("rois", n)
             tracing.count("rois_computed", bucket)
             tracing.count("h2d_bytes", h2d)
             tracing.count("staging_builds", len(self._staging) - kept)
-            inst, binary, _ = self.forward(images_t, rois_t)
+            out = None if graph is None else self._replay(graph)
+            inst, binary, _ = self.forward(images_t, rois_t) if out is None else out
             with tracing.span("engine.download"):
                 inst = inst[:n].float()
                 binary = None if binary is None else binary.float()

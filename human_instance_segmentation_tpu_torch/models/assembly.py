@@ -60,7 +60,7 @@ from ..ops import cuda_roi_align, sampling
 from ..ops.quant import QConv
 from .blocks import ConvNormAct, ResidualBlock, prequantize_for
 from .heads import HierarchicalHeadV2, PretrainedUNetGuidedHead, RefinedHierarchicalHead
-from .unet import PeopleSegmentationUNet, PeopleSegUNetWrapper
+from .unet import PeopleSegmentationUNet, PeopleSegUNetWrapper, kept_constant
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -155,6 +155,7 @@ class HierarchicalInstanceSegmenter(nn.Module):
         self.mask_size = tuple(mask_size)
         self.image_size = tuple(image_size)
         self.pallas_roi_align = pallas_roi_align
+        self._kept: Dict[tuple, torch.Tensor] = {}  # person_prob's probe (kept_constant)
         kw = dict(norm=norm, norm_groups=norm_groups, activation=activation,
                   activation_beta=activation_beta)
         self.pretrained_unet = PeopleSegmentationUNet(
@@ -217,8 +218,7 @@ class HierarchicalInstanceSegmenter(nn.Module):
         shape, as ``sigmoid((w0 - w1) x + (b0 - b1))``: the wrapper's weights
         are read by a two-point probe, so this holds for any trained
         wrapper and stays elementwise."""
-        probe = self.unet_wrapper(torch.tensor([0.0, 1.0], dtype=x.dtype,
-                                               device=x.device).reshape(2, 1, 1, 1))
+        probe = self.unet_wrapper(kept_constant(self._kept, "probe", [[[[0.0]]], [[[1.0]]]], x))
         bias = probe[0, :, 0, 0]
         wvec = probe[1, :, 0, 0] - bias
         return torch.sigmoid(x * (wvec[0] - wvec[1]) + (bias[0] - bias[1]))

@@ -109,6 +109,8 @@ class MBConv(nn.Module):
     CPU or inside ``ops._build.plain()``. Same parameters by name.
     """
 
+    fold_builds = 0  # folds made by _folded() (always on; still in steady serving)
+
     def __init__(self, in_channels: int, out_channels: int, expand_ratio: int, kernel: int,
                  stride: int, se_ratio: float = 0.25, fused: bool = False):
         super().__init__()
@@ -140,6 +142,7 @@ class MBConv(nn.Module):
         key = (dt, tuple((t.device, t.data_ptr(), t._version) for t in tensors)) if keep else None
         if keep and self._fold is not None and self._fold[0] == key:
             return self._fold[1]
+        MBConv.fold_builds += 1
 
         def bn(m):
             return cuda_mbconv.fold_bn(m.weight, m.bias, m.running_mean, m.running_var, m.eps)

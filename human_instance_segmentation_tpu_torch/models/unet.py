@@ -36,6 +36,24 @@ from .efficientnet import EfficientNetEncoder, encoder_feature_channels
 _NCHW = (2, 3)
 
 
+def kept_constant(kept: Dict[tuple, torch.Tensor], name: str, values,
+                  like: torch.Tensor) -> torch.Tensor:
+    """``torch.tensor(values)`` in ``like``'s dtype on its device, made at
+    the first forward that asks and kept in ``kept`` under (``name``, dtype,
+    device), so a later forward copies nothing from the host (a CUDA graph
+    cannot capture such a copy). Made outside inference mode, so autograd
+    may save it; nothing is kept under ``torch.export`` or
+    ``torch.compile``, whose tracing tensors are no constants."""
+    key = (name, like.dtype, like.device)
+    t = kept.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = torch.tensor(values, dtype=like.dtype, device=like.device)
+        if not torch.compiler.is_compiling():
+            kept[key] = t
+    return t
+
+
 class DecoderBlock(nn.Module):
     """2x upsample -> concat skip -> (conv-BN-ReLU) x 2."""
 
@@ -76,6 +94,8 @@ class PeopleSegmentationUNet(nn.Module):
     """EfficientNet-UNet: images in [0, 1] (B, 3, H, W) -> logits
     (B, classes, H, W); ImageNet normalisation inside."""
 
+    tail_builds = 0  # packs made by _tail_operands() (always on; still in steady serving)
+
     def __init__(self, encoder_variant: str = "b0",
                  decoder_channels: Sequence[int] = (256, 128, 64, 32, 16), classes: int = 1,
                  normalize_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406),
@@ -93,6 +113,7 @@ class PeopleSegmentationUNet(nn.Module):
         self._tail_packed = None  # (key, weights kept alive, packed operands)
         self.normalize_mean = tuple(normalize_mean)
         self.normalize_std = tuple(normalize_std)
+        self._kept: Dict[tuple, torch.Tensor] = {}  # (name, dtype, device) -> constant
         self.encoder = EfficientNetEncoder(encoder_variant, fused_blocks=encoder_fused_blocks)
         taps = encoder_feature_channels(encoder_variant)
         skips = list(taps[:-1])[::-1]  # s16, s8, s4, s2
@@ -147,6 +168,7 @@ class PeopleSegmentationUNet(nn.Module):
         key = (form, dtype, self.tail_scales if form == "int8" else None,
                tuple((t.device, t.data_ptr(), t._version) for t in tensors))
         if self._tail_packed is None or self._tail_packed[0] != key:
+            PeopleSegmentationUNet.tail_builds += 1
             with torch.inference_mode(False), torch.no_grad():
                 if form == "int8":
                     wq = cuda_tail.build_tail_weights_q(*operands, *self.tail_scales)
@@ -176,15 +198,19 @@ class PeopleSegmentationUNet(nn.Module):
             return cuda_tail.tail(x, *operands, packed=self._tail_operands(operands, h.dtype, form))
         return cuda_tail.tail(x, *operands)
 
+    def normalize(self, images: torch.Tensor) -> torch.Tensor:
+        """``(images - mean) / std`` over the channel axis of (B, 3, H, W),
+        the constants in the images' dtype (:func:`kept_constant`)."""
+        mean = kept_constant(self._kept, "mean", self.normalize_mean, images)
+        std = kept_constant(self._kept, "std", self.normalize_std, images)
+        return (images - mean[:, None, None]) / std[:, None, None]
+
     def forward(self, images: torch.Tensor, raw: bool = False):
         """Logits (B, classes, H, W). With ``raw=True`` returns ``(form,
         tensor)``: ``("dense", (B, H, W))`` when the fused tail ran (the
         one-class logit map without a channel axis), else ``("plain",
         (B, classes, H, W))``."""
-        mean = torch.tensor(self.normalize_mean, dtype=images.dtype, device=images.device)
-        std = torch.tensor(self.normalize_std, dtype=images.dtype, device=images.device)
-        x = (images - mean[:, None, None]) / std[:, None, None]
-        feats = self.encoder(x)
+        feats = self.encoder(self.normalize(images))
         skips = list(feats[:-1])[::-1]
         h = feats[-1]
         for i in range(self.n_decoders):

@@ -50,9 +50,7 @@ class YOLOFeatureDistillStudent(PeopleSegmentationUNet):
         self.proj_conv1 = nn.Conv2d(ch, yolo_feature_dim, 1)
 
     def forward(self, images: torch.Tensor, return_features: bool = False):
-        mean = torch.tensor(self.normalize_mean, dtype=images.dtype, device=images.device)
-        std = torch.tensor(self.normalize_std, dtype=images.dtype, device=images.device)
-        feats = self.encoder((images - mean[:, None, None]) / std[:, None, None])
+        feats = self.encoder(self.normalize(images))
         projected = None
         if return_features:
             h = feats[2]  # the stride-8 feature

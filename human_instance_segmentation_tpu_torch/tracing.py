@@ -100,6 +100,11 @@ class _Span:
                 rec["counters"][k] = rec["counters"].get(k, 0) + v - self.launches[k]
 
 
+def enabled() -> bool:
+    """Whether spans and counters are on (inside :func:`recording`)."""
+    return _on
+
+
 def span(name: str):
     """A context marking the stage ``name``: a no-op unless tracing is on."""
     if not _on:

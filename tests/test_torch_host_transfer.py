@@ -1,4 +1,4 @@
-"""The engine's host staging (``InferenceEngine._upload`` / ``_download``):
+"""The engine's host staging (``InferenceEngine._stage`` / ``_download``):
 each request's images and RoIs cast into a staging tensor kept for their
 shape and sent without blocking, the outputs copied without blocking into
 new host tensors, page-locked on a CUDA device.
